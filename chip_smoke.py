@@ -14,13 +14,26 @@ Phases, each printing JSON lines:
      the packed decode cache, bf16 flow with fused attention/norm, bf16 HiFT)
      on seeded random weights and answer 3 zero-shot requests through
      CosyVoice2.inference_zero_shot; every kernel must launch;
-  6. timing  - at the main path's shapes: each kernel against its plain
+  6. fused_step - the main path's int8 LM (same weights) with greedy
+     sampling from the first request's prompt, 200 steps, through
+     lm_generate (K1 in every layer) and lm_generate_fused_step (one K6
+     launch a step): ms/token of each, K6 launches (must equal the decode
+     steps), the free-running token match and the teacher-forced argmax
+     agreement of K6 against the K1 path;
+  7. int4    - one full-width zero-shot request with the LM quantized to
+     packed int4 (group 128) from the same seeded bf16 weights: latency,
+     RTF, LM ms/token, K5 launches (must be > 0), a finite waveform, and
+     the teacher-forced argmax agreement with the bf16 LM;
+  8. timing  - at the main path's shapes: each kernel against its plain
      version on the same inputs, then the kernel, the plain version and the
      one PyTorch call that computes the same function, timed (CUDA events).
+Phase 3 also holds K5 (int4_matmul) and K6 (lm_step) against their plain
+versions at the shapes phases 6 and 7 give them.
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -37,6 +50,16 @@ BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 # bf16: both round one fp32 result to bf16 once, so they may differ by one
 # bf16 ulp of |y| (<= 2**-7 |y|) and, near zero, by the fp32 difference.
 CHECK_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -7)}
+# K6 (lm_step) bar: max |kernel - plain| <= rel * max |plain| over the output
+# hidden state and every layer's new k/v.  fp32: the two differ only in the
+# order of fp32 sums (measured 1e-6 of max |y| at 24 layers).  bf16: both
+# round every intermediate the way the JAX step does, but a sum that lands
+# next to a bf16 rounding boundary can round the other way in one of them,
+# and 24 random layers carry and grow that ulp: measured 2.6e-2 of max |y|
+# (5.5 ulps of |y| ~ 13) on an H100, so the bar is twice that.
+K6_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 6e-2}
+# the LM's projection shapes (in, out) at Qwen2-0.5B width: q/o, k/v, gate/up, down
+K5_SHAPES = ((896, 896), (896, 128), (896, 4864), (4864, 896))
 
 
 def emit(obj) -> None:
@@ -127,6 +150,70 @@ def kernel_checks(K1, K2, K3) -> dict:
         e = [check(f"fused_layer_norm_{act}", dtype, K3.fused_layer_norm(x, w, b, 1e-5, act),
                    K3.layer_norm_plain(x, w, b, 1e-5, act)) for act in ("none", "mish")]
         errs["fused_layer_norm"] = max(e)
+    return errs
+
+
+def step_inputs(K6, dtype, seed: int, L: int = 24, C: int = 384, pos: int = 364) -> dict:
+    """One full-width B=1 decode step's inputs for K6: seeded random int8 step
+    weights at Qwen2-0.5B widths, x, caches [L, C, 128], RoPE at pos."""
+    from cosyvoice_tpu_torch.models.qwen2 import rope_cos_sin
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = K6.random_step_weights(L, 896, 4864, 14, 2, 64, g, "cuda")
+    x = torch.randn(1, 896, generator=g, device="cuda").to(dtype)
+    kc, vc = (torch.randn(L, C, 128, generator=g, device="cuda").to(dtype) for _ in range(2))
+    cos, sin = (t[0, 0] for t in rope_cos_sin(torch.tensor([[pos]], device="cuda"), 64,
+                                              1e6, torch.float32))
+    return dict(w=w, x=x, kc=kc, vc=vc, pos=pos, cos=cos, sin=sin)
+
+
+def run_step(K6, inp: dict, plain: bool = False, kc=None, vc=None):
+    fn = K6.lm_step_plain if plain else K6.lm_step
+    return fn(inp["w"], inp["x"], inp["kc"] if kc is None else kc,
+              inp["vc"] if vc is None else vc, inp["pos"], inp["cos"], inp["sin"],
+              nq=14, nkv=2, hd=64)
+
+
+def check_step(K6, inp: dict, dtype, phase="kernels") -> float:
+    """K6 against its plain version: the output hidden state and every
+    layer's new k/v row; the rest of the cache must stay untouched."""
+    kc2, vc2 = inp["kc"].clone(), inp["vc"].clone()
+    y = run_step(K6, inp)
+    y_ref = run_step(K6, inp, plain=True, kc=kc2, vc=vc2)
+    pos, rel = inp["pos"], K6_REL_TOL[dtype]
+    errs, ok = {}, True
+    for name, got, want in (("y", y, y_ref), ("new_k", inp["kc"][:, pos], kc2[:, pos]),
+                            ("new_v", inp["vc"][:, pos], vc2[:, pos])):
+        got, want = got.float(), want.float()
+        errs[name] = float((got - want).abs().max())
+        ok &= errs[name] <= rel * float(want.abs().max())
+    rest = [c[:, r] for c in (inp["kc"], kc2, inp["vc"], vc2)
+            for r in (slice(0, pos), slice(pos + 1, None))]
+    untouched = all(torch.equal(rest[i], rest[i + 2]) for i in (0, 1, 4, 5))
+    emit({"phase": phase, "check": "lm_step", "dtype": str(dtype).split(".")[1],
+          "max_abs_err": errs, "max_abs_plain": float(y_ref.float().abs().max()),
+          "rel_tol": rel, "cache_rest_untouched": untouched, "ok": ok and untouched})
+    if not (ok and untouched):
+        raise AssertionError(f"lm_step ({dtype}) disagrees with its plain version: {errs}")
+    return max(errs.values())
+
+
+def quant_kernel_checks(K5, K6) -> dict:
+    """K5 at the LM's projection shapes (decode: 1 row, prefill: 200 rows,
+    group 128) and K6 for one full-width step at pos 364, each against its
+    plain version in fp32 and bf16; returns the max error per kernel (bf16)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    errs = {"int4_matmul": 0.0, "lm_step": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for IN, OUT in K5_SHAPES:
+            w = K5.pack_int4(torch.randint(-7, 8, (IN, OUT), generator=g, device="cuda"))
+            scale = torch.rand(IN // 128, OUT, generator=g, device="cuda") * 0.02 + 1e-3
+            for rows in (1, 200):
+                x = torch.randn(rows, IN, generator=g, device="cuda").to(dtype)
+                e = check(f"int4_matmul_{rows}x{IN}x{OUT}", dtype, K5.int4_matmul(x, w, scale),
+                          K5.int4_matmul_plain(x, w, scale))
+                errs["int4_matmul"] = max(errs["int4_matmul"], e)
+        errs["lm_step"] = check_step(K6, step_inputs(K6, dtype, 6), dtype)
     return errs
 
 
@@ -239,7 +326,7 @@ def main_path(K1, K2, K3, smi: str, profile: bool) -> dict:
         speech_tokenizer=lambda wav: seeded(wav).integers(0, 6561, len(wav) * 25 // 16000),
         spk_embedder=lambda wav: seeded(wav).standard_normal(192).astype(np.float32))
     cv = CosyVoice2(frontend=frontend, model=model)
-    decodes, stage = [], {"lm_s": 0.0, "flow_s": 0.0, "hift_s": 0.0}
+    decodes, prompts, stage = [], [], {"lm_s": 0.0, "flow_s": 0.0, "hift_s": 0.0}
 
     def timed(key, fn):
         def run(*args):
@@ -254,6 +341,7 @@ def main_path(K1, K2, K3, smi: str, profile: bool) -> dict:
     def recording_generate(text_tokens, prompt_text_len, prompt_speech, gen):
         tokens = generate(text_tokens, prompt_text_len, prompt_speech, gen)
         decodes.append((len(text_tokens), len(prompt_speech), len(tokens)))
+        prompts.append((np.asarray(text_tokens), np.asarray(prompt_speech)))
         return tokens
 
     generate = timed("lm_s", model.llm_generate)
@@ -298,7 +386,190 @@ def main_path(K1, K2, K3, smi: str, profile: bool) -> dict:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if profile:
         profile_request(lambda: request(len(texts), texts[-1]))
-    res["last_decode"] = decodes[-1]
+    res.update(last_decode=decodes[-1], first_prompt=prompts[0], first_text=texts[0],
+               prompt_wav=prompt, stack=(llm, flow, hift, frontend))
+    return res
+
+
+def teacher_forced_argmax(lm, step_w, text, psp, forced, cache_len: int, fused: bool):
+    """Feed `forced` token by token after the prefill, through the K1 decode
+    path (forward_hidden at T=1) or one K6 launch a step; -> the argmax of
+    the logits after each fed token."""
+    from cosyvoice_tpu_torch.models.qwen2 import (KVCache, causal_prefill_bias, rms_norm,
+                                                  rope_cos_sin)
+    from cosyvoice_tpu_torch.ops.kernels.lm_step import cache_to_step_layout, lm_step
+    from cosyvoice_tpu_torch.ops.masks import NEG_INF
+
+    q, dev = lm.cfg.qwen, text.device
+    emb, seq_len = lm.prefill_embeds(text, torch.tensor([text.shape[1]], device=dev), psp,
+                                     torch.tensor([psp.shape[1]], device=dev))
+    Tp = emb.shape[1]
+    cache = KVCache.create(q, 1, cache_len, emb.dtype, dev)
+    _, cache = lm.forward_hidden(emb, torch.arange(Tp, device=dev)[None],
+                                 causal_prefill_bias(Tp, cache_len, seq_len, 1, emb.dtype, dev),
+                                 cache)
+    kc, vc = cache_to_step_layout(cache.k, cache.v, cache_len)
+    slot = torch.arange(cache_len, device=dev)
+    out = []
+    for t, tok in enumerate(forced.tolist()):
+        pos = Tp + t
+        e = lm.speech_emb(torch.tensor([[tok]], device=dev))
+        if fused:
+            cos, sin = rope_cos_sin(torch.tensor([[pos]], device=dev), q.head_dim,
+                                    q.rope_theta, torch.float32)
+            y = lm_step(step_w, e[0], kc, vc, pos, cos[0, 0], sin[0, 0], nq=q.num_heads,
+                        nkv=q.num_kv_heads, hd=q.head_dim, eps=q.rms_norm_eps)
+            h = rms_norm(y, lm.body.norm.weight, q.rms_norm_eps)[None]
+        else:
+            bias = torch.where(slot <= pos, 0.0, NEG_INF).to(emb.dtype)[None, None, None]
+            h, cache = lm.forward_hidden(e, torch.tensor([[pos]], device=dev), bias, cache)
+        out.append(lm.decode_logits(h)[0, 0].argmax())
+    return torch.stack(out)
+
+
+@torch.no_grad()
+def fused_step_phase(llm, prompt, K1, K6, smi: str, n: int = 200) -> dict:
+    """The main path's int8 LM (its weights, shared) with greedy sampling,
+    from the first request's prompt, n steps (EOS masked throughout):
+    lm_generate (K1 in every layer) against lm_generate_fused_step (K6)."""
+    from cosyvoice_tpu_torch.models.llm import (Qwen2LM, SamplingConfig, lm_generate,
+                                                lm_generate_fused_step, lm_step_supported)
+    from cosyvoice_tpu_torch.ops.kernels.lm_step import pack_step_weights
+    from cosyvoice_tpu_torch.runtime.model import round_up
+
+    cfg = dataclasses.replace(llm.cfg, sampling=SamplingConfig(method="greedy"))
+    if not lm_step_supported(cfg.qwen):
+        raise AssertionError(f"the main path's LM is not one lm_step takes: {cfg.qwen}")
+    with torch.device("cuda"):
+        lm = Qwen2LM(cfg)
+    lm.load_state_dict(llm.state_dict(), strict=True, assign=True)
+    lm.eval()
+    step_w = pack_step_weights(lm.body.state_dict(), cfg.qwen.num_layers)
+    text_tokens, prompt_speech = prompt
+    text = torch.as_tensor(text_tokens, dtype=torch.long, device="cuda")[None]
+    psp = torch.as_tensor(prompt_speech, dtype=torch.long, device="cuda")[None]
+    cache_len = round_up(2 + text.shape[1] + psp.shape[1] + n, 128)
+    lens = [torch.tensor([v], device="cuda") for v in (text.shape[1], psp.shape[1], n, n)]
+    args = (text, lens[0], psp, lens[1], lens[2], lens[3], None)
+    decode_logits, heads = lm.decode_logits, [0]
+
+    def counting_head(h):       # one call per sampled token: decode steps + 1
+        heads[0] += 1
+        return decode_logits(h)
+
+    lm.decode_logits = counting_head
+    runs = {}
+    for name, fn in (("k1_path", lambda: lm_generate(lm, *args, max_steps=n,
+                                                     cache_len=cache_len)),
+                     ("fused_step", lambda: lm_generate_fused_step(
+                         lm, step_w, *args, max_steps=n, cache_len=cache_len))):
+        K1.launches = K6.launches = heads[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cnt = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        count = int(cnt[0])
+        runs[name] = dict(tokens=count, decode_steps=heads[0] - 1, s=wall,
+                          ms_per_token=wall * 1e3 / max(count, 1),
+                          k1_launches=K1.launches, k6_launches=K6.launches,
+                          out=out[0, :count].cpu())
+    lm.decode_logits = decode_logits
+    a, b = runs["k1_path"]["out"], runs["fused_step"]["out"]
+    m = min(len(a), len(b))
+    differ = torch.nonzero(a[:m] != b[:m]).flatten()
+    match = int(differ[0]) if len(differ) else m
+    tf = [teacher_forced_argmax(lm, step_w, text, psp, a[:-1], cache_len, fused)
+          for fused in (False, True)]
+    agree = float((tf[0] == tf[1]).float().mean())
+    for r in runs.values():
+        del r["out"]
+    res = {"phase": "fused_step", "card": smi, "steps": n, "runs": runs,
+           "free_running_match_tokens": match, "teacher_forced_steps": len(tf[0]),
+           "teacher_forced_agreement": agree, "agreement_gate": 0.9,
+           "k6_launches": runs["fused_step"]["k6_launches"]}
+    emit(res)
+    fs = runs["fused_step"]
+    if fs["k6_launches"] != fs["decode_steps"] or fs["decode_steps"] < 1:
+        raise AssertionError(f"K6 launched {fs['k6_launches']} times for "
+                             f"{fs['decode_steps']} decode steps")
+    del step_w, lm
+    return res
+
+
+@torch.no_grad()
+def int4_phase(res_main: dict, K5, smi: str) -> dict:
+    """One full-width zero-shot request (the main path's first) with the LM
+    quantized to packed int4 at group 128 from the same seeded bf16 weights;
+    then the teacher-forced argmax agreement of the int4 LM with the bf16 LM
+    over the request's generated tokens."""
+    from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LM
+    from cosyvoice_tpu_torch.models.qwen2 import causal_prefill_bias
+    from cosyvoice_tpu_torch.runtime.api import CosyVoice2
+    from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model
+    from cosyvoice_tpu_torch.utils.quant import quantize_qwen_int4
+
+    _, flow, hift, frontend = res_main["stack"]
+    lm_cfg = LMConfig()
+    with torch.device("cuda"):
+        fp = Qwen2LM(lm_cfg)
+        rand_init_(fp, 12345)           # the seed full_width_stack() draws the LM from
+        fp = fp.to(torch.bfloat16).eval()
+        llm4 = Qwen2LM(dataclasses.replace(lm_cfg, qwen=dataclasses.replace(
+            lm_cfg.qwen, quant="int4", quant_group=128, fused_cache_update=True)))
+    llm4.load_state_dict(quantize_qwen_int4(fp.state_dict(), group_size=128), strict=True,
+                         assign=True)
+    model = CosyVoice2Model(llm=llm4, flow=flow, hift=hift, max_decode_tokens=200,
+                            device="cuda")
+    cv = CosyVoice2(frontend=frontend, model=model)
+    generate, got, lm_s = model.llm_generate, [], [0.0]
+
+    def timed_generate(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = generate(*a)
+        torch.cuda.synchronize()
+        lm_s[0] += time.perf_counter() - t0
+        got.append(tokens)
+        return tokens
+
+    model.llm_generate = timed_generate
+    K5.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavs = [o["tts_speech"] for o in cv.inference_zero_shot(
+        res_main["first_text"], "A short prompt.", res_main["prompt_wav"],
+        gen=torch.Generator().manual_seed(0))]
+    torch.cuda.synchronize()
+    latency = time.perf_counter() - t0
+    k5_launches = K5.launches
+    wav = np.concatenate(wavs)
+    n_tok = len(got[-1])
+
+    text_tokens, prompt_speech = res_main["first_prompt"]
+    seq = np.concatenate([prompt_speech, got[-1]])
+    text = torch.as_tensor(text_tokens, dtype=torch.long, device="cuda")[None]
+    sp = torch.as_tensor(seq, dtype=torch.long, device="cuda")[None]
+
+    def tf_argmax(m):
+        emb, seq_len = m.prefill_embeds(text, torch.tensor([text.shape[1]], device="cuda"), sp,
+                                        torch.tensor([sp.shape[1]], device="cuda"))
+        T = emb.shape[1]
+        h, _ = m.forward_hidden(emb, torch.arange(T, device="cuda")[None],
+                                causal_prefill_bias(T, T, seq_len, 1, emb.dtype, "cuda"))
+        # the predictions of the n_tok generated tokens
+        return m.decode_logits(h)[0, T - n_tok - 1:T - 1].argmax(-1)
+
+    agree = float((tf_argmax(llm4) == tf_argmax(fp)).float().mean()) if n_tok else 0.0
+    res = {"phase": "int4", "card": smi, "speech_tokens": n_tok, "wav_samples": len(wav),
+           "latency_s": latency, "rtf": latency / max(len(wav) / 24000.0, 1e-9),
+           "lm_s": lm_s[0], "lm_ms_per_token": lm_s[0] * 1e3 / max(n_tok, 1),
+           "k5_launches": k5_launches, "wav_finite": bool(np.isfinite(wav).all()),
+           "teacher_forced_agreement_vs_bf16": agree}
+    emit(res)
+    if not k5_launches or not res["wav_finite"] or n_tok == 0 \
+            or wav.shape != (n_tok * 2 * 480,):
+        raise AssertionError(f"int4 request failed: {res}")
     return res
 
 
@@ -323,7 +594,7 @@ def profile_request(run) -> None:
           "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:25]]})
 
 
-def timing(K1, K2, K3, last_decode) -> list:
+def timing(K1, K2, K3, K5, K6, last_decode) -> list:
     """At the last request's shapes (bf16): each kernel against its plain
     version on the same inputs, then kernel, plain and library times."""
     dev, bf = torch.device("cuda"), torch.bfloat16
@@ -348,13 +619,20 @@ def timing(K1, K2, K3, last_decode) -> list:
     isz = 2
     k1_bytes = 2 * pos * 128 * isz + pos * 4 + 2 * 7 * 128 * isz + 4 * 128 * isz
     k1_flops = 4 * 7 * 128 * (pos + 1)
+    # library yardstick: SDPA with GQA over the live rows plus the new one,
+    # [1, 14, 1, 64] x [1, 2, pos+1, 64]; it leaves out the in-place append
+    q_sd = q.reshape(1, 7, 2, 64).transpose(1, 2).reshape(1, 14, 1, 64)
+    k_sd, v_sd = (torch.cat([c[:, :pos], new], dim=1).reshape(1, pos + 1, 2, 64)
+                  .transpose(1, 2).contiguous() for c, new in ((ck, kn), (cv, vn)))
     rows.append(dict(
         name="lm_decode_attention", source="cosyvoice_tpu_torch/csrc/lm_decode_attention.cu",
         replaces="cosyvoice_tpu/ops/pallas/lm_decode_attention.py:123", shape=[1, T, pos],
         ms=time_ms(lambda: K1.lm_decode_attention(q, kn, vn, ck, cv, bias, p, 64, 0.125)),
         plain_ms=time_ms(lambda: K1.lm_decode_attention_plain(q, kn, vn, ck, cv, bias, p,
                                                               64, 0.125)),
-        library_ms=None, bytes=k1_bytes, flops=k1_flops, max_abs_err=k1_err))
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q_sd, k_sd, v_sd, scale=0.125, enable_gqa=True)),
+        bytes=k1_bytes, flops=k1_flops, max_abs_err=k1_err))
 
     # K2: the CFG batch of the last request's flow call, T padded to 128
     n = n_prompt + n_tok
@@ -393,6 +671,52 @@ def timing(K1, K2, K3, last_decode) -> list:
         library_ms=time_ms(lambda: F.layer_norm(x, (256,), w, b, 1e-5)),
         bytes=2 * 2 * Tp * 256 * isz + 2 * 256 * isz, flops=10 * 2 * Tp * 256,
         max_abs_err=k3_err))
+
+    # K5: one decode row through each projection shape; the row is 896 -> 4864
+    def k5_inputs(IN, OUT, rows=1):
+        w = K5.pack_int4(torch.randint(-7, 8, (IN, OUT), generator=g, device=dev))
+        return r(rows, IN), w, torch.rand(IN // 128, OUT, generator=g, device=dev) * 0.02 + 1e-3
+
+    def k5_bytes(IN, OUT, rows=1):
+        return IN // 2 * OUT + IN // 128 * OUT * 4 + rows * (IN + OUT) * isz
+
+    shapes = []
+    for IN, OUT in K5_SHAPES:
+        args = k5_inputs(IN, OUT)
+        shapes.append(dict(shape=[1, IN, OUT], ms=time_ms(lambda: K5.int4_matmul(*args)),
+                           bound_ms=k5_bytes(IN, OUT) / HBM_BYTES_PER_S * 1e3))
+    emit({"phase": "timing", "kernel": "int4_matmul", "decode_shapes": shapes})
+    x5 = k5_inputs(896, 4864)
+    k5_err = check("int4_matmul", bf, K5.int4_matmul(*x5), K5.int4_matmul_plain(*x5),
+                   phase="timing")
+    rows.append(dict(
+        name="int4_matmul", source="cosyvoice_tpu_torch/csrc/int4_matmul.cu",
+        replaces="cosyvoice_tpu/ops/pallas/int4_matmul.py:84", shape=[1, 896, 4864],
+        ms=time_ms(lambda: K5.int4_matmul(*x5)),
+        plain_ms=time_ms(lambda: K5.int4_matmul_plain(*x5)), library_ms=None,
+        bytes=k5_bytes(896, 4864), flops=2 * 896 * 4864, max_abs_err=k5_err))
+
+    # K6: one full-width step at the K1 row's frontier (pos 364 of 384 rows)
+    inp = step_inputs(K6, bf, 7, C=T, pos=pos)
+    k6_err = check_step(K6, inp, bf, phase="timing")
+    w = inp["w"]
+    n_int8 = sum(t.numel() for t in (w.wqkv, w.wo, w.wg, w.wu, w.wd))
+    n_f32 = sum(t.numel() for t in (w.sqkv, w.bqkv, w.so, w.sg, w.su, w.sd, w.n1, w.n2))
+    L = w.wqkv.shape[0]
+    k6_ms = time_ms(lambda: run_step(K6, inp))
+    n_sync = 5 * L - 1
+    grid = K6.sync_probe(n_sync, 896, 4864, 14, T, bf, dev)
+    sync_ms = time_ms(lambda: K6.sync_probe(n_sync, 896, 4864, 14, T, bf, dev))
+    rows.append(dict(
+        name="lm_step", source="cosyvoice_tpu_torch/csrc/lm_step.cu",
+        replaces="cosyvoice_tpu/ops/pallas/lm_step.py:222", shape=[L, 1, 896, T, pos],
+        ms=k6_ms, plain_ms=time_ms(lambda: run_step(K6, inp, plain=True), iters=10),
+        library_ms=None,
+        # int8 weights + fp32 scales/biases/norms + live cache rows read +
+        # the new rows written + x, y and the RoPE tables
+        bytes=n_int8 + 4 * n_f32 + 2 * L * (pos + 1) * 128 * isz + 2 * 896 * isz + 2 * 64 * 4,
+        flops=2 * n_int8 + L * 4 * 14 * 64 * (pos + 1), max_abs_err=k6_err,
+        grid_blocks=grid, grid_syncs=n_sync, sync_ms=sync_ms, sync_share=sync_ms / k6_ms))
     for row in rows:
         t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = row["flops"] / BF16_FLOPS * 1e3
@@ -409,7 +733,9 @@ def main() -> int:
     from cosyvoice_tpu_torch.ops.kernels import build
     from cosyvoice_tpu_torch.ops.kernels import dit_attention as K2
     from cosyvoice_tpu_torch.ops.kernels import fused_norm as K3
+    from cosyvoice_tpu_torch.ops.kernels import int4_matmul as K5
     from cosyvoice_tpu_torch.ops.kernels import lm_decode_attention as K1
+    from cosyvoice_tpu_torch.ops.kernels import lm_step as K6
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -426,12 +752,20 @@ def main() -> int:
           "cached": build.report["cached"], "ptxas": ptxas})
 
     errs = kernel_checks(K1, K2, K3)
+    errs.update(quant_kernel_checks(K5, K6))
     reference_check()
     res = main_path(K1, K2, K3, smi, profile="--profile" in sys.argv[1:])
-    rows = timing(K1, K2, K3, res["last_decode"])
+    # this slice's paths: K6 from the fused_step phase, K5 from the int4 phase
+    launches = dict(res["launches"])
+    launches["lm_step"] = fused_step_phase(res["stack"][0], res["first_prompt"], K1, K6,
+                                           smi)["k6_launches"]
+    launches["int4_matmul"] = int4_phase(res, K5, smi)["k5_launches"]
+    del res["stack"]
+    rows = timing(K1, K2, K3, K5, K6, res["last_decode"])
     for row in rows:
-        row.update(launches=res["launches"][row["name"]], edge_max_abs_err=errs[row["name"]],
-                   tolerance=CHECK_TOL[torch.bfloat16], kernel_ms=row["ms"])
+        row.update(launches=launches[row["name"]], edge_max_abs_err=errs[row["name"]],
+                   tolerance=(K6_REL_TOL[torch.bfloat16] if row["name"] == "lm_step"
+                              else CHECK_TOL[torch.bfloat16]), kernel_ms=row["ms"])
     print(smi, flush=True)
     emit({"kernels": rows, "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

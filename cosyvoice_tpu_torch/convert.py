@@ -4,10 +4,11 @@ Each function takes a flax param tree (nested dicts of numpy or JAX arrays,
 with or without the top-level "params" key) and returns a state_dict that the
 port's module loads with `load_state_dict(strict=True)`.  Dense kernels
 [in, out] become weights [out, in]; int8 QDense leaves keep their int8
-kernel (transposed) and fp32 scale; conv kernels [K, Cin, Cout] become
-[Cout, Cin, K]; weight-norm (g, v) pairs become weight_g / weight_v, and a
-weight-normed transposed conv (stored k-flipped, in forward-correlation form)
-becomes torch's [Cin, Cout, K].
+kernel (transposed) and fp32 scale [out]; packed-int4 QDense leaves (kernel
+[in/2, out], scale [in/g, out]) keep the JAX layout unchanged; conv kernels
+[K, Cin, Cout] become [Cout, Cin, K]; weight-norm (g, v) pairs become
+weight_g / weight_v, and a weight-normed transposed conv (stored k-flipped,
+in forward-correlation form) becomes torch's [Cin, Cout, K].
 """
 from __future__ import annotations
 
@@ -34,7 +35,9 @@ def _indices(tree: dict, prefix: str) -> list[int]:
 
 
 def _dense(sd, name, p):
-    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+    packed_int4 = "scale" in p and np.ndim(p["scale"]) == 2
+    kernel = np.asarray(p["kernel"])
+    sd[f"{name}.weight"] = _t(kernel if packed_int4 else kernel.T)
     if "scale" in p:
         sd[f"{name}.scale"] = _t(p["scale"])
     if "bias" in p:

@@ -1,6 +1,7 @@
 """CosyVoice2 speech-token LM: Qwen2 body + speech head + AR decode loop.
 
-Port of cosyvoice_tpu/models/llm.py (Qwen2LM, lm_generate).  Inputs are
+Port of cosyvoice_tpu/models/llm.py (Qwen2LM, lm_generate and the B=1
+whole-step decode lm_generate_fused_step).  Inputs are
 [sos, text_emb(prompt_text ++ text), task, speech_emb(prompt_speech)]; decode
 is causal and KV-cached, one token per step; EOS is masked while step <
 min_len; decoding stops at EOS or max_len; sampled ids above EOS are not
@@ -20,9 +21,11 @@ import torch
 import torch.nn as nn
 
 from cosyvoice_tpu_torch.models.qwen2 import (KVCache, Qwen2Config, Qwen2Model,
-                                              causal_prefill_bias)
+                                              causal_prefill_bias, rms_norm, rope_cos_sin)
 from cosyvoice_tpu_torch.nn.dense import Dense
 from cosyvoice_tpu_torch.ops import sampling as samp
+from cosyvoice_tpu_torch.ops.kernels.lm_step import (StepWeights, cache_to_step_layout,
+                                                     lm_step)
 from cosyvoice_tpu_torch.ops.masks import NEG_INF
 
 
@@ -208,3 +211,79 @@ def lm_generate(model: Qwen2LM, text, text_len, prompt_speech, prompt_speech_len
         _advance(model, state, _sample_from(model, hidden, state, min_len, gen), max_len)
     return state.out, state.count
 
+
+@dataclass
+class FusedGenState:
+    """GenState twin for the whole-step decode kernel: the cache lives in the
+    kernel's stacked [L, C, KH*D] layout instead of a KVCache."""
+
+    kc: torch.Tensor
+    vc: torch.Tensor
+    prev_emb: torch.Tensor
+    step: int
+    count: torch.Tensor
+    done: torch.Tensor
+    out: torch.Tensor
+    recent: torch.Tensor
+    recent_n: torch.Tensor
+
+
+def lm_step_supported(cfg: Qwen2Config) -> bool:
+    """Shapes and quantization the whole-step kernel handles (Qwen2-0.5B
+    serving): int8 projections and head_dim 64, the one width it instantiates."""
+    return (cfg.quant == "int8" and cfg.head_dim == 64
+            and (cfg.num_kv_heads * cfg.head_dim) % 128 == 0
+            and cfg.hidden_size % 128 == 0 and cfg.intermediate_size % 64 == 0
+            and cfg.num_heads % cfg.num_kv_heads == 0)
+
+
+@torch.no_grad()
+def lm_generate_fused_step(model: Qwen2LM, step_w: StepWeights, text, text_len,
+                           prompt_speech, prompt_speech_len, min_len, max_len,
+                           gen: Optional[torch.Generator], max_steps: int, cache_len: int):
+    """B=1 generation with the whole-step decode kernel (ops/kernels/lm_step.py).
+
+    Prefill runs the normal forward into a KVCache, which is repacked once
+    into the kernel's stacked [L, C, KH*D] layout; every decode step is then
+    one `lm_step` launch (all layers; it writes the step's k/v into the cache
+    at `pos` itself) plus the small tail: final RMSNorm, head, sampling and
+    the next embedding.  step_w = pack_step_weights(model.body.state_dict(),
+    L), built once at load.  Sampling and stopping are lm_generate's, so
+    greedy tokens equal lm_generate's wherever the two bodies agree.
+    Returns (tokens [1, max_steps], count [1])."""
+    cfg = model.cfg
+    q = cfg.qwen
+    if text.shape[0] != 1:
+        raise ValueError("lm_generate_fused_step decodes one row (B=1)")
+    embeds, seq_len = model.prefill_embeds(text, text_len, prompt_speech,
+                                           prompt_speech_len)
+    Tp, D = embeds.shape[1:]
+    dev = embeds.device
+    cache = KVCache.create(q, 1, cache_len, embeds.dtype, dev)
+    bias = causal_prefill_bias(Tp, cache_len, seq_len, 1, embeds.dtype, dev)
+    hidden, cache = model.forward_hidden(embeds, torch.arange(Tp, device=dev)[None], bias,
+                                         cache)
+    last = hidden[:, int(seq_len[0]) - 1][:, None]
+    kc, vc = cache_to_step_layout(cache.k, cache.v, cache_len)
+    del cache
+    win = cfg.sampling.win_size
+    state = FusedGenState(
+        kc=kc, vc=vc, prev_emb=torch.zeros((1, 1, D), dtype=embeds.dtype, device=dev),
+        step=0, count=torch.zeros(1, dtype=torch.int32, device=dev),
+        done=torch.zeros(1, dtype=torch.bool, device=dev),
+        out=torch.zeros((1, max_steps), dtype=torch.int32, device=dev),
+        recent=torch.zeros((1, win), dtype=torch.int32, device=dev),
+        recent_n=torch.zeros(1, dtype=torch.int32, device=dev))
+    _advance(model, state, _sample_from(model, last, state, min_len, gen), max_len)
+    norm_w = model.body.norm.weight
+    seq0 = int(seq_len[0])
+    while state.step < max_steps and not bool(state.done.all()):
+        pos = seq0 + state.step - 1
+        cos, sin = rope_cos_sin(torch.tensor([[pos]], device=dev), q.head_dim,
+                                q.rope_theta, torch.float32)
+        y = lm_step(step_w, state.prev_emb[0], state.kc, state.vc, pos, cos[0, 0],
+                    sin[0, 0], nq=q.num_heads, nkv=q.num_kv_heads, hd=q.head_dim,
+                    eps=q.rms_norm_eps)
+        hid = rms_norm(y, norm_w, q.rms_norm_eps)[None]
+        _advance(model, state, _sample_from(model, hid, state, min_len, gen), max_len)
+    return state.out, state.count

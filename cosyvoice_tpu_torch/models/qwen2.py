@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cosyvoice_tpu_torch.ops.kernels.int4_matmul import int4_matmul, int4_matmul_plain
 from cosyvoice_tpu_torch.ops.kernels.lm_decode_attention import lm_decode_attention
 from cosyvoice_tpu_torch.ops.masks import NEG_INF
 
@@ -38,8 +39,10 @@ class Qwen2Config:
     intermediate_size: int = 4864
     rope_theta: float = 1e6
     rms_norm_eps: float = 1e-6
-    # weight-only quantization of the 7 per-layer projections: "none" | "int8"
+    # weight-only quantization of the 7 per-layer projections:
+    # "none" | "int8" | "int4" (packed, group-wise scales; the int4_matmul kernel)
     quant: str = "none"
+    quant_group: int = 128  # int4 scale group size along the input dim
     # packed [B, T, KH*D] cache + the lm_decode_attention kernel for decode
     fused_cache_update: bool = False
 
@@ -63,30 +66,46 @@ class KVCache:
 
 
 class QDense(nn.Module):
-    """Linear with optional int8 weight-only quantization: `weight` int8
-    [out, in] plus a per-output-channel `scale`.  The int8 order is the JAX
-    package's: cast the weight to x.dtype, take the product in x.dtype, then
-    multiply by the scale in x.dtype (any other order drifts greedy tokens)."""
+    """Linear with optional weight-only quantization.
+
+    int8: `weight` int8 [out, in] plus a per-output-channel `scale`.  The
+    order is the JAX package's: cast the weight to x.dtype, take the product
+    in x.dtype, then multiply by the scale in x.dtype (any other order drifts
+    greedy tokens).
+    int4: `weight` int8 [in/2, out], two input rows per byte, and a
+    group-wise `scale` [in/g, out] (g = min(group, in)).  Calls of up to 512
+    rows (decode, prefill) go through the int4_matmul kernel; larger ones
+    through its plain unpack-and-matmul, as the JAX package routes them."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 quant: str = "none"):
+                 quant: str = "none", group: int = 128):
         super().__init__()
-        if quant not in ("none", "int8"):
-            raise ValueError(f"quant {quant!r} is not ported yet (none|int8)")
+        if quant not in ("none", "int8", "int4"):
+            raise ValueError(f"quant {quant!r} is not ported yet (none|int8|int4)")
         self.quant = quant
         if quant == "int8":
             self.register_buffer("weight", torch.zeros(out_features, in_features,
                                                        dtype=torch.int8))
             self.register_buffer("scale", torch.ones(out_features))
+        elif quant == "int4":
+            g = min(group, in_features)
+            self.register_buffer("weight", torch.zeros(in_features // 2, out_features,
+                                                       dtype=torch.int8))
+            self.register_buffer("scale", torch.ones(in_features // g, out_features))
         else:
             self.weight = nn.Parameter(torch.randn(out_features, in_features)
                                        * in_features ** -0.5)
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x, self.weight.to(x.dtype))
-        if self.quant == "int8":
-            y = y * self.scale.to(x.dtype)
+        if self.quant == "int4":
+            x2 = x.reshape(-1, x.shape[-1])
+            mm = int4_matmul if x2.shape[0] <= 512 else int4_matmul_plain
+            y = mm(x2.contiguous(), self.weight, self.scale).reshape(*x.shape[:-1], -1)
+        else:
+            y = F.linear(x, self.weight.to(x.dtype))
+            if self.quant == "int8":
+                y = y * self.scale.to(x.dtype)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -134,15 +153,16 @@ class Qwen2Layer(nn.Module):
         H, KH, HD, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
         self.input_layernorm = RMSNorm(D, cfg.rms_norm_eps)
         self.post_attention_layernorm = RMSNorm(D, cfg.rms_norm_eps)
+        q, g = cfg.quant, cfg.quant_group
         self.self_attn = nn.ModuleDict({
-            "q_proj": QDense(D, H * HD, True, cfg.quant),
-            "k_proj": QDense(D, KH * HD, True, cfg.quant),
-            "v_proj": QDense(D, KH * HD, True, cfg.quant),
-            "o_proj": QDense(H * HD, D, False, cfg.quant)})
+            "q_proj": QDense(D, H * HD, True, q, g),
+            "k_proj": QDense(D, KH * HD, True, q, g),
+            "v_proj": QDense(D, KH * HD, True, q, g),
+            "o_proj": QDense(H * HD, D, False, q, g)})
         self.mlp = nn.ModuleDict({
-            "gate_proj": QDense(D, cfg.intermediate_size, False, cfg.quant),
-            "up_proj": QDense(D, cfg.intermediate_size, False, cfg.quant),
-            "down_proj": QDense(cfg.intermediate_size, D, False, cfg.quant)})
+            "gate_proj": QDense(D, cfg.intermediate_size, False, q, g),
+            "up_proj": QDense(D, cfg.intermediate_size, False, q, g),
+            "down_proj": QDense(cfg.intermediate_size, D, False, q, g)})
 
     def forward(self, x, cos, sin, attn_bias, layer_cache=None, cache_pos=None):
         """x [B, T, D]; attn_bias [B, 1, T, Tk] additive (causal + pad);

@@ -9,7 +9,9 @@ import torch
 
 from cosyvoice_tpu_torch.ops.kernels import dit_attention as K2
 from cosyvoice_tpu_torch.ops.kernels import fused_norm as K3
+from cosyvoice_tpu_torch.ops.kernels import int4_matmul as K5
 from cosyvoice_tpu_torch.ops.kernels import lm_decode_attention as K1
+from cosyvoice_tpu_torch.ops.kernels import lm_step as K6
 
 
 @pytest.fixture
@@ -53,3 +55,46 @@ def test_cuda_kernels_match_plain(cuda, dtype, atol, rtol):
         torch.testing.assert_close(K3.fused_layer_norm(x, w, bb, 1e-5, act).float(),
                                    K3.layer_norm_plain(x, w, bb, 1e-5, act).float(),
                                    atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 1e-4, 2.0 ** -7)])
+def test_int4_matmul_matches_plain(cuda, dtype, atol, rtol):
+    """K5 at the LM's four projection shapes, group 128, decode (1 row) and
+    prefill (200 rows) sizes; same bars as above (one fp32 sum per output,
+    rounded once)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for IN, OUT in ((896, 896), (896, 128), (896, 4864), (4864, 896)):
+        w = K5.pack_int4(torch.randint(-7, 8, (IN, OUT), generator=g, device=cuda))
+        scale = torch.rand(IN // 128, OUT, generator=g, device=cuda) * 0.02 + 1e-3
+        for rows in (1, 200):
+            x = torch.randn(rows, IN, generator=g, device=cuda).to(dtype)
+            torch.testing.assert_close(K5.int4_matmul(x, w, scale).float(),
+                                       K5.int4_matmul_plain(x, w, scale).float(),
+                                       atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+# max |kernel - plain| / max |plain|: fp32 differs only in the order of the
+# sums; in bf16 the two round intermediate values separately, and a rounding
+# that flips one way in one of them moves the rest of the layer by an ulp.
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_lm_step_matches_plain(cuda, dtype, rel):
+    """K6: one full-width step (Qwen2-0.5B widths, 4 layers) at pos 364 of a
+    384-row cache: the output hidden state and every layer's new k/v."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    L, H, I, nq, nkv, C, pos = 4, 896, 4864, 14, 2, 384, 364
+    w = K6.random_step_weights(L, H, I, nq, nkv, 64, g, cuda)
+    x = torch.randn(1, H, generator=g, device=cuda).to(dtype)
+    kc, vc = (torch.randn(L, C, nkv * 64, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    ang = pos * 1e6 ** (-torch.arange(0, 64, 2, device=cuda) / 64.0)
+    cos, sin = torch.cos(ang).repeat(2), torch.sin(ang).repeat(2)
+    kc2, vc2 = kc.clone(), vc.clone()
+    y = K6.lm_step(w, x, kc, vc, pos, cos, sin, nq=nq, nkv=nkv, hd=64)
+    y_ref = K6.lm_step_plain(w, x, kc2, vc2, pos, cos, sin, nq=nq, nkv=nkv, hd=64)
+    for got, want in ((y, y_ref), (kc[:, pos], kc2[:, pos]), (vc[:, pos], vc2[:, pos])):
+        err = (got.float() - want.float()).abs().max()
+        assert err <= rel * want.float().abs().max(), float(err)
+    assert torch.equal(kc[:, :pos], kc2[:, :pos]) and torch.equal(kc[:, pos + 1:], kc2[:, pos + 1:])

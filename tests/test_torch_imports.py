@@ -14,6 +14,8 @@ _PROBE = """
 import sys
 import cosyvoice_tpu_torch.runtime.api, cosyvoice_tpu_torch.convert
 import cosyvoice_tpu_torch.utils.quant, cosyvoice_tpu_torch.tokenizer.text
+import cosyvoice_tpu_torch.ops.kernels.lm_step, cosyvoice_tpu_torch.ops.kernels.int4_matmul
+import cosyvoice_tpu_torch.models.llm
 bad = [m for m in sys.modules
        if m in ("jax", "flax", "cosyvoice_tpu") or m.startswith(("jax.", "flax.", "cosyvoice_tpu."))]
 print(",".join(bad))
