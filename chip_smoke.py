@@ -24,17 +24,34 @@ Phases, each printing JSON lines:
      packed int4 (group 128) from the same seeded bf16 weights: latency,
      RTF, LM ms/token, K5 launches (must be > 0), a finite waveform, and
      the teacher-forced argmax agreement with the bf16 LM;
-  8. timing  - at the main path's shapes: each kernel against its plain
+  8. batched - BatchedSynthesizer.synthesize_batch over 8 zero-shot requests
+     (the main path's weights and prompt, decode caps spread over 100-200
+     tokens) with the estimator's fused_block on: one warm-up batch, then
+     one timed batch: wall time, LM / flow / HiFT seconds, seconds of audio,
+     aggregate RTF, peak memory, K4 launches (must be 56 DiT blocks x 10
+     Euler steps) and K1 launches, and the mel difference between
+     fused_block on and off for the same flow inputs;
+  9. engine  - ServingEngine.generate, 16 requests through 8 slots (staggered
+     admission, slot reuse): on a small fp32 stack (greedy tokens must equal
+     a B=1 lm_generate of each request), then on the main path's int8 LM
+     with greedy sampling (K1's per-row pos mode): tokens/s, segments, K1
+     launches and the share of requests equal to a B=1 lm_generate (no gate
+     at full width in bf16: a batch-dependent order of sums can flip a
+     near-tied argmax);
+ 10. timing  - at the main path's shapes: each kernel against its plain
      version on the same inputs, then the kernel, the plain version and the
-     one PyTorch call that computes the same function, timed (CUDA events).
+     one PyTorch call that computes the same function, timed (CUDA events);
+     K4 at the batched phase's flow shape, beside the port's unfused block.
 Phase 3 also holds K5 (int4_matmul) and K6 (lm_step) against their plain
-versions at the shapes phases 6 and 7 give them.
+versions at the shapes phases 6 and 7 give them, and K4 (dit_block) at the
+estimator's full width with ragged lengths.
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -60,6 +77,17 @@ CHECK_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -7)}
 K6_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 6e-2}
 # the LM's projection shapes (in, out) at Qwen2-0.5B width: q/o, k/v, gate/up, down
 K5_SHAPES = ((896, 896), (896, 128), (896, 4864), (4864, 896))
+# K4 (dit_block) bar in bf16, on y and, on its own, on the attention output o
+# (before the out projection; y is dominated by the residual, so a partial
+# attention fault could hide in it): max |kernel - plain| <= K4_BF16_ULPS
+# bf16 ulps at max |plain| of that tensor.  Both round at the TPU kernel's
+# points, but a sum taken in another order (or p rounded against the online
+# softmax's running max) can land across a bf16 rounding boundary, so o and
+# the residual sums x1 and y may each move by one ulp.  fp32: CHECK_TOL.
+K4_BF16_ULPS = 2
+# the batched phase: new-text lengths of 5-10 bytes give decode caps of 100-200
+BATCH_TEXTS = ("Hello", "Hi there", "Good night", "See you", "Thank you", "Go ahead",
+               "Next one", "Hi you")
 
 
 def emit(obj) -> None:
@@ -151,6 +179,57 @@ def kernel_checks(K1, K2, K3) -> dict:
                    K3.layer_norm_plain(x, w, b, 1e-5, act)) for act in ("none", "mish")]
         errs["fused_layer_norm"] = max(e)
     return errs
+
+
+def bf16_ulp(v: float) -> float:
+    """The spacing of bf16 numbers at magnitude v (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7) if v > 0 else 0.0
+
+
+def check_block(name, dtype, got, want, phase="kernels") -> float:
+    """K4 against its plain version, each given as (y, o): y and the attention
+    output o each finite and within CHECK_TOL (fp32) or K4_BF16_ULPS bf16
+    ulps at its own max |plain| (bf16).  Returns the error of y."""
+    parts, ok = {}, True
+    for part, g, w in (("y", got[0], want[0]), ("attention", got[1], want[1])):
+        g, w = g.float(), w.float()
+        err = float((g - w).abs().max())
+        finite = bool(torch.isfinite(g).all())
+        if dtype == torch.float32:
+            atol, rtol = CHECK_TOL[dtype]
+            within, bar = bool(torch.allclose(g, w, atol=atol, rtol=rtol)), dict(atol=atol,
+                                                                                 rtol=rtol)
+        else:
+            limit = K4_BF16_ULPS * bf16_ulp(float(w.abs().max()))
+            within, bar = err <= limit, dict(limit=limit, bf16_ulps=K4_BF16_ULPS)
+        parts[part] = dict(max_abs_err=err, **bar, finite=finite, ok=within and finite)
+        ok = ok and within and finite
+    emit({"phase": phase, "check": name, "dtype": str(dtype).split(".")[1], **parts, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name} ({dtype}) disagrees with its plain version: {parts}")
+    return parts["y"]["max_abs_err"]
+
+
+def block_checks(K4) -> float:
+    """K4 against its plain version at the estimator's full width (dim 256,
+    8 x 64 heads, ff 1024) in fp32 and bf16: the batched phase's shape
+    [16, 640] and T = 1152 (a multiple of 128 that is not a power of two),
+    each with one L = T row, one L = 0 row and ragged rows; every row is
+    compared.  Returns the largest bf16 error."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, T in ((16, 640), (4, 1152)):
+            lens = [T, 0] + [int(T * (1 - 0.06 * i)) for i in range(1, B - 1)]
+            x = torch.randn(B, T, 256, generator=g, device="cuda").to(dtype)
+            w = K4.random_block_weights(256, 8, 64, 1024, dtype, g, "cuda")
+            L = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            kw = dict(sm_scale=0.125, heads=8, head_dim=64, return_attention=True)
+            e = check_block(f"dit_block_{B}x{T}", dtype, K4.dit_block_fused(x, L, *w, **kw),
+                            K4.dit_block_plain(x, L, *w, **kw))
+            if dtype == torch.bfloat16:
+                err = max(err, e)
+    return err
 
 
 def step_inputs(K6, dtype, seed: int, L: int = 24, C: int = 384, pos: int = 364) -> dict:
@@ -573,6 +652,164 @@ def int4_phase(res_main: dict, K5, smi: str) -> dict:
     return res
 
 
+def dit_blocks(flow) -> list:
+    from cosyvoice_tpu_torch.models.flow import DiTBlock
+
+    return [m for m in flow.modules() if isinstance(m, DiTBlock)]
+
+
+def set_fused_block(flow, on: bool) -> None:
+    """Route every DiT block of `flow` through K4 (on) or through K2, K3 and
+    cuBLAS (off), the same weights either way."""
+    for blk in dit_blocks(flow):
+        blk.fused_block = on
+
+
+@torch.no_grad()
+def batched_phase(res_main: dict, K1, K4, smi: str) -> dict:
+    """BatchedSynthesizer over 8 zero-shot requests at full width with the
+    main path's weights and prompt, every DiT block through K4: a warm-up
+    batch, then a timed one; then the same flow inputs through the unfused
+    blocks, for the mel difference K4 makes."""
+    from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model
+    from cosyvoice_tpu_torch.runtime.serving import BatchedSynthesizer, TTSRequest
+
+    llm, flow, hift, frontend = res_main["stack"]
+    synth = BatchedSynthesizer(CosyVoice2Model(llm=llm, flow=flow, hift=hift,
+                                               max_decode_tokens=200, device="cuda"))
+    reqs = []
+    for text in BATCH_TEXTS:
+        mi = frontend.frontend_zero_shot(text, "A short prompt.", res_main["prompt_wav"])
+        reqs.append(TTSRequest(
+            text_tokens=np.concatenate([mi["prompt_text"], mi["text"]]),
+            prompt_text_len=len(mi["prompt_text"]),
+            prompt_speech_tokens=mi["llm_prompt_speech_token"],
+            prompt_feat=mi["prompt_speech_feat"], embedding=mi["flow_embedding"]))
+    stage, seen = {"lm_s": 0.0, "flow_s": 0.0, "hift_s": 0.0}, {}
+
+    def timed(key, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            stage[key] += time.perf_counter() - t0
+            seen[key] = (args, out)
+            return out
+        return run
+
+    flow_batch = synth.flow_batch
+    synth.generate = timed("lm_s", synth.generate)
+    synth.flow_batch = timed("flow_s", flow_batch)
+    synth.vocode_batch = timed("hift_s", synth.vocode_batch)
+    set_fused_block(flow, True)
+    synth.synthesize_batch(reqs, gen=torch.Generator().manual_seed(0))      # warm-up
+    for key in stage:
+        stage[key] = 0.0
+    K1.launches = K4.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavs = synth.synthesize_batch(reqs, gen=torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k4, k1 = K4.launches, K1.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = seen["lm_s"][1]
+    mel_on, tls, pfl = seen["flow_s"][1]
+    set_fused_block(flow, False)
+    mel_off = flow_batch(reqs, tokens)[0]
+    diff = max(float((mel_on[i, p:2 * n] - mel_off[i, p:2 * n]).abs().max())
+               for i, (n, p) in enumerate(zip(tls, pfl)))
+    n_blocks = len(dit_blocks(flow))
+    audio_s = sum(len(w) for w in wavs) / 24000.0
+    # the flow's CFG batch: 2B rows, mel frames padded to 128, per-row lengths
+    T_pad = -(-mel_on.shape[1] // 128) * 128
+    lens = [2 * n for n in tls] * 2
+    res = {"phase": "batched", "card": smi, "requests": len(reqs),
+           "speech_tokens": [len(t) for t in tokens], "wall_s": wall, **stage,
+           "audio_s": audio_s, "rtf": wall / max(audio_s, 1e-9), "peak_mem_gb": peak,
+           "k4_launches": k4, "k4_launches_expected": n_blocks * 10, "k1_launches": k1,
+           "flow_cfg_rows": 2 * len(reqs), "flow_frames_padded": T_pad,
+           "mel_max_abs_diff_fused_block_on_vs_off": diff,
+           "mel_max_abs": float(mel_off.abs().max())}
+    emit(res)
+    ok = all(np.isfinite(w).all() and w.shape == (len(t) * 2 * 480,)
+             for w, t in zip(wavs, tokens))
+    if k4 != n_blocks * 10 or not ok or not np.isfinite(diff) or not k1:
+        raise AssertionError(f"batched phase failed: {res}")
+    res["block_shape"] = (2 * len(reqs), T_pad, lens)
+    return res
+
+
+@torch.no_grad()
+def engine_phase(res_main: dict, K1, smi: str) -> dict:
+    """ServingEngine.generate, 16 requests of mixed lengths through 8 slots, on
+    the small fp32 stack (greedy tokens must equal a B=1 lm_generate of each
+    request) and on the main path's int8 LM with greedy sampling."""
+    from cosyvoice_tpu_torch.models.llm import Qwen2LM, SamplingConfig, lm_generate
+    from cosyvoice_tpu_torch.runtime.engine import GenRequest, ServingEngine
+
+    rng = np.random.default_rng(11)
+
+    def run(lm, reqs, **kw) -> dict:
+        segments = [0]
+        K1.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ServingEngine(lm, device="cuda", **kw).generate(
+            reqs, on_segment=lambda: segments.__setitem__(0, segments[0] + 1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = K1.launches
+        t = lambda *a: torch.as_tensor(np.asarray(a), dtype=torch.long, device="cuda")
+        equal, first_diff = 0, []
+        for r, toks in zip(reqs, got):
+            n, mo = len(r.text), kw["max_out"]
+            mn = r.min_len if r.min_len is not None else int(2 * n)
+            mx = min(r.max_len if r.max_len is not None else 20 * n, mo)
+            out, cnt = lm_generate(lm, t(r.text), t(n), t(r.prompt_speech),
+                                   t(len(r.prompt_speech)), t(mn), t(mx), None, max_steps=mo,
+                                   cache_len=kw["cache_len"])
+            ref = out[0, :int(cnt[0])].cpu().numpy()
+            equal += int(np.array_equal(toks, ref))
+            # tokens before the first difference (the whole length if none)
+            diff = np.nonzero(toks[:len(ref)] != ref[:len(toks)])[0]
+            first_diff.append(int(diff[0]) if len(diff) else min(len(toks), len(ref)))
+        n_tok = sum(len(g) for g in got)
+        return dict(requests=len(reqs), slots=kw["num_slots"], tokens=n_tok, wall_s=wall,
+                    tokens_per_s=n_tok / wall, segments=segments[0], k1_launches=k1,
+                    equal_to_lm_generate=equal, share_equal=equal / len(reqs),
+                    tokens_before_first_difference=first_diff,
+                    request_tokens=[len(g) for g in got])
+
+    small = small_stack("cuda").llm
+    small_reqs = [GenRequest(text=rng.integers(0, 256, 2 + i % 11),
+                             prompt_speech=rng.integers(0, 64, (i * 7) % 26))
+                  for i in range(16)]
+    small_run = run(small, small_reqs, num_slots=8, cache_len=256, max_out=96,
+                    segment_steps=16, text_bucket=8, speech_bucket=8)
+    llm = res_main["stack"][0]
+    cfg = dataclasses.replace(llm.cfg, sampling=SamplingConfig(method="greedy"))
+    with torch.device("cuda"):
+        lm = Qwen2LM(cfg)
+    lm.load_state_dict(llm.state_dict(), strict=True, assign=True)
+    # decode caps of 100-200 tokens, as in the batched phase; the longest
+    # request needs 3 + 32 text + 128 speech + 200 cache rows <= 384
+    full_reqs = [GenRequest(text=rng.integers(0, 256, 6 + (i * 5) % 25),
+                            prompt_speech=rng.integers(0, 6561, 20 + (i * 11) % 56),
+                            max_len=100 + (i * 13) % 101)
+                 for i in range(16)]
+    full_run = run(lm, full_reqs, num_slots=8, cache_len=384, max_out=200, segment_steps=50,
+                   text_bucket=32, speech_bucket=64)
+    res = {"phase": "engine", "card": smi, "small_fp32": small_run, "full_width_int8": full_run,
+           "gate": "small_fp32 share_equal == 1 (exact greedy parity); full width: printed"}
+    emit(res)
+    if small_run["share_equal"] != 1.0 or not full_run["tokens"] or not full_run["k1_launches"]:
+        raise AssertionError(f"engine phase failed: {res}")
+    return res
+
+
 def profile_request(run) -> None:
     """One more request under torch.profiler: device kernel time by name and
     the device's busy share of the wall time."""
@@ -594,9 +831,29 @@ def profile_request(run) -> None:
           "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:25]]})
 
 
-def timing(K1, K2, K3, K5, K6, last_decode) -> list:
-    """At the last request's shapes (bf16): each kernel against its plain
-    version on the same inputs, then kernel, plain and library times."""
+def device_ms_by_kernel(fn, n: int = 10) -> dict:
+    """Device time per call of each CUDA kernel that fn launches, over n calls
+    under torch.profiler."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {(re.search(r"\w+_kernel", e.key) or re.search(r"\w+", e.key)).group(0):
+            e.self_device_time_total / 1e3 / n for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def timing(K1, K2, K3, K4, K5, K6, last_decode, flow, block_shape) -> list:
+    """At the last request's shapes (bf16; K4 at the batched phase's flow
+    shape): each kernel against its plain version on the same inputs, then
+    kernel, plain and library times."""
     dev, bf = torch.device("cuda"), torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(2)
     r = lambda *s: torch.randn(*s, generator=g, device=dev).to(bf)
@@ -717,6 +974,36 @@ def timing(K1, K2, K3, K5, K6, last_decode) -> list:
         bytes=n_int8 + 4 * n_f32 + 2 * L * (pos + 1) * 128 * isz + 2 * 896 * isz + 2 * 64 * 4,
         flops=2 * n_int8 + L * 4 * 14 * 64 * (pos + 1), max_abs_err=k6_err,
         grid_blocks=grid, grid_syncs=n_sync, sync_ms=sync_ms, sync_share=sync_ms / k6_ms))
+    # K4: one DiT block of the main path's estimator (its bf16 weights) over
+    # the batched phase's CFG batch; the yardstick is the same block unfused
+    # (K3 norms, K2 attention, cuBLAS projections): no one PyTorch call
+    # computes the block
+    B4, T4, lens4 = block_shape
+    blk = dit_blocks(flow)[0]
+    w4 = blk.fused_weights(bf)
+    x4 = r(B4, T4, 256)
+    L4 = torch.tensor(lens4, dtype=torch.int32, device=dev)
+    kw4 = dict(sm_scale=0.125, heads=8, head_dim=64)
+    k4_err = check_block("dit_block", bf,
+                         K4.dit_block_fused(x4, L4, *w4, **kw4, return_attention=True),
+                         K4.dit_block_plain(x4, L4, *w4, **kw4, return_attention=True),
+                         phase="timing")
+    dim, inner, ff = 256, 512, 1024
+    blk.fused_block = False
+    rows.append(dict(
+        name="dit_block", source="cosyvoice_tpu_torch/csrc/dit_block.cu",
+        replaces="cosyvoice_tpu/ops/pallas/dit_block.py:115", shape=[B4, T4, dim],
+        ms=time_ms(lambda: K4.dit_block_fused(x4, L4, *w4, **kw4), iters=20),
+        plain_ms=time_ms(lambda: K4.dit_block_plain(x4, L4, *w4, **kw4), iters=10),
+        library_ms=None, unfused_block_ms=time_ms(lambda: blk(x4, None, L4), iters=20),
+        # its three launches (LN1 + qkv, attention, out-proj + LN3 + FFN)
+        phase_ms=device_ms_by_kernel(lambda: K4.dit_block_fused(x4, L4, *w4, **kw4)),
+        # x in and y out, the weights once, the fp32 vectors, the lengths
+        bytes=(2 * B4 * T4 * dim + 3 * dim * inner + inner * dim + 2 * dim * ff) * isz
+        + (6 * dim + ff) * 4 + 4 * B4,
+        flops=sum(2 * T4 * dim * 3 * inner + 4 * 8 * T4 * Lb * 64 + 2 * T4 * inner * dim
+                  + 4 * T4 * dim * ff for Lb in lens4),
+        max_abs_err=k4_err))
     for row in rows:
         t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = row["flops"] / BF16_FLOPS * 1e3
@@ -732,6 +1019,7 @@ def main() -> int:
         return 1
     from cosyvoice_tpu_torch.ops.kernels import build
     from cosyvoice_tpu_torch.ops.kernels import dit_attention as K2
+    from cosyvoice_tpu_torch.ops.kernels import dit_block as K4
     from cosyvoice_tpu_torch.ops.kernels import fused_norm as K3
     from cosyvoice_tpu_torch.ops.kernels import int4_matmul as K5
     from cosyvoice_tpu_torch.ops.kernels import lm_decode_attention as K1
@@ -753,19 +1041,27 @@ def main() -> int:
 
     errs = kernel_checks(K1, K2, K3)
     errs.update(quant_kernel_checks(K5, K6))
+    errs["dit_block"] = block_checks(K4)
     reference_check()
     res = main_path(K1, K2, K3, smi, profile="--profile" in sys.argv[1:])
-    # this slice's paths: K6 from the fused_step phase, K5 from the int4 phase
+    # later slices' paths: K6 from the fused_step phase, K5 from the int4
+    # phase, K4 from the batched phase (the engine phase drives K1 per row)
     launches = dict(res["launches"])
     launches["lm_step"] = fused_step_phase(res["stack"][0], res["first_prompt"], K1, K6,
                                            smi)["k6_launches"]
     launches["int4_matmul"] = int4_phase(res, K5, smi)["k5_launches"]
+    batched = batched_phase(res, K1, K4, smi)
+    launches["dit_block"] = batched["k4_launches"]
+    engine_phase(res, K1, smi)
+    flow = res["stack"][1]
     del res["stack"]
-    rows = timing(K1, K2, K3, K5, K6, res["last_decode"])
+    rows = timing(K1, K2, K3, K4, K5, K6, res["last_decode"], flow, batched["block_shape"])
+    tolerance = {"lm_step": K6_REL_TOL[torch.bfloat16],
+                 "dit_block": {"bf16_ulps_at_max_plain": K4_BF16_ULPS}}
     for row in rows:
         row.update(launches=launches[row["name"]], edge_max_abs_err=errs[row["name"]],
-                   tolerance=(K6_REL_TOL[torch.bfloat16] if row["name"] == "lm_step"
-                              else CHECK_TOL[torch.bfloat16]), kernel_ms=row["ms"])
+                   tolerance=tolerance.get(row["name"], CHECK_TOL[torch.bfloat16]),
+                   kernel_ms=row["ms"])
     print(smi, flush=True)
     emit({"kernels": rows, "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

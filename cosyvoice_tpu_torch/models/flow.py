@@ -12,7 +12,8 @@ multi-level v1 estimator comes with the v1 slice.
 
 The serving estimator (`fused_attention` + `fused_norm` + `approx_gelu`, bf16)
 runs its DiT attention through the `dit_attention_packed` kernel and its
-LayerNorms (+mish) through the `fused_layer_norm` kernel.  Without
+LayerNorms (+mish) through the `fused_layer_norm` kernel; with `fused_block`
+as well, each whole DiT block is one `dit_block_fused` call.  Without
 `fused_attention` the DiT attention is plain PyTorch with an additive bias:
 true -inf key masking under `exact_pad_mask`, else the reference's 0/1 float
 mask used verbatim as a bias.  Streaming (chunk-masked) estimator calls are
@@ -34,6 +35,7 @@ from cosyvoice_tpu_torch.nn.conv import CausalConv1d, Conv1d
 from cosyvoice_tpu_torch.nn.dense import Dense
 from cosyvoice_tpu_torch.nn.norm import LayerNorm
 from cosyvoice_tpu_torch.ops.activations import mish
+from cosyvoice_tpu_torch.ops.kernels import dit_block
 from cosyvoice_tpu_torch.ops.kernels.dit_attention import dit_attention_packed
 from cosyvoice_tpu_torch.ops.masks import NEG_INF, make_non_pad_mask
 
@@ -92,10 +94,13 @@ class DiTBlock(nn.Module):
     """diffusers BasicTransformerBlock (self-attention + gelu FF)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, ff_mult: int = 4,
-                 approx_gelu: bool = False, fused_norm: bool = False):
+                 approx_gelu: bool = False, fused_norm: bool = False,
+                 fused_block: bool = False):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.head_dim, self.approx_gelu = heads, head_dim, approx_gelu
+        self.fused_block = fused_block
+        self._block_weights = (None, None)     # (key, weights) for dit_block_fused
         self.norm1 = LayerNorm(dim, fused=fused_norm)
         self.attn1 = nn.ModuleDict({
             "to_q": Dense(dim, inner, bias=False), "to_k": Dense(dim, inner, bias=False),
@@ -106,14 +111,40 @@ class DiTBlock(nn.Module):
             nn.ModuleDict({"proj": Dense(dim, dim * ff_mult)}), nn.Identity(),
             Dense(dim * ff_mult, dim)])})
 
+    def fused_weights(self, dtype) -> tuple:
+        """The block's parameters in dit_block_fused's order and JAX layout
+        ([in, out] matrices in `dtype`, fp32 vectors), rebuilt only when a
+        parameter or the dtype changes."""
+        a, net = self.attn1, self.ff["net"]
+        params = (a["to_q"].weight, a["to_k"].weight, a["to_v"].weight, a["to_out"][0].weight,
+                  a["to_out"][0].bias, self.norm1.weight, self.norm1.bias, self.norm3.weight,
+                  self.norm3.bias, net[0]["proj"].weight, net[0]["proj"].bias, net[2].weight,
+                  net[2].bias)
+        key = (dtype,) + tuple((p.data_ptr(), p._version) for p in params)
+        if self._block_weights[0] != key:
+            wq, wk, wv, wo, bo, g1, b1, g3, b3, wi, bi, wo2, bo2 = (p.detach() for p in params)
+            mat = lambda w: w.t().to(dtype).contiguous()
+            self._block_weights = (key, tuple(
+                v.float().contiguous() if v.ndim == 1 else mat(v) for v in
+                (g1, b1, torch.cat([wq, wk, wv], 0), wo, bo, g3, b3, wi, bi, wo2, bo2)))
+        return self._block_weights[1]
+
     def forward(self, x, attn_bias: Optional[torch.Tensor],
                 lengths: Optional[torch.Tensor] = None):
         """attn_bias [B, 1|T, T] is added to the scores verbatim; with
         `lengths` [B] int32 the kernel path masks keys at j >= lengths[b]
-        instead (the pad mask must be prefix-contiguous)."""
-        B, T, _ = x.shape
+        instead (the pad mask must be prefix-contiguous).  With `lengths`,
+        `fused_block` and `approx_gelu`, the whole block is one
+        dit_block_fused call where its shape contract holds."""
+        B, T, dim = x.shape
         H, hd = self.heads, self.head_dim
         a = self.attn1
+        ff = self.ff["net"][2].weight.shape[1]
+        if (lengths is not None and self.fused_block and self.approx_gelu
+                and dit_block.supports(T, H, hd, dim, ff)):
+            return dit_block.dit_block_fused(x, lengths, *self.fused_weights(x.dtype),
+                                             sm_scale=1.0 / math.sqrt(hd), heads=H,
+                                             head_dim=hd)
         h = self.norm1(x)
         w = torch.cat([a["to_q"].weight, a["to_k"].weight, a["to_v"].weight], 0)
         qkv = h @ w.to(h.dtype).t()
@@ -149,6 +180,10 @@ class EstimatorConfig:
     dtype: str = "float32"          # compute dtype: "float32" | "bfloat16"
     approx_gelu: bool = False       # tanh-approximate gelu in the DiT FFN
     fused_norm: bool = False        # LayerNorm(+mish) through fused_layer_norm
+    # serving: each whole DiT block through the dit_block_fused kernel (with
+    # fused_attention and approx_gelu; the JAX package keeps it off on the
+    # TPU for a compile-time hazard that the GPU does not have)
+    fused_block: bool = False
 
 
 class ConditionalDecoder(nn.Module):
@@ -166,7 +201,8 @@ class ConditionalDecoder(nn.Module):
             blocks = [ResnetBlock1D(dim_in, ch, 4 * ch, cfg.fused_norm),
                       nn.ModuleList(DiTBlock(ch, cfg.num_heads, cfg.attention_head_dim,
                                              approx_gelu=cfg.approx_gelu,
-                                             fused_norm=cfg.fused_norm)
+                                             fused_norm=cfg.fused_norm,
+                                             fused_block=cfg.fused_block)
                                     for _ in range(cfg.n_blocks))]
             return nn.ModuleList(blocks + ([CausalConv1d(ch, ch, 3)] if closing_conv else []))
 
@@ -310,10 +346,16 @@ class CausalMaskedDiffWithXvec(nn.Module):
 
     @torch.no_grad()
     def inference(self, token, token_len, prompt_feat, embedding, n_timesteps: int = 10,
-                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  noise: Optional[torch.Tensor] = None,
+                  prompt_feat_len: Optional[torch.Tensor] = None) -> torch.Tensor:
         """token [B, Tp+Tg] (prompt ++ generated), prompt_feat [B, P, 80] with
         P = ratio * prompt token count, embedding [B, spk_embed_dim]
-        -> mel [B, ratio*T - P, 80]."""
+        -> mel [B, ratio*T - P, 80].
+
+        With `prompt_feat_len` [B] (ragged batched serving: each row's prompt
+        right-padded to a shared P) the conditioning is zeroed past each
+        row's prompt and the whole mel [B, ratio*T, 80] is returned; the
+        caller keeps row b's [prompt_feat_len[b], ratio*token_len[b])."""
         spks = embedding / embedding.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         spks = self.spk_embed_affine_layer(spks)
         h, _ = self._encode(token, token_len)
@@ -321,7 +363,11 @@ class CausalMaskedDiffWithXvec(nn.Module):
         conds = torch.zeros((h.shape[0], T2, self.cfg.output_size), dtype=h.dtype,
                             device=h.device)
         conds[:, :P] = prompt_feat.to(h.dtype)
+        if prompt_feat_len is not None:
+            keep = (torch.arange(T2, device=h.device)[None, :]
+                    < prompt_feat_len.to(h.device)[:, None])
+            conds = conds.masked_fill(~keep[..., None], 0.0)
         mask = make_non_pad_mask(token_len * self.cfg.token_mel_ratio, T2).to(h.dtype)
         feat = self.decoder(h, mask, spks, conds, n_timesteps=n_timesteps, noise=noise,
                             exact_pad_mask=True)
-        return feat[:, P:]
+        return feat if prompt_feat_len is not None else feat[:, P:]

@@ -157,6 +157,16 @@ def _sample_from(model: Qwen2LM, hidden_last, state: GenState, min_len, gen):
     return _sample(cfg.sampling, gen, logp, state.recent, rv)
 
 
+def _sample_advance(model: Qwen2LM, state, hidden_last, min_len, max_len, gen) -> None:
+    """One sampling step of every decode loop (lm_generate, the fused-step
+    decode and the continuous-batching engine): sample from the last hidden
+    state, then advance `state` in place.  `state.step` is an int (the batch
+    in lockstep) or a [B] tensor (one frontier per engine slot); the math
+    broadcasts either way, which keeps the engine's greedy tokens equal to
+    lm_generate's."""
+    _advance(model, state, _sample_from(model, hidden_last, state, min_len, gen), max_len)
+
+
 def _advance(model: Qwen2LM, state: GenState, tok, max_len) -> None:
     eos = model.cfg.eos_token
     B = tok.shape[0]
@@ -199,7 +209,7 @@ def lm_generate(model: Qwen2LM, text, text_len, prompt_speech, prompt_speech_len
                      out=torch.zeros((B, max_steps), dtype=torch.int32, device=dev),
                      recent=torch.zeros((B, win), dtype=torch.int32, device=dev),
                      recent_n=torch.zeros(B, dtype=torch.int32, device=dev))
-    _advance(model, state, _sample_from(model, last, state, min_len, gen), max_len)
+    _sample_advance(model, state, last, min_len, max_len, gen)
     slot = torch.arange(cache_len, device=dev)[None, :]
     prompt_ok = slot < seq_len[:, None]
     while state.step < max_steps and not bool(state.done.all()):
@@ -208,7 +218,7 @@ def lm_generate(model: Qwen2LM, text, text_len, prompt_speech, prompt_speech_len
         step_bias = torch.where(valid, 0.0, NEG_INF).to(embeds.dtype)[:, None, None, :]
         hidden, state.cache = model.forward_hidden(state.prev_emb, pos, step_bias,
                                                    state.cache)
-        _advance(model, state, _sample_from(model, hidden, state, min_len, gen), max_len)
+        _sample_advance(model, state, hidden, min_len, max_len, gen)
     return state.out, state.count
 
 
@@ -274,7 +284,7 @@ def lm_generate_fused_step(model: Qwen2LM, step_w: StepWeights, text, text_len,
         out=torch.zeros((1, max_steps), dtype=torch.int32, device=dev),
         recent=torch.zeros((1, win), dtype=torch.int32, device=dev),
         recent_n=torch.zeros(1, dtype=torch.int32, device=dev))
-    _advance(model, state, _sample_from(model, last, state, min_len, gen), max_len)
+    _sample_advance(model, state, last, min_len, max_len, gen)
     norm_w = model.body.norm.weight
     seq0 = int(seq_len[0])
     while state.step < max_steps and not bool(state.done.all()):
@@ -285,5 +295,5 @@ def lm_generate_fused_step(model: Qwen2LM, step_w: StepWeights, text, text_len,
                     sin[0, 0], nq=q.num_heads, nkv=q.num_kv_heads, hd=q.head_dim,
                     eps=q.rms_norm_eps)
         hid = rms_norm(y, norm_w, q.rms_norm_eps)[None]
-        _advance(model, state, _sample_from(model, hid, state, min_len, gen), max_len)
+        _sample_advance(model, state, hid, min_len, max_len, gen)
     return state.out, state.count

@@ -8,7 +8,8 @@ Hugging Face Qwen2 state_dict (`layers.{i}.self_attn.q_proj.weight`, ...).
 With `fused_cache_update` the cache is packed [B, T_max, KH*D]; prefill
 writes it and attends over the current tokens only, and every one-token
 decode step goes through the `lm_decode_attention` kernel, which also appends
-the new K/V to the cache in place.  Without it the cache is head-major
+the new K/V to the cache in place (at one shared position, or at per-row
+positions for the continuous-batching engine).  Without it the cache is head-major
 [B, KH, T_max, D] and attention is plain PyTorch.  Cache writes are in place
 (the JAX package returns new buffers).
 """
@@ -48,7 +49,9 @@ class Qwen2Config:
 
 
 class KVCache:
-    """Per-layer cache buffers plus the number of filled positions `pos`."""
+    """Per-layer cache buffers plus the number of filled positions `pos`: an
+    int shared by every row (lm_generate), or an int32 [B] tensor of per-row
+    frontiers for one-token decode steps (the continuous-batching engine)."""
 
     def __init__(self, k: list, v: list, pos: int = 0):
         self.k, self.v, self.pos = k, v, pos
@@ -199,8 +202,16 @@ class Qwen2Layer(nn.Module):
                 bias = attn_bias[..., :T]
             elif layer_cache is not None:
                 ck, cv = layer_cache
-                ck[:, :, cache_pos:cache_pos + T] = kt.to(ck.dtype)
-                cv[:, :, cache_pos:cache_pos + T] = vt.to(cv.dtype)
+                if isinstance(cache_pos, torch.Tensor) and cache_pos.ndim == 1:
+                    # per-row frontier: every row appends its token at its own position
+                    if T != 1:
+                        raise ValueError("per-row cache positions take one token a row")
+                    rows, p = torch.arange(B, device=ck.device), cache_pos.long()
+                    ck[rows, :, p] = kt[:, :, 0].to(ck.dtype)
+                    cv[rows, :, p] = vt[:, :, 0].to(cv.dtype)
+                else:
+                    ck[:, :, cache_pos:cache_pos + T] = kt.to(ck.dtype)
+                    cv[:, :, cache_pos:cache_pos + T] = vt.to(cv.dtype)
                 k_all, v_all = ck.to(x.dtype), cv.to(x.dtype)
             qg = q.reshape(B, T, KH, g, HD)
             scores = torch.einsum("bikgd,bkjd->bkgij", qg.float(),
@@ -229,8 +240,9 @@ class Qwen2Model(nn.Module):
         """embeds [B, T, D], positions [B, T], attn_bias [B, 1, T, Tk].
 
         With a cache, K/V are written at cache.pos and cache.pos advances by
-        T.  With fused_cache_update a multi-token call must be the cache's
-        first write (cache.pos == 0).  Returns (hidden [B, T, D], cache)."""
+        T (a [B] cache.pos: per row, T == 1).  With fused_cache_update a
+        multi-token call must be the cache's first write (cache.pos == 0).
+        Returns (hidden [B, T, D], cache)."""
         cfg = self.cfg
         if cache is not None and cfg.fused_cache_update and embeds.shape[1] > 1 \
                 and cache.pos != 0:
@@ -241,7 +253,7 @@ class Qwen2Model(nn.Module):
             lc = (cache.k[i], cache.v[i]) if cache is not None else None
             x = layer(x, cos, sin, attn_bias, lc, cache.pos if cache is not None else None)
         if cache is not None:
-            cache.pos += embeds.shape[1]
+            cache.pos = cache.pos + embeds.shape[1]
         return self.norm(x), cache
 
 

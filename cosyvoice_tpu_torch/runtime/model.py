@@ -6,7 +6,8 @@ tokens (padded to a multiple of the 50-token hop), one HiFT call over the
 generated mel (padded to a multiple of 32 frames).  The decode length comes
 from the smallest static bucket covering the reference's 20x-text bound,
 clamped at `max_decode_tokens`, and a decode that hits that ceiling logs a
-truncation warning.  Streaming synthesis is not ported yet.
+truncation warning.  `runtime/serving.py` batches the same three stages.
+Streaming synthesis is not ported yet.
 """
 from __future__ import annotations
 
@@ -103,11 +104,26 @@ class CosyVoice2Model:
             self._tensor([min(allowed, cap)], torch.long), gen, max_steps=cap,
             cache_len=cache_len)
         n = int(count[0])
-        if n >= cap and allowed > cap:
-            logging.warning("LM decode TRUNCATED at the static cap: emitted %d tokens but "
-                            "the 20x-text bound allows %d; raise max_decode_tokens",
-                            n, allowed)
+        self._warn_if_capped(n, allowed, cap)
         return out[0, :n].cpu().numpy()
+
+    def _warn_if_capped(self, count: int, allowed: int, cap: int) -> None:
+        if count >= cap and allowed > cap:
+            logging.warning("LM decode TRUNCATED at the static cap: emitted %d tokens "
+                            "(~%.1f s audio) but the 20x-text bound allows %d; raise "
+                            "max_decode_tokens", count,
+                            count / self.flow.cfg.input_frame_rate, allowed)
+
+    def pinned_noise(self, frames: int) -> Optional[torch.Tensor]:
+        """The first `frames` frames of the pinned CFM noise [1, N, 80] (None
+        without one: the CFM then slices its own seed-0 buffer)."""
+        if self.flow_noise is None:
+            return None
+        noise = torch.as_tensor(self.flow_noise)
+        if noise.shape[1] < frames:
+            raise ValueError(f"flow_noise buffer ({noise.shape[1]} frames) too short "
+                             f"for {frames} mel frames")
+        return noise[:, :frames]
 
     def _flow(self, tokens, prompt_tokens, prompt_feat, embedding) -> torch.Tensor:
         """Flow over prompt ++ tokens (padded to a hop multiple); returns the
@@ -117,14 +133,11 @@ class CosyVoice2Model:
         n = len(tok)
         bucket = max(round_up(n, self.token_hop_len), self.token_hop_len)
         tok = np.pad(tok, (0, bucket - n))
-        noise = None
-        if self.flow_noise is not None:
-            noise = torch.as_tensor(self.flow_noise)[:, :self.ratio * bucket]
         mel = self.flow.inference(self._tensor(tok, torch.long)[None],
                                   self._tensor([n], torch.long),
                                   self._tensor(prompt_feat, torch.float32)[None],
                                   self._tensor(embedding, torch.float32)[None],
-                                  noise=noise)
+                                  noise=self.pinned_noise(self.ratio * bucket))
         return mel[0, :self.ratio * (n - len(prompt_tokens))]
 
     def _vocode(self, mel: torch.Tensor, gen: torch.Generator) -> torch.Tensor:

@@ -4,10 +4,13 @@ These tests need an NVIDIA GPU and skip without one.  They import no JAX,
 so they also run where JAX is absent:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 """
+import math
+
 import pytest
 import torch
 
 from cosyvoice_tpu_torch.ops.kernels import dit_attention as K2
+from cosyvoice_tpu_torch.ops.kernels import dit_block as K4
 from cosyvoice_tpu_torch.ops.kernels import fused_norm as K3
 from cosyvoice_tpu_torch.ops.kernels import int4_matmul as K5
 from cosyvoice_tpu_torch.ops.kernels import lm_decode_attention as K1
@@ -98,3 +101,33 @@ def test_lm_step_matches_plain(cuda, dtype, rel):
         err = (got.float() - want.float()).abs().max()
         assert err <= rel * want.float().abs().max(), float(err)
     assert torch.equal(kc[:, :pos], kc2[:, :pos]) and torch.equal(kc[:, pos + 1:], kc2[:, pos + 1:])
+
+
+@pytest.mark.gpu
+# fp32: the two differ only in the order of fp32 sums.  bf16: both round at
+# the TPU kernel's points, but a sum taken in another order (or p rounded
+# against the online softmax's running max) can land on the other side of a
+# bf16 rounding boundary, so the attention output o and the residual sums x1
+# and y may each differ by one bf16 ulp: max |kernel - plain| <= two bf16 ulps
+# at max |plain|, for y and, on its own, for o (y is dominated by the
+# residual, so an attention fault could hide in it).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim,heads", [(128, 2), (256, 8)])
+def test_dit_block_matches_plain(cuda, dtype, dim, heads):
+    """K4 at a small ragged shape: lengths with a full row, a short row and a
+    length-0 row; every row of y and of the attention output compared, all
+    values finite."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(4, 256, dim, generator=g, device=cuda).to(dtype)
+    w = K4.random_block_weights(dim, heads, 64, 4 * dim, dtype, g, cuda)
+    lens = torch.tensor([200, 256, 100, 0], dtype=torch.int32, device=cuda)
+    kw = dict(sm_scale=0.125, heads=heads, head_dim=64, return_attention=True)
+    got = K4.dit_block_fused(x, lens, *w, **kw)
+    want = K4.dit_block_plain(x, lens, *w, **kw)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+        else:
+            err, top = (a.float() - b.float()).abs().max(), float(b.float().abs().max())
+            assert err <= 2 * 2.0 ** (math.floor(math.log2(top)) - 7), float(err)

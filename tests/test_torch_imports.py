@@ -16,6 +16,8 @@ import cosyvoice_tpu_torch.runtime.api, cosyvoice_tpu_torch.convert
 import cosyvoice_tpu_torch.utils.quant, cosyvoice_tpu_torch.tokenizer.text
 import cosyvoice_tpu_torch.ops.kernels.lm_step, cosyvoice_tpu_torch.ops.kernels.int4_matmul
 import cosyvoice_tpu_torch.models.llm
+import cosyvoice_tpu_torch.runtime.serving, cosyvoice_tpu_torch.runtime.engine
+import cosyvoice_tpu_torch.ops.kernels.dit_block
 bad = [m for m in sys.modules
        if m in ("jax", "flax", "cosyvoice_tpu") or m.startswith(("jax.", "flax.", "cosyvoice_tpu."))]
 print(",".join(bad))

@@ -103,10 +103,13 @@ def flow_configs(fused: bool):
 
 @lru_cache(maxsize=None)
 def _flow_params():
+    # one Euler step: flax draws each parameter from its module path, so the
+    # values equal those of the default ten-step trace, which compiles longer
     init = jflow.CausalMaskedDiffWithXvec(flow_configs(False)[0]).init
     return jax.jit(lambda k: init(
         k, jnp.zeros((1, 8), jnp.int32), jnp.asarray([8]), jnp.zeros((1, 4, N_MEL)),
-        jnp.zeros((1, 24)), method=jflow.CausalMaskedDiffWithXvec.inference))(KEY)
+        jnp.zeros((1, 24)), n_timesteps=1,
+        method=jflow.CausalMaskedDiffWithXvec.inference))(KEY)
 
 
 def build_flow(fused: bool = False):
@@ -122,8 +125,9 @@ def build_flow(fused: bool = False):
 def build_hift():
     """-> (jax deterministic model, jax params, port deterministic model)."""
     jm = jhift.HiFTGenerator(jhift.HiFTConfig(**HIFT), deterministic=True)
+    # two frames: the params do not depend on the length, and compile sooner
     params = jax.jit(lambda k: jm.init({"params": k, "noise": k},
-                                       jnp.zeros((1, 10, N_MEL))))(KEY)
+                                       jnp.zeros((1, 2, N_MEL))))(KEY)
     tm = thift.HiFTGenerator(thift.HiFTConfig(**HIFT), deterministic=True)
     tm.load_state_dict(convert.hift_state_from_jax(params), strict=True)
     return jm, params, tm.eval()
