@@ -38,13 +38,35 @@ Phases, each printing JSON lines:
      launches and the share of requests equal to a B=1 lm_generate (no gate
      at full width in bf16: a batch-dependent order of sums can flip a
      near-tied argmax);
- 10. timing  - at the main path's shapes: each kernel against its plain
+ 10. bigvgan - the BigVGAN token->wav vocoder at the full width of the
+     recipe (examples/tts_vc/cosyvoice2/conf/cosyvoice2_bigvgan_tts.yaml:
+     two 512-d conformer encoders, rates [8, 5, 3, 2], 1536 initial
+     channels) on seeded random weights, every anti-aliased activation
+     through K7 (snake_aa): 4 rows of 250/200/150/100 tokens (10/8/6/4 s of
+     24 kHz audio), one warm-up and one timed forward: wall time, seconds of
+     audio, RTF, peak memory, K7 launches (must be 73: 4 stages x 3
+     resblocks x 6, plus activation_post), a finite wav in [-1, 1], K7's
+     share of the device time, and the wav difference and the wall time
+     with the composite activations instead (printed only: the first and
+     last ~6 samples of each activation differ by design);
+ 11. stream  - one full-width zero-shot request streamed through
+     CosyVoice2.inference_zero_shot(stream=True) with the main path's
+     weights, greedy sampling and a 200-token cap, after one warm-up
+     stream: first-chunk latency, per-chunk seconds (each split into
+     frontend, LM prefill, flow, HiFT and decode/host), wall, RTF, the chunk
+     lengths (must follow the hop-50 / lookahead-3 / 8-frame-cache formula),
+     the token count (must equal a non-streaming greedy decode's) and the
+     K1/K2/K3 launches (each must be > 0);
+ 12. timing  - at the main path's shapes: each kernel against its plain
      version on the same inputs, then the kernel, the plain version and the
      one PyTorch call that computes the same function, timed (CUDA events);
-     K4 at the batched phase's flow shape, beside the port's unfused block.
+     K4 at the batched phase's flow shape, beside the port's unfused block;
+     K7 at [4, 120000, 192] fp32 (the recipe's third stage), beside the
+     composite anti_alias_activation (no one PyTorch call computes K7).
 Phase 3 also holds K5 (int4_matmul) and K6 (lm_step) against their plain
-versions at the shapes phases 6 and 7 give them, and K4 (dit_block) at the
-estimator's full width with ragged lengths.
+versions at the shapes phases 6 and 7 give them, K4 (dit_block) at the
+estimator's full width with ragged lengths, and K7 (snake_aa) at the
+recipe's first and last stage shapes and its edge cases.
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero.
 """
 from __future__ import annotations
@@ -62,6 +84,17 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
+FP32_FLOPS = 67e12             # fp32 outside the tensor cores (K7's work)
+# K7's fp32 operations per output: two upsampled samples of 6 taps and a
+# snake (~20 with its sin) each, then the 12-tap decimation
+K7_FLOPS_PER_OUTPUT = 2 * (6 * 2 + 20) + 12 * 2
+# K7 cases of phase 3: the recipe's first and last stage shapes (4 rows of up
+# to 250 tokens after rates 8 and 8*5*3*2, with 768 and 96 channels), then
+# T = 1, T = 5 with C = 3 (both edges clamp), beta absent, linear-scale
+# alpha/beta, and C not a multiple of the kernel's 32-channel tile
+K7_CASES = (((4, 8000, 768), True, True), ((4, 240000, 96), True, True),
+            ((1, 1, 40), True, True), ((2, 5, 3), False, True), ((3, 700, 3), True, False),
+            ((1, 130, 100), False, False))
 # (atol, rtol) of a kernel against its plain version.  Both compute in fp32.
 # fp32: they differ only in the order of the sums (~1e-6 at these shapes).
 # bf16: both round one fp32 result to bf16 once, so they may differ by one
@@ -99,6 +132,18 @@ def nvidia_smi() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def timed(stage: dict, key: str, fn):
+    """fn, adding its synchronised host time to stage[key] on every call."""
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        stage[key] += time.perf_counter() - t0
+        return out
+    return run
 
 
 def time_ms(fn, iters: int = 50) -> float:
@@ -296,6 +341,29 @@ def quant_kernel_checks(K5, K6) -> dict:
     return errs
 
 
+def snake_inputs(shape, beta: bool, logscale: bool, g):
+    """x [B, T, C] ~ N(0, 1) and per-channel alpha, beta: 0.3 N under
+    logscale, 1 + 0.3 N otherwise (near each init); beta None if absent."""
+    C = shape[-1]
+    x = torch.randn(*shape, generator=g, device="cuda")
+    a, b = (torch.randn(C, generator=g, device="cuda") * 0.3 + (0.0 if logscale else 1.0)
+            for _ in range(2))
+    return x, a, (b if beta else None), logscale
+
+
+def snake_checks(K7) -> float:
+    """K7 against its plain version, fp32, every sample (edges included):
+    the full-width stage shapes and the edge cases of K7_CASES."""
+    g = torch.Generator(device="cuda").manual_seed(10)
+    err = 0.0
+    for shape, beta, logscale in K7_CASES:
+        args = snake_inputs(shape, beta, logscale, g)
+        name = ("snake_aa_" + "x".join(map(str, shape)) + ("" if beta else "_nobeta")
+                + ("" if logscale else "_linear"))
+        err = max(err, check(name, torch.float32, K7.snake_aa(*args), K7.snake_aa_plain(*args)))
+    return err
+
+
 def small_stack(device: str):
     """A small fp32 stack whose widths the kernels take (head_dim 64, C % 32 == 0)."""
     from cosyvoice_tpu_torch.models.conformer import ConformerConfig
@@ -407,26 +475,16 @@ def main_path(K1, K2, K3, smi: str, profile: bool) -> dict:
     cv = CosyVoice2(frontend=frontend, model=model)
     decodes, prompts, stage = [], [], {"lm_s": 0.0, "flow_s": 0.0, "hift_s": 0.0}
 
-    def timed(key, fn):
-        def run(*args):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            stage[key] += time.perf_counter() - t0
-            return out
-        return run
-
     def recording_generate(text_tokens, prompt_text_len, prompt_speech, gen):
         tokens = generate(text_tokens, prompt_text_len, prompt_speech, gen)
         decodes.append((len(text_tokens), len(prompt_speech), len(tokens)))
         prompts.append((np.asarray(text_tokens), np.asarray(prompt_speech)))
         return tokens
 
-    generate = timed("lm_s", model.llm_generate)
+    generate = timed(stage, "lm_s", model.llm_generate)
     model.llm_generate = recording_generate
-    model._flow = timed("flow_s", model._flow)
-    model._vocode = timed("hift_s", model._vocode)
+    model._flow_chunk = timed(stage, "flow_s", model._flow_chunk)
+    model._vocode = timed(stage, "hift_s", model._vocode)
     t = np.arange(48000) / 16000.0
     prompt = (0.3 * np.sin(2 * np.pi * 220 * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
               + 0.01 * np.random.default_rng(0).standard_normal(len(t))).astype(np.float32)
@@ -687,21 +745,16 @@ def batched_phase(res_main: dict, K1, K4, smi: str) -> dict:
             prompt_feat=mi["prompt_speech_feat"], embedding=mi["flow_embedding"]))
     stage, seen = {"lm_s": 0.0, "flow_s": 0.0, "hift_s": 0.0}, {}
 
-    def timed(key, fn):
+    def timed_seen(key, fn):
         def run(*args):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            stage[key] += time.perf_counter() - t0
-            seen[key] = (args, out)
-            return out
-        return run
+            seen[key] = (args, fn(*args))
+            return seen[key][1]
+        return timed(stage, key, run)
 
     flow_batch = synth.flow_batch
-    synth.generate = timed("lm_s", synth.generate)
-    synth.flow_batch = timed("flow_s", flow_batch)
-    synth.vocode_batch = timed("hift_s", synth.vocode_batch)
+    synth.generate = timed_seen("lm_s", synth.generate)
+    synth.flow_batch = timed_seen("flow_s", flow_batch)
+    synth.vocode_batch = timed_seen("hift_s", synth.vocode_batch)
     set_fused_block(flow, True)
     synth.synthesize_batch(reqs, gen=torch.Generator().manual_seed(0))      # warm-up
     for key in stage:
@@ -810,6 +863,152 @@ def engine_phase(res_main: dict, K1, smi: str) -> dict:
     return res
 
 
+@torch.no_grad()
+def bigvgan_phase(K7, smi: str) -> dict:
+    """BigVGAN at the recipe's full width on seeded random weights, every
+    AAAct through K7: a warm-up forward and a timed one over 4 rows of
+    250/200/150/100 tokens; then K7's share of the device time
+    (torch.profiler), and the same input through the composite activations
+    (warm-up, timed): the wall time and the wav difference."""
+    from cosyvoice_tpu_torch.models.bigvgan import RECIPE, AAAct, BigVGAN
+
+    cfg = dataclasses.replace(RECIPE, use_pallas_act=True)
+    with torch.device("cuda"):
+        model = BigVGAN(cfg)
+    rand_init_(model, 12348)
+    model.eval()
+    lens = [250, 200, 150, 100]
+    T = max(lens)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    tlen = torch.tensor(lens, device="cuda")
+    valid = torch.arange(T, device="cuda")[None] < tlen[:, None]
+    token = torch.where(valid, torch.randint(0, cfg.vocab_size, (4, T), generator=g,
+                                             device="cuda"), -1)
+    spk = torch.randn(4, cfg.speaker_embedding_dim, generator=g, device="cuda")
+    upsample = math.prod(cfg.upsample_rates) * 2 ** 2      # 2x per conformer encoder
+    acts = [m for m in model.modules() if isinstance(m, AAAct)]
+
+    def forward():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav, mel = model(token, tlen, spk)
+        torch.cuda.synchronize()
+        return wav, mel, time.perf_counter() - t0
+
+    forward()                                               # warm-up
+    K7.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    wav, mel, wall = forward()
+    k7 = K7.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    device_ms = device_ms_by_kernel(lambda: model(token, tlen, spk), n=1)
+    for m in acts:
+        m.use_kernel = False
+    forward()
+    wav_off, _, wall_off = forward()
+    for m in acts:
+        m.use_kernel = True
+    expected = len(cfg.upsample_rates) * sum(2 * len(d) for d in cfg.resblock_dilation_sizes) + 1
+    audio_s = sum(lens) * upsample / 24000.0
+    finite = bool(torch.isfinite(wav).all())
+    res = {"phase": "bigvgan", "card": smi, "config": "cosyvoice2_bigvgan_tts.yaml",
+           "rows_tokens": lens, "wav_shape": list(wav.shape), "mel_shape": list(mel.shape),
+           "wall_s": wall, "audio_s": audio_s, "rtf": wall / audio_s, "peak_mem_gb": peak,
+           "k7_launches": k7, "k7_launches_expected": expected,
+           "k7_device_ms": device_ms.get("snake_aa_kernel", 0.0),
+           "device_ms": sum(device_ms.values()),
+           "k7_device_share": device_ms.get("snake_aa_kernel", 0.0) / sum(device_ms.values()),
+           "wav_finite": finite, "wav_max_abs": float(wav.abs().max()),
+           "composite_wall_s": wall_off,
+           "wav_max_abs_diff_kernel_vs_composite": float((wav - wav_off).abs().max())}
+    emit(res)
+    if (k7 != expected or len(acts) != expected or not finite or res["wav_max_abs"] > 1.0
+            or tuple(wav.shape) != (4, T * upsample)):
+        raise AssertionError(f"bigvgan phase failed: {res}")
+    return res
+
+
+@torch.no_grad()
+def stream_phase(res_main: dict, K1, K2, K3, smi: str) -> dict:
+    """One full-width zero-shot request streamed through
+    inference_zero_shot(stream=True): the main path's weights with greedy
+    sampling, a 200-token cap, after one warm-up stream of the same request.
+    Each chunk's seconds split into frontend, LM prefill, flow and HiFT
+    (synchronised host timers) and the rest: decode steps and host work."""
+    from cosyvoice_tpu_torch.models.llm import Qwen2LM, SamplingConfig
+    from cosyvoice_tpu_torch.runtime.api import CosyVoice2
+    from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model
+
+    llm, flow, hift, frontend = res_main["stack"]
+    cfg = dataclasses.replace(llm.cfg, sampling=SamplingConfig(method="greedy"))
+    with torch.device("cuda"):
+        lm = Qwen2LM(cfg)
+    lm.load_state_dict(llm.state_dict(), strict=True, assign=True)
+    model = CosyVoice2Model(llm=lm.eval(), flow=flow, hift=hift, max_decode_tokens=200,
+                            device="cuda")
+    cv = CosyVoice2(frontend=frontend, model=model)
+    prefills, streamed = [], []
+    prefill, token2wav = model._prefill, model.token2wav
+
+    def recording_prefill(*args):
+        prefills.append(args[:3])
+        return prefill(*args)
+
+    def recording_token2wav(tokens, *args, **kwargs):
+        streamed.append(tokens[:kwargs.get("n_tokens")].cpu().numpy())
+        return token2wav(tokens, *args, **kwargs)
+
+    stage = dict.fromkeys(("frontend_s", "prefill_s", "flow_s", "hift_s"), 0.0)
+    model.token2wav = recording_token2wav
+    model._prefill = timed(stage, "prefill_s", recording_prefill)
+    model._flow_chunk = timed(stage, "flow_s", model._flow_chunk)
+    model._vocode = timed(stage, "hift_s", model._vocode)
+    frontend.frontend_zero_shot = timed(stage, "frontend_s", frontend.frontend_zero_shot)
+
+    def stream():
+        torch.cuda.synchronize()
+        t0 = last = time.perf_counter()
+        chunk_s, lens, splits = [], [], []
+        stage.update(dict.fromkeys(stage, 0.0))
+        for out in cv.inference_zero_shot(res_main["first_text"], "A short prompt.",
+                                          res_main["prompt_wav"], stream=True):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            chunk_s.append(now - last)
+            lens.append(len(out["tts_speech"]))
+            splits.append(dict(stage, decode_and_host_s=now - last - sum(stage.values())))
+            stage.update(dict.fromkeys(stage, 0.0))
+            last = now
+        return chunk_s, lens, splits, last - t0
+
+    stream()                                                # warm-up
+    for mod in (K1, K2, K3):
+        mod.launches = 0
+    streamed.clear()
+    chunk_s, lens, splits, wall = stream()
+    del frontend.frontend_zero_shot                         # the shared frontend's own method
+    launches = {"lm_decode_attention": K1.launches, "dit_attention": K2.launches,
+                "fused_layer_norm": K3.launches}
+    tokens = streamed[-1]
+    ref = model.llm_generate(*prefills[-1], None)
+    hop, la, cache, hs = model.token_hop_len, model.pre_lookahead_len, model.mel_cache_len, \
+        model.hop_samples
+    k, n = len(lens) - 1, len(tokens)
+    want = ([(2 * (hop + la) - cache) * hs] * min(k, 1) + [2 * (hop + la) * hs] * max(k - 1, 0)
+            + [((cache if k else 0) + 2 * (n - hop * k)) * hs])
+    audio_s = sum(lens) / 24000.0
+    res = {"phase": "stream", "card": smi, "speech_tokens": n,
+           "nonstream_greedy_tokens": len(ref), "tokens_equal": bool(np.array_equal(tokens, ref)),
+           "chunks": len(lens), "chunk_samples": lens, "chunk_samples_expected": want,
+           "first_chunk_latency_s": chunk_s[0], "chunk_s": chunk_s, "chunk_split_s": splits,
+           "wall_s": wall,
+           "audio_s": audio_s, "rtf": wall / max(audio_s, 1e-9), "launches": launches}
+    emit(res)
+    if lens != want or n != len(ref) or not res["tokens_equal"] or not all(launches.values()):
+        raise AssertionError(f"stream phase failed: {res}")
+    return res
+
+
 def profile_request(run) -> None:
     """One more request under torch.profiler: device kernel time by name and
     the device's busy share of the wall time."""
@@ -833,7 +1032,9 @@ def profile_request(run) -> None:
 
 def device_ms_by_kernel(fn, n: int = 10) -> dict:
     """Device time per call of each CUDA kernel that fn launches, over n calls
-    under torch.profiler."""
+    under torch.profiler.  Kernels are keyed by their first `*_kernel` word,
+    and the template instances that share a key add up, so the values sum to
+    the device time of every CUDA event."""
     import re
 
     from torch.autograd import DeviceType
@@ -845,15 +1046,21 @@ def device_ms_by_kernel(fn, n: int = 10) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return {(re.search(r"\w+_kernel", e.key) or re.search(r"\w+", e.key)).group(0):
-            e.self_device_time_total / 1e3 / n for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    ms = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            k = (re.search(r"\w+_kernel", e.key) or re.search(r"\w+", e.key)).group(0)
+            ms[k] = ms.get(k, 0.0) + e.self_device_time_total / 1e3 / n
+    return ms
 
 
-def timing(K1, K2, K3, K4, K5, K6, last_decode, flow, block_shape) -> list:
+def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
     """At the last request's shapes (bf16; K4 at the batched phase's flow
-    shape): each kernel against its plain version on the same inputs, then
-    kernel, plain and library times."""
+    shape; K7 fp32 at the bigvgan phase's third stage): each kernel against
+    its plain version on the same inputs, then kernel, plain and library
+    times."""
+    from cosyvoice_tpu_torch.ops.resample import anti_alias_activation
+
     dev, bf = torch.device("cuda"), torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(2)
     r = lambda *s: torch.randn(*s, generator=g, device=dev).to(bf)
@@ -1004,9 +1211,30 @@ def timing(K1, K2, K3, K4, K5, K6, last_decode, flow, block_shape) -> list:
         flops=sum(2 * T4 * dim * 3 * inner + 4 * 8 * T4 * Lb * 64 + 2 * T4 * inner * dim
                   + 4 * T4 * dim * ff for Lb in lens4),
         max_abs_err=k4_err))
+    # K7: one AAAct of the recipe's third stage (4 rows, 120000 samples, 192
+    # channels), fp32; no single PyTorch call computes it, so the library
+    # column times the composite (upsample2 -> snake_beta -> downsample2)
+    x7, a7, b7, _ = snake_inputs((4, 120000, 192), True, True, g)
+    k7_err = check("snake_aa", torch.float32, K7.snake_aa(x7, a7, b7),
+                   K7.snake_aa_plain(x7, a7, b7), phase="timing")
+    x7cf = x7.transpose(1, 2).contiguous().transpose(1, 2)    # channels-first memory
+    rows.append(dict(
+        name="snake_aa", source="cosyvoice_tpu_torch/csrc/snake_aa.cu",
+        replaces="cosyvoice_tpu/ops/pallas/snake_aa.py:99", shape=[4, 120000, 192],
+        dtype="float32", ms=time_ms(lambda: K7.snake_aa(x7, a7, b7)),
+        plain_ms=time_ms(lambda: K7.snake_aa_plain(x7, a7, b7), iters=20),
+        library_ms=time_ms(lambda: anti_alias_activation(x7, a7, b7), iters=20),
+        library_call="composite anti_alias_activation (upsample2 -> snake_beta -> downsample2)",
+        # AAAct's x.contiguous() ahead of each launch: the convs leave x
+        # channels-first in memory, so every forward launch pays this copy too
+        layout_copy_ms=time_ms(lambda: x7cf.contiguous(), iters=20),
+        # x read and y written once, alpha and beta once, in fp32
+        bytes=2 * x7.numel() * 4 + 2 * 192 * 4, flops=K7_FLOPS_PER_OUTPUT * x7.numel(),
+        peak_flops=FP32_FLOPS, max_abs_err=k7_err))
     for row in rows:
+        row.setdefault("peak_flops", BF16_FLOPS)
         t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = row["flops"] / BF16_FLOPS * 1e3
+        t_ops = row["flops"] / row["peak_flops"] * 1e3
         row.update(route="cuda", bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
     return rows
@@ -1024,6 +1252,7 @@ def main() -> int:
     from cosyvoice_tpu_torch.ops.kernels import int4_matmul as K5
     from cosyvoice_tpu_torch.ops.kernels import lm_decode_attention as K1
     from cosyvoice_tpu_torch.ops.kernels import lm_step as K6
+    from cosyvoice_tpu_torch.ops.kernels import snake_aa as K7
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1042,10 +1271,12 @@ def main() -> int:
     errs = kernel_checks(K1, K2, K3)
     errs.update(quant_kernel_checks(K5, K6))
     errs["dit_block"] = block_checks(K4)
+    errs["snake_aa"] = snake_checks(K7)
     reference_check()
     res = main_path(K1, K2, K3, smi, profile="--profile" in sys.argv[1:])
     # later slices' paths: K6 from the fused_step phase, K5 from the int4
-    # phase, K4 from the batched phase (the engine phase drives K1 per row)
+    # phase, K4 from the batched phase (the engine phase drives K1 per row),
+    # K7 from the bigvgan phase (the stream phase drives K1-K3)
     launches = dict(res["launches"])
     launches["lm_step"] = fused_step_phase(res["stack"][0], res["first_prompt"], K1, K6,
                                            smi)["k6_launches"]
@@ -1053,11 +1284,14 @@ def main() -> int:
     batched = batched_phase(res, K1, K4, smi)
     launches["dit_block"] = batched["k4_launches"]
     engine_phase(res, K1, smi)
+    launches["snake_aa"] = bigvgan_phase(K7, smi)["k7_launches"]
+    stream_phase(res, K1, K2, K3, smi)
     flow = res["stack"][1]
     del res["stack"]
-    rows = timing(K1, K2, K3, K4, K5, K6, res["last_decode"], flow, batched["block_shape"])
+    rows = timing(K1, K2, K3, K4, K5, K6, K7, res["last_decode"], flow, batched["block_shape"])
     tolerance = {"lm_step": K6_REL_TOL[torch.bfloat16],
-                 "dit_block": {"bf16_ulps_at_max_plain": K4_BF16_ULPS}}
+                 "dit_block": {"bf16_ulps_at_max_plain": K4_BF16_ULPS},
+                 "snake_aa": CHECK_TOL[torch.float32]}
     for row in rows:
         row.update(launches=launches[row["name"]], edge_max_abs_err=errs[row["name"]],
                    tolerance=tolerance.get(row["name"], CHECK_TOL[torch.bfloat16]),

@@ -203,3 +203,38 @@ def hift_state_from_jax(params: dict) -> dict:
         for j in range(nk):
             resblock(f"resblocks.{i * nk + j}", p[f"resblocks_{i}_{j}"])
     return sd
+
+
+def bigvgan_state_from_jax(params: dict, cfg) -> dict:
+    """models/bigvgan.py BigVGAN params -> port (and reference checkpoint)
+    state_dict; the inverse of the JAX package's import_bigvgan_torch."""
+    p = _root(params)
+    sd = {"input_embedding.weight": _t(p["input_embedding"]["embedding"])}
+    _dense(sd, "encoder_proj", p["encoder_proj"])
+    _dense(sd, "mel_proj", p["mel_proj"])
+    _wn_conv(sd, "conv_pre", p["conv_pre"])
+    _wn_conv(sd, "conv_post", p["conv_post"])
+    _conv(sd, "cond_layer", p["cond_layer"])
+
+    def aa_act(name, q):
+        sd[f"{name}.act.alpha"] = _t(q["alpha"])
+        if "beta" in q:
+            sd[f"{name}.act.beta"] = _t(q["beta"])
+
+    aa_act("activation_post", p["activation_post"])
+    for enc in ("encoder1", "encoder2"):
+        if getattr(cfg, enc) is not None:
+            _encoder(sd, f"{enc}.", p[enc])
+    nk = len(cfg.resblock_kernel_sizes)
+    for i in range(len(cfg.upsample_rates)):
+        _wn_convT(sd, f"ups.{i}.0", p[f"ups_{i}"])
+        if cfg.cond_in_each_up_layer:
+            _conv(sd, f"conds.{i}", p[f"conds_{i}"])
+        for j in range(nk):
+            q, name = p[f"resblocks_{i}_{j}"], f"resblocks.{i * nk + j}"
+            for conv in ("convs1", "convs2"):       # convs2 only in AMPBlock1
+                for d in _indices(q, f"{conv}_"):
+                    _wn_conv(sd, f"{name}.{conv}.{d}", q[f"{conv}_{d}"])
+            for a in _indices(q, "act_"):
+                aa_act(f"{name}.activations.{a}", q[f"act_{a}"])
+    return sd

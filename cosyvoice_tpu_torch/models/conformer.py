@@ -2,7 +2,8 @@
 relative-position attention.
 
 Port of the parts of cosyvoice_tpu/models/conformer.py that the v2 flow
-encoder uses (no macaron FFN, no conv module, no streaming caches).
+encoder and BigVGAN's token upsamplers use (no macaron FFN, no conv module,
+no streaming caches).
 Parameter names follow the reference checkpoint (`encoders.{i}.self_attn.linear_q`,
 `encoders.{i}.feed_forward.w_1`, `embed.out.0`, ...).
 """
@@ -157,13 +158,15 @@ class Upsample1D(nn.Module):
 
 class UpsampleConformerEncoder(nn.Module):
     """lookahead -> num_blocks layers -> x2 upsample -> up_blocks layers.
-    The static chunk mask applies whenever static_chunk_size > 0 (doubled
-    after the upsample), as in the v2 flow encoder."""
+    The static chunk mask (doubled after the upsample) applies whenever
+    static_chunk_size > 0, as in the v2 flow encoder; with chunk_always
+    False (the stream family's encoder) only while streaming."""
 
     def __init__(self, cfg: ConformerConfig, up_blocks: int = 4,
-                 pre_lookahead_len: int = 3, up_stride: int = 2):
+                 pre_lookahead_len: int = 3, up_stride: int = 2,
+                 chunk_always: bool = True):
         super().__init__()
-        self.cfg, self.up_stride = cfg, up_stride
+        self.cfg, self.up_stride, self.chunk_always = cfg, up_stride, chunk_always
         self.embed = LinearEmbed(cfg.input_size, cfg.dim)
         self.pre_lookahead_layer = PreLookaheadLayer(cfg.dim, pre_lookahead_len)
         self.encoders = nn.ModuleList(ConformerEncoderLayer(cfg)
@@ -174,14 +177,15 @@ class UpsampleConformerEncoder(nn.Module):
                                          for _ in range(up_blocks))
         self.after_norm = LayerNorm(cfg.dim, 1e-5)
 
-    def forward(self, xs: torch.Tensor, lens: torch.Tensor):
+    def forward(self, xs: torch.Tensor, lens: torch.Tensor, streaming: bool = False):
         """xs [B, T, input_size], lens [B] -> (h [B, 2T, dim], valid [B, 2T])."""
         cfg = self.cfg
         T = xs.shape[1]
+        chunk = cfg.static_chunk_size if (self.chunk_always or streaming) else 0
         pad = make_non_pad_mask(lens, T)
         xs = self.embed(xs)
         pos_emb = espnet_rel_pos_emb(T, cfg.dim, xs.dtype, xs.device)
-        attn_mask = add_chunk_mask(pad, cfg.static_chunk_size)
+        attn_mask = add_chunk_mask(pad, chunk)
         # zero pad rows before the right-looking lookahead conv (the embed
         # LayerNorm maps zeros to its bias, which would leak into valid rows)
         xs = self.pre_lookahead_layer(xs * pad[..., None].to(xs.dtype))
@@ -192,7 +196,7 @@ class UpsampleConformerEncoder(nn.Module):
         pad2 = make_non_pad_mask(lens * self.up_stride, T2)
         xs = self.up_embed(xs)
         pos_emb2 = espnet_rel_pos_emb(T2, cfg.dim, xs.dtype, xs.device)
-        attn_mask2 = add_chunk_mask(pad2, cfg.static_chunk_size * self.up_stride)
+        attn_mask2 = add_chunk_mask(pad2, chunk * self.up_stride)
         for layer in self.up_encoders:
             xs = layer(xs, pos_emb2, attn_mask2)
         return self.after_norm(xs), pad2

@@ -16,8 +16,16 @@ LayerNorms (+mish) through the `fused_layer_norm` kernel; with `fused_block`
 as well, each whole DiT block is one `dit_block_fused` call.  Without
 `fused_attention` the DiT attention is plain PyTorch with an additive bias:
 true -inf key masking under `exact_pad_mask`, else the reference's 0/1 float
-mask used verbatim as a bias.  Streaming (chunk-masked) estimator calls are
-not ported yet.
+mask used verbatim as a bias.
+
+`streaming` (the non-final chunks of streaming synthesis) threads through
+the flow, the CFM and the estimator.  It changes nothing for the main
+path's estimator family (`stream=False`, which keeps its fused route); the
+stream family (`stream=True`, the reference's StreamConditionalDecoder)
+attends under a -inf key-pad bias, and with `streaming` under a static
+chunk mask of `static_chunk_size` mel frames and `left_chunks` chunks of
+left context.  The flow encoder applies its chunk mask always for
+`stream=False` and only while streaming for `stream=True`.
 """
 from __future__ import annotations
 
@@ -37,7 +45,7 @@ from cosyvoice_tpu_torch.nn.norm import LayerNorm
 from cosyvoice_tpu_torch.ops.activations import mish
 from cosyvoice_tpu_torch.ops.kernels import dit_block
 from cosyvoice_tpu_torch.ops.kernels.dit_attention import dit_attention_packed
-from cosyvoice_tpu_torch.ops.masks import NEG_INF, make_non_pad_mask
+from cosyvoice_tpu_torch.ops.masks import NEG_INF, add_chunk_mask, make_non_pad_mask
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -184,6 +192,11 @@ class EstimatorConfig:
     # fused_attention and approx_gelu; the JAX package keeps it off on the
     # TPU for a compile-time hazard that the GPU does not have)
     fused_block: bool = False
+    # the stream family: chunk-masked attention while streaming (mel frames a
+    # chunk, chunks of left context; -1 = all)
+    stream: bool = False
+    static_chunk_size: int = 50
+    left_chunks: int = -1
 
 
 class ConditionalDecoder(nn.Module):
@@ -212,7 +225,8 @@ class ConditionalDecoder(nn.Module):
         self.final_block = Block1D(ch, ch, cfg.fused_norm)
         self.final_proj = Conv1d(ch, cfg.out_channels, 1)
 
-    def forward(self, x, mask, mu, t, spks, cond, exact_pad_mask: bool = False):
+    def forward(self, x, mask, mu, t, spks, cond, streaming: bool = False,
+                exact_pad_mask: bool = False):
         """x/mu/cond [B, T, C], mask [B, T] float, t [B], spks [B, C] ->
         [B, T, out_channels] fp32."""
         cfg = self.cfg
@@ -221,14 +235,19 @@ class ConditionalDecoder(nn.Module):
         # the angles reach `scale` rad: keep them fp32, cast the embedding only
         t_emb = self.time_mlp(sinusoidal_time_emb(t.float(), cfg.in_channels).to(cdt))
         T_in = x.shape[1]
-        if cfg.fused_attention and T_in % 128:
+        serving_fast = cfg.fused_attention and not (cfg.stream and streaming)
+        if serving_fast and T_in % 128:
             grow = (0, 0, 0, -T_in % 128)
             x, mu, cond = (F.pad(v, grow) for v in (x, mu, cond))
             mask = F.pad(mask, (0, -T_in % 128))
         T = x.shape[1]
         m = mask[..., None]
-        if cfg.fused_attention:
+        if serving_fast:
             bias, lengths = None, (mask > 0).sum(dim=1).to(torch.int32)
+        elif cfg.stream:
+            keep = add_chunk_mask(mask > 0, cfg.static_chunk_size if streaming else 0,
+                                  cfg.left_chunks)
+            bias, lengths = torch.where(keep, 0.0, NEG_INF).to(cdt), None
         elif exact_pad_mask:
             bias, lengths = torch.where(mask[:, None, :] > 0, 0.0, NEG_INF).to(cdt), None
         else:
@@ -286,7 +305,7 @@ class CausalConditionalCFM(nn.Module):
 
     def forward(self, mu, mask, spks, cond, n_timesteps: int = 10,
                 temperature: float = 1.0, noise: Optional[torch.Tensor] = None,
-                exact_pad_mask: bool = False):
+                streaming: bool = False, exact_pad_mask: bool = False):
         """mu [B,T,80], mask [B,T] float, spks [B,80], cond [B,T,80] -> mel [B,T,80]."""
         B, T, C = mu.shape
         if noise is None:
@@ -302,7 +321,7 @@ class CausalConditionalCFM(nn.Module):
         for i in range(n_timesteps):
             t, dt = t_span[i], t_span[i + 1] - t_span[i]
             v = self.estimator(torch.cat([x, x]), mask2, mu2, t.expand(2 * B), spks2,
-                               cond2, exact_pad_mask=exact_pad_mask)
+                               cond2, streaming, exact_pad_mask=exact_pad_mask)
             x = x + dt * ((1.0 + r) * v[:B] - r * v[B:])
         return x
 
@@ -334,20 +353,22 @@ class CausalMaskedDiffWithXvec(nn.Module):
         self.spk_embed_affine_layer = Dense(cfg.spk_embed_dim, cfg.output_size)
         self.encoder = UpsampleConformerEncoder(cfg.encoder, up_blocks=4,
                                                 pre_lookahead_len=cfg.pre_lookahead_len,
-                                                up_stride=cfg.token_mel_ratio)
+                                                up_stride=cfg.token_mel_ratio,
+                                                chunk_always=not cfg.estimator.stream)
         self.encoder_proj = Dense(cfg.encoder.dim, cfg.output_size)
         self.decoder = CausalConditionalCFM(cfg.cfm, cfg.estimator)
 
-    def _encode(self, token, token_len):
+    def _encode(self, token, token_len, streaming: bool = False):
         mask = make_non_pad_mask(token_len, token.shape[1])
         emb = self.input_embedding(token.clamp_min(0)) * mask[..., None]
-        h, pad2 = self.encoder(emb.to(_DTYPES[self.cfg.encoder_dtype]), token_len)
+        h, pad2 = self.encoder(emb.to(_DTYPES[self.cfg.encoder_dtype]), token_len, streaming)
         return self.encoder_proj(h.float()), pad2
 
     @torch.no_grad()
     def inference(self, token, token_len, prompt_feat, embedding, n_timesteps: int = 10,
                   noise: Optional[torch.Tensor] = None,
-                  prompt_feat_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  prompt_feat_len: Optional[torch.Tensor] = None,
+                  streaming: bool = False) -> torch.Tensor:
         """token [B, Tp+Tg] (prompt ++ generated), prompt_feat [B, P, 80] with
         P = ratio * prompt token count, embedding [B, spk_embed_dim]
         -> mel [B, ratio*T - P, 80].
@@ -358,7 +379,7 @@ class CausalMaskedDiffWithXvec(nn.Module):
         caller keeps row b's [prompt_feat_len[b], ratio*token_len[b])."""
         spks = embedding / embedding.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         spks = self.spk_embed_affine_layer(spks)
-        h, _ = self._encode(token, token_len)
+        h, _ = self._encode(token, token_len, streaming)
         P, T2 = prompt_feat.shape[1], h.shape[1]
         conds = torch.zeros((h.shape[0], T2, self.cfg.output_size), dtype=h.dtype,
                             device=h.device)
@@ -369,5 +390,5 @@ class CausalMaskedDiffWithXvec(nn.Module):
             conds = conds.masked_fill(~keep[..., None], 0.0)
         mask = make_non_pad_mask(token_len * self.cfg.token_mel_ratio, T2).to(h.dtype)
         feat = self.decoder(h, mask, spks, conds, n_timesteps=n_timesteps, noise=noise,
-                            exact_pad_mask=True)
+                            streaming=streaming, exact_pad_mask=True)
         return feat if prompt_feat_len is not None else feat[:, P:]

@@ -1,7 +1,8 @@
 """CosyVoice2 speech-token LM: Qwen2 body + speech head + AR decode loop.
 
-Port of cosyvoice_tpu/models/llm.py (Qwen2LM, lm_generate and the B=1
-whole-step decode lm_generate_fused_step).  Inputs are
+Port of cosyvoice_tpu/models/llm.py (Qwen2LM, lm_generate, the chunked
+decode of streaming synthesis (lm_prefill_stream, lm_decode_chunk) and the
+B=1 whole-step decode lm_generate_fused_step).  Inputs are
 [sos, text_emb(prompt_text ++ text), task, speech_emb(prompt_speech)]; decode
 is causal and KV-cached, one token per step; EOS is masked while step <
 min_len; decoding stops at EOS or max_len; sampled ids above EOS are not
@@ -184,12 +185,27 @@ def _advance(model: Qwen2LM, state: GenState, tok, max_len) -> None:
     state.step += 1
 
 
+@dataclass
+class StreamState:
+    """Carry of a chunked decode: the GenState, the per-row prefix lengths,
+    the padded prefix length (decode slots start there), the cache length,
+    the stopping bounds and the sampling generator."""
+
+    gen: GenState
+    seq_len: torch.Tensor    # [B]
+    prefix_len: int
+    cache_len: int
+    min_len: torch.Tensor
+    max_len: torch.Tensor
+    rng: Optional[torch.Generator]
+
+
 @torch.no_grad()
-def lm_generate(model: Qwen2LM, text, text_len, prompt_speech, prompt_speech_len,
-                min_len, max_len, gen: Optional[torch.Generator], max_steps: int,
-                cache_len: int):
-    """CosyVoice2 Qwen2LM generation over the packed [sos,text,task,speech]
-    prefix (right-padded rows).  Returns (tokens [B, max_steps], count [B])."""
+def lm_prefill_stream(model: Qwen2LM, text, text_len, prompt_speech, prompt_speech_len,
+                      min_len, max_len, gen: Optional[torch.Generator], max_steps: int,
+                      cache_len: int) -> StreamState:
+    """Prefill over the packed [sos,text,task,speech] prefix (right-padded
+    rows) and the first sample; lm_decode_chunk takes it from there."""
     cfg = model.cfg
     embeds, seq_len = model.prefill_embeds(text, text_len, prompt_speech,
                                            prompt_speech_len)
@@ -210,15 +226,38 @@ def lm_generate(model: Qwen2LM, text, text_len, prompt_speech, prompt_speech_len
                      recent=torch.zeros((B, win), dtype=torch.int32, device=dev),
                      recent_n=torch.zeros(B, dtype=torch.int32, device=dev))
     _sample_advance(model, state, last, min_len, max_len, gen)
-    slot = torch.arange(cache_len, device=dev)[None, :]
-    prompt_ok = slot < seq_len[:, None]
-    while state.step < max_steps and not bool(state.done.all()):
-        pos = (seq_len + state.step - 1)[:, None]
-        valid = prompt_ok | ((slot >= Tp) & (slot <= state.cache.pos))
-        step_bias = torch.where(valid, 0.0, NEG_INF).to(embeds.dtype)[:, None, None, :]
+    return StreamState(state, seq_len, Tp, cache_len, min_len, max_len, gen)
+
+
+@torch.no_grad()
+def lm_decode_chunk(model: Qwen2LM, stream: StreamState, n_steps: int) -> StreamState:
+    """Advance the decode by up to n_steps steps, in place; stops early once
+    every row is done (EOS or max_len) or the out buffer is full."""
+    state = stream.gen
+    max_steps = state.out.shape[1]
+    slot = torch.arange(stream.cache_len, device=state.out.device)[None, :]
+    prompt_ok = slot < stream.seq_len[:, None]
+    start = state.step
+    while (state.step < max_steps and state.step - start < n_steps
+           and not bool(state.done.all())):
+        pos = (stream.seq_len + state.step - 1)[:, None]
+        valid = prompt_ok | ((slot >= stream.prefix_len) & (slot <= state.cache.pos))
+        step_bias = torch.where(valid, 0.0, NEG_INF).to(state.prev_emb.dtype)[:, None, None, :]
         hidden, state.cache = model.forward_hidden(state.prev_emb, pos, step_bias,
                                                    state.cache)
-        _sample_advance(model, state, hidden, min_len, max_len, gen)
+        _sample_advance(model, state, hidden, stream.min_len, stream.max_len, stream.rng)
+    return stream
+
+
+def lm_generate(model: Qwen2LM, text, text_len, prompt_speech, prompt_speech_len,
+                min_len, max_len, gen: Optional[torch.Generator], max_steps: int,
+                cache_len: int):
+    """CosyVoice2 Qwen2LM generation over the packed [sos,text,task,speech]
+    prefix (right-padded rows): the streaming prefill and one chunk that
+    runs to the end.  Returns (tokens [B, max_steps], count [B])."""
+    stream = lm_prefill_stream(model, text, text_len, prompt_speech, prompt_speech_len,
+                               min_len, max_len, gen, max_steps, cache_len)
+    state = lm_decode_chunk(model, stream, max_steps).gen
     return state.out, state.count
 
 

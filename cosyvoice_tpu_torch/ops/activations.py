@@ -1,5 +1,5 @@
-"""Activations: Snake (vocoders), Swish, Mish, and the serving polynomial
-sine.  Port of cosyvoice_tpu/ops/activations.py."""
+"""Activations: Snake and SnakeBeta (vocoders), Swish, Mish, and the serving
+polynomial sine.  Port of cosyvoice_tpu/ops/activations.py."""
 from __future__ import annotations
 
 import torch
@@ -26,6 +26,16 @@ def snake(x: torch.Tensor, alpha: torch.Tensor, alpha_logscale: bool = False,
         alpha = torch.exp(alpha)
     s = (fast_sin if approx_sin else torch.sin)(alpha * x)
     return x + (1.0 / (alpha + eps)) * s * s
+
+
+def snake_beta(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+               alpha_logscale: bool = True, eps: float = 1e-9) -> torch.Tensor:
+    """x + (1/beta) * sin^2(alpha * x): BigVGAN's SnakeBeta."""
+    if alpha_logscale:
+        alpha = torch.exp(alpha)
+        beta = torch.exp(beta)
+    s = torch.sin(alpha * x)
+    return x + (1.0 / (beta + eps)) * s * s
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:

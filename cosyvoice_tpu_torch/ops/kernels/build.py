@@ -23,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("lm_decode_attention.cu", "dit_attention.cu", "fused_norm.cu",
-           "int4_matmul.cu", "lm_step.cu", "dit_block.cu")
+           "int4_matmul.cu", "lm_step.cu", "dit_block.cu", "snake_aa.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -37,6 +37,7 @@ _SIGNATURES = {
     "cvt_lm_step": [_P] * 19 + [_I] * 7 + [_F, _F, _I, _P],
     "cvt_lm_step_sync_probe": [_I] * 6 + [ctypes.POINTER(_I), _P],
     "cvt_dit_block": [_P] * 16 + [_I] * 6 + [_F, _I, _P],
+    "cvt_snake_aa": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -2,8 +2,9 @@
 
 Port of cosyvoice_tpu/runtime/api.py::CosyVoice2.inference_zero_shot:
 normalize and split the text, then run `model.tts()` per segment, logging
-the RTF of each yielded chunk.  Loading released checkpoints
-(`from_pretrained`) comes with checkpoint support.
+the RTF of each yielded chunk: one chunk a segment, or with `stream=True`
+the segment's streamed chunks as they are synthesized.  Loading released
+checkpoints (`from_pretrained`) comes with checkpoint support.
 """
 from __future__ import annotations
 

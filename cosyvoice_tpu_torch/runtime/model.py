@@ -1,13 +1,29 @@
-"""CosyVoice2 inference pipeline: LM -> flow -> vocoder (non-streaming).
+"""CosyVoice2 inference pipeline: LM -> flow -> vocoder, one-shot or streaming.
 
-Port of cosyvoice_tpu/runtime/model.py::CosyVoice2Model for `tts(stream=False)`:
-one LM decode over the whole text, one flow call over prompt ++ generated
-tokens (padded to a multiple of the 50-token hop), one HiFT call over the
-generated mel (padded to a multiple of 32 frames).  The decode length comes
-from the smallest static bucket covering the reference's 20x-text bound,
-clamped at `max_decode_tokens`, and a decode that hits that ceiling logs a
-truncation warning.  `runtime/serving.py` batches the same three stages.
-Streaming synthesis is not ported yet.
+Port of cosyvoice_tpu/runtime/model.py::CosyVoice2Model.
+- `tts(stream=False)`: one LM decode over the whole text, one flow call over
+  prompt ++ generated tokens (padded to a multiple of the 50-token hop), one
+  HiFT call over the generated mel (padded to a multiple of 32 frames).
+- `tts(stream=True)`: the decode runs in hop-sized chunks
+  (`lm_prefill_stream` / `lm_decode_chunk`).  Whenever hop + lookahead (3)
+  tokens past the emitted offset exist, the flow re-runs over prompt ++ the
+  tokens so far with `streaming` (chunk-masked in the stream family), and the
+  chunk's mel from `token_offset * ratio` on is vocoded with the session's
+  caches: the last 8 mel frames of the previous chunk are prepended, the
+  HiFT source of those frames is spliced in, the head of the new wav is
+  cross-faded over a Hamming window with the previous chunk's held-back
+  tail, and the last 8 * 480 samples are held back for the next chunk.  The
+  final chunk vocodes the rest.  With `flow_context_tokens` a chunk's flow
+  context is the prompt plus a window of the latest generated tokens
+  (`flow_window_drop`), the pinned noise re-indexed to match
+  (`windowed_noise`).
+The decode length comes from the smallest static bucket covering the
+reference's 20x-text bound, clamped at `max_decode_tokens`, and a decode
+that hits that ceiling logs a truncation warning.  `runtime/serving.py`
+batches the non-streaming stages.  Where the JAX package folds a counter
+into a PRNG key for each vocoder call, a session here draws its HiFT source
+noise from one torch.Generator seeded 0, so a request's waveform does not
+depend on what was synthesized before it.
 """
 from __future__ import annotations
 
@@ -21,9 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from cosyvoice_tpu_torch.device import resolve_device
-from cosyvoice_tpu_torch.models.flow import CausalMaskedDiffWithXvec
+from cosyvoice_tpu_torch.models.flow import CausalMaskedDiffWithXvec, reference_rand_noise
 from cosyvoice_tpu_torch.models.hift import HiFTGenerator
-from cosyvoice_tpu_torch.models.llm import Qwen2LM, lm_generate
+from cosyvoice_tpu_torch.models.llm import Qwen2LM, lm_decode_chunk, lm_prefill_stream
 
 
 def round_up(n: int, m: int) -> int:
@@ -69,6 +85,11 @@ class CosyVoice2Model:
     # pinned CFM noise [1, N, 80]; None uses the CFM's own seed-0 buffer
     flow_noise: Optional[torch.Tensor] = None
     device: Optional[str] = None
+    # streaming flow context, in generated tokens: None re-runs every chunk's
+    # flow over the whole prefix (the reference's semantics, quadratic in the
+    # stream's length); W keeps the prompt plus the last <= W + hop generated
+    # tokens (W >= hop + lookahead)
+    flow_context_tokens: Optional[int] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -77,8 +98,22 @@ class CosyVoice2Model:
         if self.decode_buckets is None:
             self.decode_buckets = _derive_decode_buckets(self.max_decode_tokens)
         self.token_hop_len = 2 * self.flow.cfg.input_frame_rate      # 50
+        self.pre_lookahead_len = self.flow.cfg.pre_lookahead_len     # 3
         self.ratio = self.flow.cfg.token_mel_ratio                   # 2
         self.hop_samples = self.hift.cfg.upsample_scale              # 480 at 24 kHz
+        if self.flow_context_tokens is not None:
+            need = self.token_hop_len + self.pre_lookahead_len
+            if self.flow_context_tokens < need:
+                raise ValueError(f"flow_context_tokens must cover one chunk and its "
+                                 f"lookahead (>= {need}), got {self.flow_context_tokens}")
+            if self.flow_noise is None:
+                # a window re-indexes the noise, which needs the buffer itself:
+                # the one the CFM slices when it is given none
+                self.flow_noise = reference_rand_noise(self.flow.cfg.cfm.noise_frames,
+                                                       self.flow.cfg.output_size)
+        self.mel_cache_len = 8
+        self.source_cache_len = self.mel_cache_len * self.hop_samples
+        self.speech_window = np.hamming(2 * self.source_cache_len)
 
     def decode_cap(self, new_text_len: int) -> int:
         allowed = int(new_text_len * self.llm.cfg.max_token_text_ratio)
@@ -87,25 +122,32 @@ class CosyVoice2Model:
     def _tensor(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
 
-    def llm_generate(self, text_tokens: np.ndarray, prompt_text_len: int,
-                     prompt_speech_tokens: np.ndarray,
-                     gen: Optional[torch.Generator]) -> np.ndarray:
-        """The full AR decode; returns the emitted token ids."""
+    def _prefill(self, text_tokens, prompt_text_len: int, prompt_speech_tokens,
+                 gen: Optional[torch.Generator]):
+        """The decode's prefill and first sample -> (StreamState, allowed, cap)."""
         text = self._tensor(text_tokens, torch.long)[None]
         psp = self._tensor(prompt_speech_tokens, torch.long)[None]
         new_text = text.shape[1] - prompt_text_len
         allowed = int(new_text * self.llm.cfg.max_token_text_ratio)
         cap = self.decode_cap(new_text)
-        cache_len = round_up(2 + text.shape[1] + psp.shape[1] + cap, 128)
-        out, count = lm_generate(
+        state = lm_prefill_stream(
             self.llm, text, self._tensor([text.shape[1]], torch.long), psp,
             self._tensor([psp.shape[1]], torch.long),
             self._tensor([int(new_text * self.llm.cfg.min_token_text_ratio)], torch.long),
             self._tensor([min(allowed, cap)], torch.long), gen, max_steps=cap,
-            cache_len=cache_len)
-        n = int(count[0])
+            cache_len=round_up(2 + text.shape[1] + psp.shape[1] + cap, 128))
+        return state, allowed, cap
+
+    def llm_generate(self, text_tokens: np.ndarray, prompt_text_len: int,
+                     prompt_speech_tokens: np.ndarray,
+                     gen: Optional[torch.Generator]) -> np.ndarray:
+        """The full AR decode; returns the emitted token ids."""
+        state, allowed, cap = self._prefill(text_tokens, prompt_text_len,
+                                            prompt_speech_tokens, gen)
+        decoded = lm_decode_chunk(self.llm, state, cap).gen
+        n = int(decoded.count[0])
         self._warn_if_capped(n, allowed, cap)
-        return out[0, :n].cpu().numpy()
+        return decoded.out[0, :n].cpu().numpy()
 
     def _warn_if_capped(self, count: int, allowed: int, cap: int) -> None:
         if count >= cap and allowed > cap:
@@ -117,59 +159,155 @@ class CosyVoice2Model:
     def pinned_noise(self, frames: int) -> Optional[torch.Tensor]:
         """The first `frames` frames of the pinned CFM noise [1, N, 80] (None
         without one: the CFM then slices its own seed-0 buffer)."""
-        if self.flow_noise is None:
-            return None
-        noise = torch.as_tensor(self.flow_noise)
-        if noise.shape[1] < frames:
-            raise ValueError(f"flow_noise buffer ({noise.shape[1]} frames) too short "
-                             f"for {frames} mel frames")
-        return noise[:, :frames]
+        return None if self.flow_noise is None else self.windowed_noise(0, 0, frames)
 
-    def _flow(self, tokens, prompt_tokens, prompt_feat, embedding) -> torch.Tensor:
-        """Flow over prompt ++ tokens (padded to a hop multiple); returns the
-        generated mel [frames, 80]."""
-        tok = np.concatenate([np.asarray(prompt_tokens, np.int64),
-                              np.asarray(tokens, np.int64)])
-        n = len(tok)
+    def flow_window_drop(self, n_gen: int, token_offset: int) -> int:
+        """Generated tokens to drop from the front of a streaming chunk's flow
+        context: 0 without flow_context_tokens or at offset 0; else rounded
+        up to a hop multiple (the kept window lies in (W - hop, W], so the
+        call's bucket does not move with the exact token count) and at most
+        the offset rounded down to one (the emitted region stays inside)."""
+        W = self.flow_context_tokens
+        if W is None or token_offset == 0 or n_gen <= W:
+            return 0
+        hop = self.token_hop_len
+        drop = -((-(n_gen - W)) // hop) * hop
+        return min(drop, (token_offset // hop) * hop)
+
+    def windowed_noise(self, pfl: int, drop: int, need: int) -> torch.Tensor:
+        """Noise rows [1, need, 80] for a windowed flow call: the prompt's
+        rows [0, pfl), then for generated row i of the window buffer row
+        pfl + drop * ratio + i, the row the whole-prefix call gives that
+        token.  With drop 0 this is the plain [:need] slice."""
+        buf = torch.as_tensor(self.flow_noise)
+        d = drop * self.ratio
+        if buf.shape[1] < d + need:
+            raise ValueError(f"flow_noise buffer ({buf.shape[1]} frames) too short for "
+                             f"window offset {d} + {need} mel frames")
+        if d == 0:
+            return buf[:, :need]
+        return torch.cat([buf[:, :pfl], buf[:, pfl + d: d + need]], dim=1)
+
+    def _flow_chunk(self, all_tokens, prompt_tokens, prompt_feat, embedding,
+                    token_offset: int, streaming: bool,
+                    n_tokens: Optional[int] = None) -> torch.Tensor:
+        """Flow over prompt ++ the first n_tokens generated tokens (less the
+        window's drop; padded to a hop multiple) -> the generated mel
+        [frames, 80] from token_offset on.  all_tokens may be a host array
+        or the LM's device buffer."""
+        n_gen = len(all_tokens) if n_tokens is None else n_tokens
+        drop = self.flow_window_drop(n_gen, token_offset)
+        prompt = self._tensor(prompt_tokens, torch.long)
+        gen_tok = torch.as_tensor(all_tokens, device=self.device)[drop:n_gen].long()
+        n = len(prompt) + n_gen - drop
         bucket = max(round_up(n, self.token_hop_len), self.token_hop_len)
-        tok = np.pad(tok, (0, bucket - n))
-        mel = self.flow.inference(self._tensor(tok, torch.long)[None],
-                                  self._tensor([n], torch.long),
+        tok = F.pad(torch.cat([prompt, gen_tok]), (0, bucket - n))
+        noise = None
+        if self.flow_noise is not None:
+            noise = self.windowed_noise(np.asarray(prompt_feat).shape[0], drop,
+                                        self.ratio * bucket)
+        mel = self.flow.inference(tok[None], self._tensor([n], torch.long),
                                   self._tensor(prompt_feat, torch.float32)[None],
                                   self._tensor(embedding, torch.float32)[None],
-                                  noise=self.pinned_noise(self.ratio * bucket))
-        return mel[0, :self.ratio * (n - len(prompt_tokens))]
+                                  noise=noise, streaming=streaming)
+        return mel[0, (token_offset - drop) * self.ratio: self.ratio * (n - len(prompt))]
 
-    def _vocode(self, mel: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-        """HiFT over mel [frames, 80], padded to a multiple of 32 frames."""
+    def _vocode(self, mel: torch.Tensor, cache_source: Optional[torch.Tensor],
+                gen: torch.Generator, pad_to: int):
+        """HiFT over mel [frames, 80] zero-padded to pad_to frames, with the
+        cached source [Lc] spliced over the head of the new one -> (wav,
+        source) of the unpadded frames."""
         n = mel.shape[0]
-        mel_pad = F.pad(mel.float(), (0, 0, 0, round_up(n, 32) - n))
-        wav, _ = self.hift.inference(mel_pad[None], gen=gen)
-        return wav[0, :n * self.hop_samples]
+        mel_pad = F.pad(mel.float(), (0, 0, 0, pad_to - n))
+        cs = None if cache_source is None else cache_source[None, :, None]
+        wav, source = self.hift.inference(mel_pad[None], cache_source=cs, gen=gen)
+        return wav[0, :n * self.hop_samples], source[0, :n * self.hop_samples, 0]
 
-    def token2wav(self, tokens, prompt_tokens, prompt_feat, embedding,
-                  speed: float = 1.0) -> np.ndarray:
-        mel = self._flow(tokens, prompt_tokens, prompt_feat, embedding)
+    @staticmethod
+    def new_session() -> dict:
+        """A request's vocoder state: the fade caches and its noise generator."""
+        return {"hift": None, "gen": torch.Generator().manual_seed(0)}
+
+    def token2wav(self, tokens, prompt_tokens, prompt_feat, embedding, token_offset: int = 0,
+                  session: Optional[dict] = None, finalize: bool = True, speed: float = 1.0,
+                  n_tokens: Optional[int] = None) -> np.ndarray:
+        """Flow (streaming unless finalize) then vocoder, for one chunk of a
+        session (by default a fresh one: the whole request at once)."""
+        mel = self._flow_chunk(tokens, prompt_tokens, prompt_feat, embedding, token_offset,
+                               streaming=not finalize, n_tokens=n_tokens)
+        return self.mel2wav(mel, self.new_session() if session is None else session,
+                            finalize, speed)
+
+    def mel2wav(self, mel: torch.Tensor, session: dict, finalize: bool,
+                speed: float = 1.0) -> np.ndarray:
+        """Vocode one chunk's generated mel with the session's caches."""
+        cache = session["hift"]
+        cache_source = None
+        if cache is not None:
+            mel = torch.cat([cache["mel"], mel.float()])
+            cache_source = cache["source"]
+        if not finalize:
+            # every steady-state chunk vocodes one static shape
+            pad_to = max(self.mel_cache_len + (self.token_hop_len + self.pre_lookahead_len)
+                         * self.ratio, mel.shape[0])
+            wav, source = self._vocode(mel, cache_source, session["gen"], pad_to)
+            wav = wav.cpu().numpy()
+            if cache is not None:
+                wav = self._fade(wav, cache["speech"])
+            n = self.source_cache_len
+            session["hift"] = {"mel": mel[-self.mel_cache_len:], "source": source[-n:],
+                               "speech": wav[-n:]}
+            return wav[:-n]
         if speed != 1.0:
-            mel = self._tensor(_interp_linear(mel.cpu().numpy(),
-                                              int(mel.shape[0] / speed)), torch.float32)
-        # the HiFT source noise restarts per request, so a request's waveform
-        # does not depend on what was synthesized before it
-        return self._vocode(mel, torch.Generator().manual_seed(0)).cpu().numpy()
+            if cache is not None:
+                raise ValueError("a speed change needs non-streaming synthesis")
+            mel = self._tensor(_interp_linear(mel.cpu().numpy(), int(mel.shape[0] / speed)),
+                               torch.float32)
+        wav, _ = self._vocode(mel, cache_source, session["gen"], round_up(mel.shape[0], 32))
+        wav = wav.cpu().numpy()
+        return wav if cache is None else self._fade(wav, cache["speech"])
+
+    def _fade(self, wav: np.ndarray, prev_tail: np.ndarray) -> np.ndarray:
+        """Hamming cross-fade of the chunk's head with the held-back tail."""
+        n, w = self.source_cache_len, self.speech_window
+        wav = wav.copy()
+        wav[:n] = wav[:n] * w[:n] + prev_tail[-n:] * w[n:]
+        return wav
 
     def tts(self, text_tokens: np.ndarray, prompt_text_len: int,
             llm_prompt_speech_token: np.ndarray, flow_prompt_speech_token: np.ndarray,
             prompt_speech_feat: np.ndarray, flow_embedding: np.ndarray,
             stream: bool = False, speed: float = 1.0,
             gen: Optional[torch.Generator] = None) -> Iterator[dict]:
-        """Yield {'tts_speech': np.ndarray [S]} (one chunk: non-streaming)."""
-        if stream:
-            raise NotImplementedError("streaming synthesis is not ported yet")
+        """Yield {'tts_speech': np.ndarray [S]}: one chunk, or the stream's
+        chunks (hop 50 tokens, lookahead 3, fade caches of 8 mel frames)."""
         if gen is None:
             gen = torch.Generator().manual_seed(time.time_ns() % (1 << 31))
-        tokens = self.llm_generate(text_tokens, prompt_text_len,
-                                   llm_prompt_speech_token, gen)
-        yield {"tts_speech": self.token2wav(
-            tokens, np.asarray(flow_prompt_speech_token, np.int64),
-            np.asarray(prompt_speech_feat, np.float32),
-            np.asarray(flow_embedding, np.float32), speed)}
+        session = self.new_session()
+        fpt = np.asarray(flow_prompt_speech_token, np.int64)
+        prompt_feat = np.asarray(prompt_speech_feat, np.float32)
+        emb = np.asarray(flow_embedding, np.float32)
+        if not stream:
+            tokens = self.llm_generate(text_tokens, prompt_text_len,
+                                       llm_prompt_speech_token, gen)
+            yield {"tts_speech": self.token2wav(tokens, fpt, prompt_feat, emb, 0, session,
+                                                finalize=True, speed=speed)}
+            return
+        state, allowed, cap = self._prefill(text_tokens, prompt_text_len,
+                                            llm_prompt_speech_token, gen)
+        hop, la = self.token_hop_len, self.pre_lookahead_len
+        token_offset = 0
+        while True:
+            lm_decode_chunk(self.llm, state, hop)
+            count, done = int(state.gen.count[0]), bool(state.gen.done[0])
+            while count - token_offset >= hop + la:
+                wav = self.token2wav(state.gen.out[0], fpt, prompt_feat, emb, token_offset,
+                                     session, finalize=False, n_tokens=token_offset + hop + la)
+                token_offset += hop
+                yield {"tts_speech": wav}
+            if done or state.gen.step >= cap:
+                break
+        self._warn_if_capped(count, allowed, cap)
+        yield {"tts_speech": self.token2wav(state.gen.out[0], fpt, prompt_feat, emb,
+                                            token_offset, session, finalize=True,
+                                            n_tokens=count)}

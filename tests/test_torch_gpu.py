@@ -15,6 +15,7 @@ from cosyvoice_tpu_torch.ops.kernels import fused_norm as K3
 from cosyvoice_tpu_torch.ops.kernels import int4_matmul as K5
 from cosyvoice_tpu_torch.ops.kernels import lm_decode_attention as K1
 from cosyvoice_tpu_torch.ops.kernels import lm_step as K6
+from cosyvoice_tpu_torch.ops.kernels import snake_aa as K7
 
 
 @pytest.fixture
@@ -131,3 +132,34 @@ def test_dit_block_matches_plain(cuda, dtype, dim, heads):
         else:
             err, top = (a.float() - b.float()).abs().max(), float(b.float().abs().max())
             assert err <= 2 * 2.0 ** (math.floor(math.log2(top)) - 7), float(err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,beta,logscale", [
+    ((2, 700, 24), True, True), ((1, 5, 3), False, True), ((1, 130, 96), True, False),
+    ((1, 1, 40), True, True), ((4, 8000, 768), True, True)],
+    ids=["snakebeta", "short_snake", "linear_scale", "one_sample", "full_width_stage"])
+def test_snake_aa_matches_plain(cuda, shape, beta, logscale):
+    """K7 against its plain version in fp32 (the sums in another order and
+    sinf's rounding: ~1e-6 at these magnitudes), every sample, edges included."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    C = shape[-1]
+    x = torch.randn(*shape, generator=g, device=cuda)
+    a, b = (torch.randn(C, generator=g, device=cuda) * 0.3 + (0.0 if logscale else 1.0)
+            for _ in range(2))
+    b = b if beta else None
+    K7.launches = 0
+    y = K7.snake_aa(x, a, b, logscale)
+    torch.cuda.synchronize()
+    assert K7.launches == 1
+    torch.testing.assert_close(y, K7.snake_aa_plain(x, a, b, logscale), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+def test_snake_aa_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(1, 64, 8, device=cuda)
+    a = torch.zeros(8, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        K7.snake_aa(x.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        K7.snake_aa(x[:, ::2], a)

@@ -18,6 +18,8 @@ import cosyvoice_tpu_torch.ops.kernels.lm_step, cosyvoice_tpu_torch.ops.kernels.
 import cosyvoice_tpu_torch.models.llm
 import cosyvoice_tpu_torch.runtime.serving, cosyvoice_tpu_torch.runtime.engine
 import cosyvoice_tpu_torch.ops.kernels.dit_block
+import cosyvoice_tpu_torch.models.bigvgan, cosyvoice_tpu_torch.ops.kernels.snake_aa
+import cosyvoice_tpu_torch.ops.resample
 bad = [m for m in sys.modules
        if m in ("jax", "flax", "cosyvoice_tpu") or m.startswith(("jax.", "flax.", "cosyvoice_tpu."))]
 print(",".join(bad))
@@ -78,3 +80,21 @@ def test_frontend_raises_without_gpu_and_runs_on_cpu_when_asked():
     fe = CosyVoiceFrontEnd(tokenizer=ByteTokenizer(), device="cpu")
     feat = fe._extract_speech_feat(np.zeros(4800, np.float32))
     assert fe.device.type == "cpu" and feat.shape == (10, 80)
+
+
+def test_bigvgan_raises_without_gpu_and_runs_on_cpu_when_asked():
+    if torch.cuda.is_available():
+        pytest.skip("this check is for hosts without a GPU")
+    from cosyvoice_tpu_torch.models.bigvgan import BigVGANConfig, load_bigvgan
+
+    cfg = BigVGANConfig(vocab_size=30, input_size=16, output_size=16, mel_bin=8,
+                        upsample_rates=(2,), upsample_kernel_sizes=(4,),
+                        upsample_initial_channel=16, resblock_kernel_sizes=(3,),
+                        resblock_dilation_sizes=((1,),), speaker_embedding_dim=8,
+                        use_pallas_act=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_bigvgan(cfg)
+    model = load_bigvgan(cfg, device="cpu")
+    wav, mel = model(torch.zeros(1, 5, dtype=torch.long), torch.tensor([5]),
+                     torch.zeros(1, 8))
+    assert wav.shape == (1, 10) and mel.shape == (1, 5, 8)

@@ -7,6 +7,7 @@ from functools import lru_cache
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from cosyvoice_tpu.models import conformer as jconf
 from cosyvoice_tpu.models import flow as jflow
@@ -50,6 +51,28 @@ def jax_est_config(fused: bool):
 
 def torch_est_config(fused: bool):
     return tflow.EstimatorConfig(**est_kwargs(fused), channels=32)
+
+
+def random_params(init, *args, seed: int = 0, **kwargs):
+    """A module's parameter tree drawn with numpy from the shapes of
+    `init(*args, **kwargs)` alone (jax.eval_shape: nothing is compiled):
+    LayerNorm scales, weight-norm gains and snake alphas/betas 1 + 0.2 N,
+    biases 0.05 N, embedding tables N, other weights N / sqrt(fan_in)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        z = rng.standard_normal(shape).astype(np.float32)
+        if name in ("scale", "g", "alpha", "beta"):
+            return 1.0 + 0.2 * z
+        if name == "bias":
+            return 0.05 * z
+        if name == "embedding":
+            return z
+        return z / np.sqrt(max(int(np.prod(shape[:-1])), 1))
+
+    shapes = jax.eval_shape(lambda *a: init(*a, **kwargs), *args)
+    return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
 def interpret_pallas(monkeypatch):
