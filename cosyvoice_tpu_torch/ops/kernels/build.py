@@ -30,7 +30,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "cvt_lm_decode_attention": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    "cvt_lm_decode_attention": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
     "cvt_dit_attention": [_P] * 5 + [_I] * 4 + [_LL] * 4 + [_F, _I, _P],
     "cvt_fused_layer_norm": [_P] * 4 + [_LL, _I, _F, _I, _I, _P],
     "cvt_int4_matmul": [_P] * 4 + [_I] * 5 + [_P],
@@ -124,7 +124,9 @@ def dtype_code(t: torch.Tensor) -> int:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on t's device (the call
+    PyTorch's own generated kernels use: no Stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check_launch(rc: int, name: str) -> None:
@@ -133,9 +135,9 @@ def check_launch(rc: int, name: str) -> None:
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
+    index = tensors[0].get_device()            # -1 on the CPU
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if index < 0 or t.get_device() != index:
             raise ValueError(f"{name}: every tensor must be on one CUDA device, "
                              f"got {[str(x.device) for x in tensors]}")
         if not t.is_contiguous():

@@ -2,9 +2,10 @@
 DiT blocks of the flow estimator).
 
 `dit_attention_packed` / `dit_attention` launch the CUDA kernel in
-`csrc/dit_attention.cu` for CUDA tensors and run `dit_attention_plain` for
-CPU tensors.  Port of cosyvoice_tpu/ops/pallas/dit_attention.py; unlike the
-TPU kernel, any T works (no 128-row alignment).
+`csrc/dit_attention.cu` for CUDA tensors (bf16 on the tensor cores, fp32 on
+the SIMT units) and run `dit_attention_plain` for CPU tensors.  Port of
+cosyvoice_tpu/ops/pallas/dit_attention.py; unlike the TPU kernel, any T
+works (no 128-row alignment).
 """
 from __future__ import annotations
 
@@ -14,21 +15,27 @@ from cosyvoice_tpu_torch.ops.kernels import build
 
 # kernel launches so far (plain integer; callers may reset it to 0)
 launches = 0
+LOG2E = 1.4426950408889634
 
 
 def dit_attention_plain(q, k, v, lengths, sm_scale: float) -> torch.Tensor:
     """q/k/v [B, T, H, D] (any strides) -> o [B, T, H, D] in q.dtype.
 
-    Keys j >= lengths[b] are excluded; a row with no keys gives zeros."""
+    Keys j >= lengths[b] are excluded; a row with no keys gives zeros.  The
+    TPU kernel's rounding points: q * (sm_scale * log2 e) rounded to q.dtype,
+    scores in fp32, exp2 against the row max, p rounded to q.dtype before
+    p @ v, fp32 sums, the divide floored at 1e-30 (in fp32 the roundings are
+    the identity)."""
     T = q.shape[1]
-    s = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) * sm_scale
+    qs = (q.float() * (sm_scale * LOG2E)).to(q.dtype).float()
+    s = torch.einsum("bihd,bjhd->bhij", qs, k.float())
     valid = torch.arange(T, device=q.device)[None, :] < lengths.to(q.device)[:, None]
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    p = torch.exp2(s - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.einsum("bhij,bjhd->bihd", p / l, v.float())
-    return o.to(q.dtype)
+    o = torch.einsum("bhij,bjhd->bihd", p.to(q.dtype).float(), v.float())
+    return (o / l.transpose(1, 2)).to(q.dtype)
 
 
 def _launch(q, k, v, out, lengths, B, T, H, D, in_strides, out_strides, sm_scale,
@@ -36,6 +43,10 @@ def _launch(q, k, v, out, lengths, B, T, H, D, in_strides, out_strides, sm_scale
     global launches
     if D != 64:
         raise ValueError(f"{name}: kernel takes head_dim 64, got {D}")
+    if out.dtype == torch.bfloat16 and (any(p % 16 for p in (q, k, v))
+                                        or any(s % 8 for s in in_strides)):
+        raise ValueError(f"{name}: bf16 q/k/v must be 16-byte aligned with strides "
+                         "that are multiples of 8")
     lengths = lengths.to(device=out.device, dtype=torch.int32).contiguous()
     if lengths.shape != (B,):
         raise ValueError(f"{name}: lengths must be [B={B}], got {tuple(lengths.shape)}")

@@ -1,8 +1,9 @@
 """Single-token GQA decode attention over a packed KV cache, appending the new
 token's K/V in place (the LM decode step under `fused_cache_update`).
 
-`lm_decode_attention` launches the CUDA kernel in
-`csrc/lm_decode_attention.cu` for CUDA tensors and runs
+`lm_decode_attention` launches the split-key CUDA kernel in
+`csrc/lm_decode_attention.cu` for CUDA tensors (one launch; the wrapper owns
+its scratch and counters, one set per device and stream) and runs
 `lm_decode_attention_plain`, the same function in plain PyTorch, for CPU
 tensors.  Port of cosyvoice_tpu/ops/pallas/lm_decode_attention.py.
 """
@@ -14,12 +15,31 @@ from cosyvoice_tpu_torch.ops.kernels import build
 
 # kernel launches so far (plain integer; callers may reset it to 0)
 launches = 0
+# keys a block of the split kernel takes (csrc/lm_decode_attention.cu kChunk)
+CHUNK = 32
+# per (device, raw stream): (counters [B*KH] int32, zero between launches;
+# fp32 partials).  Launches on one stream run in order, so they may share a
+# set; a launch on another stream gets its own.
+_scratch: dict = {}
+
+
+def _scratch_for(device: torch.device, stream: int, pairs: int, floats: int):
+    key = (device, stream)
+    counters, work = _scratch.get(key, (None, None))
+    if counters is None or counters.numel() < pairs:
+        counters = torch.zeros(pairs, dtype=torch.int32, device=device)
+    if work is None or work.numel() < floats:
+        work = torch.empty(floats, dtype=torch.float32, device=device)
+    _scratch[key] = (counters, work)
+    return counters, work
 
 
 def _pos_vector(pos, B: int, device) -> torch.Tensor:
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         if pos.shape != (B,):
             raise ValueError(f"pos must be a scalar or [B={B}], got {tuple(pos.shape)}")
+        if pos.dtype == torch.int32 and pos.device == device:
+            return pos
         return pos.to(device=device, dtype=torch.int32)
     return torch.full((B,), int(pos), dtype=torch.int32, device=device)
 
@@ -84,12 +104,17 @@ def lm_decode_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tenso
     if head_dim != 64 or G > 16:
         raise ValueError(f"lm_decode_attention: kernel takes head_dim 64 and "
                          f"G <= 16, got head_dim={head_dim} G={G}")
+    ptrs = [t.data_ptr() for t in (q, k_new, v_new, ck, cv, bias_row, pos)]
+    if ptrs[0] % 16 or ptrs[3] % 16 or ptrs[4] % 16:
+        raise ValueError("lm_decode_attention: q and the cache must be 16-byte aligned")
+    KH = KHD // head_dim
+    stream = build.stream_of(q)
+    counters, work = _scratch_for(q.device, stream, B * KH,
+                                  B * KH * -(-T // CHUNK) * G * (head_dim + 2))
     out = torch.empty_like(q)
     rc = build.library().cvt_lm_decode_attention(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), ck.data_ptr(),
-        cv.data_ptr(), bias_row.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        B, G, KHD // head_dim, head_dim, T, float(sm_scale), build.dtype_code(q),
-        build.stream_of(q))
+        *ptrs, out.data_ptr(), work.data_ptr(), counters.data_ptr(), B, G, KH, head_dim,
+        T, float(sm_scale), build.dtype_code(q), stream)
     build.check_launch(rc, "lm_decode_attention")
     launches += 1
     return out, ck, cv

@@ -27,9 +27,32 @@ def cuda():
     return torch.device("cuda")
 
 
+def _assert_attention_close(got, want, lengths, dtype):
+    """K2's bar on the valid rows (t < lengths[b]) of o [B, T, H, D]: fp32
+    2e-5; bf16 two bf16 ulps at the max |plain| of each (batch row, head).
+    Both round q and p to bf16, but the kernel rounds p against the online
+    softmax's running max and the plain version against the row max, so a p
+    may round apart and an output may land one ulp of its row and head's
+    magnitude away (elementwise 2**-7 |o| does not hold where |o| is
+    small)."""
+    assert torch.isfinite(got).all()
+    got, want = got.float(), want.float()
+    valid = (torch.arange(got.shape[1], device=got.device)[None, :]
+             < lengths[:, None])[:, :, None, None].expand_as(got)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[valid], want[valid], atol=2e-5, rtol=2e-5)
+    else:
+        diff = torch.where(valid, (got - want).abs(), 0.0)
+        top = torch.where(valid, want.abs(), 0.0).amax(dim=(1, 3), keepdim=True)
+        limit = 2 * torch.where(top > 0, torch.exp2(torch.floor(torch.log2(top)) - 7), 0.0)
+        assert (diff <= limit).all(), float((diff - limit).max())
+
+
 @pytest.mark.gpu
 # (atol, rtol): both sides compute in fp32; fp32 outputs differ only in the
-# order of the sums, bf16 outputs by at most one bf16 ulp of |y| (2**-7 |y|).
+# order of the sums, bf16 outputs by at most one bf16 ulp of |y| (2**-7 |y|);
+# K2 in bf16 by two bf16 ulps at the max |plain| of each (batch row, head)
+# (_assert_attention_close).
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 2e-5),
                                              (torch.bfloat16, 1e-4, 2.0 ** -7)])
 def test_cuda_kernels_match_plain(cuda, dtype, atol, rtol):
@@ -48,17 +71,111 @@ def test_cuda_kernels_match_plain(cuda, dtype, atol, rtol):
 
     qkv = r(4, 1152, 3 * 512)
     lens = torch.tensor([1152, 1000, 517, 0], dtype=torch.int32, device=cuda)
-    o = K2.dit_attention_packed(qkv, lens, 0.125, 64)
+    o = K2.dit_attention_packed(qkv, lens, 0.125, 64).reshape(4, 1152, 8, 64)
     q3, k3, v3 = (qkv[..., i * 512:(i + 1) * 512].reshape(4, 1152, 8, 64) for i in range(3))
-    o_ref = K2.dit_attention_plain(q3, k3, v3, lens, 0.125).reshape(4, 1152, 512)
-    for b, L in enumerate(lens.tolist()):
-        torch.testing.assert_close(o[b, :L].float(), o_ref[b, :L].float(), atol=atol, rtol=rtol)
+    o_ref = K2.dit_attention_plain(q3, k3, v3, lens, 0.125)
+    _assert_attention_close(o, o_ref, lens, dtype)
 
     x, w, bb = r(2304, 256), r(256), r(256)
     for act in ("none", "mish"):
         torch.testing.assert_close(K3.fused_layer_norm(x, w, bb, 1e-5, act).float(),
                                    K3.layer_norm_plain(x, w, bb, 1e-5, act).float(),
                                    atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 1e-4, 2.0 ** -7)])
+def test_lm_decode_attention_split_boundaries(cuda, dtype, atol, rtol):
+    """K1 at B = 1 (one query row, the split kernel's keys spread over
+    ceil(Tc / 32) blocks) with pos at 0, 1, chunk - 1, chunk, chunk + 1 and
+    Tc - 1, at three cache lengths (12, 128 and 264 splits); a pad bias on a
+    tenth of the keys; the cache must equal the plain version's after each
+    call."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda).to(dtype)
+    c = K1.CHUNK
+    for Tc in (384, 4096, 8448):
+        ck, cv = r(1, Tc, 128), r(1, Tc, 128)
+        bias = torch.where(torch.rand(1, Tc, generator=g, device=cuda) < 0.1, -1e9, 0.0)
+        ck2, cv2 = ck.clone(), cv.clone()
+        for pos in (0, 1, c - 1, c, c + 1, Tc - 1):
+            q, kn, vn = r(1, 7, 128), r(1, 1, 128), r(1, 1, 128)
+            o, _, _ = K1.lm_decode_attention(q, kn, vn, ck, cv, bias, pos, 64, 0.125)
+            o_ref, _, _ = K1.lm_decode_attention_plain(q, kn, vn, ck2, cv2, bias, pos, 64,
+                                                       0.125)
+            torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+            assert torch.equal(ck, ck2) and torch.equal(cv, cv2), (Tc, pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 1e-4, 2.0 ** -7)])
+def test_lm_decode_attention_per_row_batch8(cuda, dtype, atol, rtol):
+    """K1 at the engine's shape: B = 8, cache 384, per-row pos spread over
+    100-380, three steps in a row (each appends, the next reads it back)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda).to(dtype)
+    ck, cv = r(8, 384, 128), r(8, 384, 128)
+    ck2, cv2 = ck.clone(), cv.clone()
+    bias = torch.zeros(8, 384, device=cuda)
+    pos = torch.tensor([100, 140, 180, 220, 260, 300, 340, 380], dtype=torch.int32,
+                       device=cuda)
+    for step in range(3):
+        q, kn, vn = r(8, 7, 128), r(8, 1, 128), r(8, 1, 128)
+        o, _, _ = K1.lm_decode_attention(q, kn, vn, ck, cv, bias, pos + step, 64, 0.125)
+        o_ref, _, _ = K1.lm_decode_attention_plain(q, kn, vn, ck2, cv2, bias, pos + step, 64,
+                                                   0.125)
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+        assert torch.equal(ck, ck2) and torch.equal(cv, cv2), step
+
+
+@pytest.mark.gpu
+def test_lm_decode_attention_two_streams(cuda):
+    """K1 launched on two streams at once: each stream gets its own counters
+    and partials, so both outputs and caches match the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    cases = [(r(2, 7, 128), r(2, 1, 128), r(2, 1, 128), r(2, 4096, 128), r(2, 4096, 128))
+             for _ in range(2)]
+    bias = torch.zeros(2, 4096, device=cuda)
+    pos = torch.tensor([4000, 2500], dtype=torch.int32, device=cuda)
+    refs = [K1.lm_decode_attention_plain(q, kn, vn, ck.clone(), cv.clone(), bias, pos, 64,
+                                         0.125) for q, kn, vn, ck, cv in cases]
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    outs = []
+    for i in range(20):
+        q, kn, vn, ck, cv = cases[i % 2]
+        if i % 2:
+            with torch.cuda.stream(side):
+                outs.append(K1.lm_decode_attention(q, kn, vn, ck, cv, bias, pos, 64, 0.125))
+        else:
+            outs.append(K1.lm_decode_attention(q, kn, vn, ck, cv, bias, pos, 64, 0.125))
+    torch.cuda.synchronize(cuda)
+    for i, (o, ck, cv) in enumerate(outs):
+        o_ref, ck_ref, cv_ref = refs[i % 2]
+        torch.testing.assert_close(o, o_ref, atol=2e-5, rtol=2e-5)
+        assert torch.equal(ck, ck_ref) and torch.equal(cv, cv_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [640, 1152, 700])
+def test_dit_attention_ragged(cuda, dtype, T):
+    """K2 packed and unpacked at T = 640, 1152 and 700 (a ragged query tail),
+    lengths 0, 1, 63, 64, 65 and T (key tiles of 64): every valid row within
+    the bar, the length-0 row all zeros."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    lens = torch.tensor([0, 1, 63, 64, 65, T], dtype=torch.int32, device=cuda)
+    qkv = torch.randn(6, T, 3 * 512, generator=g, device=cuda).to(dtype)
+    q3, k3, v3 = (qkv[..., i * 512:(i + 1) * 512].reshape(6, T, 8, 64) for i in range(3))
+    want = K2.dit_attention_plain(q3, k3, v3, lens, 0.125)
+    for got in (K2.dit_attention_packed(qkv, lens, 0.125, 64).reshape(6, T, 8, 64),
+                K2.dit_attention(q3.contiguous(), k3.contiguous(), v3.contiguous(), lens,
+                                 0.125)):
+        _assert_attention_close(got, want, lens, dtype)
+        assert not got[0].any()
 
 
 @pytest.mark.gpu

@@ -47,29 +47,47 @@ def test_lm_decode_attention_plain_matches_pallas(pos):
     np.testing.assert_array_equal(cv_t.numpy(), np.asarray(cv_j))
 
 
-@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
-def test_dit_attention_plain_matches_pallas(packed):
-    """fp32, 3e-5 on valid query rows; the length-0 row is all zeros (the
-    TPU kernel's floored divide) in both."""
+def _bf16_ulp(v: float) -> float:
+    """The spacing of bf16 numbers at magnitude v (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+@pytest.mark.parametrize("packed,dtype", [(True, "float32"), (False, "float32"),
+                                          (True, "bfloat16"), (False, "bfloat16")],
+                         ids=["packed", "unpacked", "packed-bf16", "unpacked-bf16"])
+def test_dit_attention_plain_matches_pallas(packed, dtype):
+    """fp32: 3e-5 on valid query rows.  bf16 (inputs cast to bf16 on both
+    sides): one bf16 ulp at max |o| on valid rows; both round the scaled q and
+    p to bf16, but p against the row max here and unshifted in the TPU kernel,
+    so a p may round apart.  The length-0 row is all zeros (the TPU kernel's
+    floored divide) in both."""
     rng = np.random.default_rng(2)
     B, T, H, D = 4, 256, 2, 64
     HD = H * D
     qkv = rng.standard_normal((B, T, 3 * HD)).astype(np.float32)
     lens = np.asarray([256, 200, 77, 0], np.int32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    tq = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(tdt)
     if packed:
-        want = jax_dit.dit_attention_packed(jnp.asarray(qkv), jnp.asarray(lens), 0.125,
+        want = jax_dit.dit_attention_packed(jnp.asarray(qkv, jdt), jnp.asarray(lens), 0.125,
                                             head_dim=D, interpret=True)
-        got = K2.dit_attention_packed(torch.from_numpy(qkv), torch.from_numpy(lens),
-                                      0.125, head_dim=D)
+        got = K2.dit_attention_packed(tq(qkv), torch.from_numpy(lens), 0.125, head_dim=D)
     else:
         q, k, v = (qkv[..., i * HD:(i + 1) * HD].reshape(B, T, H, D) for i in range(3))
-        want = jax_dit.dit_attention(*(jnp.asarray(a) for a in (q, k, v, lens)), 0.125,
+        want = jax_dit.dit_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                                     jnp.asarray(lens), 0.125,
                                      interpret=True).reshape(B, T, HD)
-        got = K2.dit_attention(*(torch.from_numpy(np.ascontiguousarray(a))
-                                 for a in (q, k, v, lens)), 0.125).reshape(B, T, HD)
-    want, got = np.asarray(want), got.numpy()
-    for b, L in enumerate(lens):
-        np.testing.assert_allclose(got[b, :L], want[b, :L], atol=3e-5, rtol=3e-5)
+        got = K2.dit_attention(tq(q), tq(k), tq(v), torch.from_numpy(lens),
+                               0.125).reshape(B, T, HD)
+    assert got.dtype == tdt
+    want, got = np.asarray(want.astype(jnp.float32)), got.float().numpy()
+    if dtype == "float32":
+        for b, L in enumerate(lens):
+            np.testing.assert_allclose(got[b, :L], want[b, :L], atol=3e-5, rtol=3e-5)
+    else:
+        valid = np.arange(T)[None, :] < lens[:, None]
+        err = np.abs(got[valid] - want[valid]).max()
+        assert err <= _bf16_ulp(np.abs(want[valid]).max()), err
     assert not got[3].any() and not want[3].any()
 
 
