@@ -70,9 +70,16 @@ Phases, each printing JSON lines:
      beside SDPA with a boolean key mask;
      K4 at the batched phase's flow shape, beside the port's unfused block;
      K7 at [4, 120000, 192] fp32 (the recipe's third stage), beside the
-     composite anti_alias_activation (no one PyTorch call computes K7).
-Phase 3 also holds K5 (int4_matmul) and K6 (lm_step) against their plain
-versions at the shapes phases 6 and 7 give them, K4 (dit_block) at the
+     composite anti_alias_activation (no one PyTorch call computes K7);
+     K5 one row a projection shape and a decode step's 168 launches, beside
+     torch._weight_int4pack_mm (PyTorch's group-wise int4 matmul, zero
+     points 0) on the same inputs.  Every row and yardstick also gets its
+     device time (dev_time: the median of three CUDA-graph replays, all
+     three printed).
+Phase 3 also holds K3 on both of its routes (K3_CASES), K5 (int4_matmul;
+its decode route's block count at K5_MIN_BLOCKS) and K6 (lm_step) against
+their plain versions at the shapes phases 6 and 7 give them (K5 at 1, 3, 8
+and 200 rows), K4 (dit_block) at the
 estimator's full width with ragged lengths, and K7 (snake_aa) at the
 recipe's first and last stage shapes and its edge cases.
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero.
@@ -118,6 +125,18 @@ CHECK_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -7)}
 K6_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 6e-2}
 # the LM's projection shapes (in, out) at Qwen2-0.5B width: q/o, k/v, gate/up, down
 K5_SHAPES = ((896, 896), (896, 128), (896, 4864), (4864, 896))
+# the projections of one decode step of a layer: q, k, v, o, gate, up, down
+K5_STEP = ((896, 896), (896, 128), (896, 128), (896, 896), (896, 4864), (896, 4864),
+           (4864, 896))
+# K5's row counts in phase 3: decode (1 row, the split route) and 3, 8 and
+# 200 rows (the 8-row prefill kernel)
+K5_ROWS = (1, 3, 8, 200)
+# the least blocks K5's decode route may launch at one row: one an SM at the
+# three wide shapes; 896 -> 128 has only 57 KB of packed weights
+K5_MIN_BLOCKS = {(896, 896): 132, (896, 128): 56, (896, 4864): 132, (4864, 896): 132}
+# K3 cases of phase 3 (rows, C, x's offset in elements from a 16-byte boundary)
+K3_CASES = ((2304, 256, 0), (1281, 256, 0), (37, 1024, 0), (37, 64, 0), (37, 96, 0),
+            (100, 256, 1))
 # K4 (dit_block) bar in bf16, on y and, on its own, on the attention output o
 # (before the out projection; y is dominated by the residual, so a partial
 # attention fault could hide in it): max |kernel - plain| <= K4_BF16_ULPS
@@ -301,10 +320,18 @@ def kernel_checks(K1, K2, K3) -> dict:
             e.append(check_attention(f"dit_attention_unpacked_T{Tq}", dtype, o_un, o_ref,
                                      lens))
         errs["dit_attention"] = max(e)
-        # K3: LayerNorm with and without the fused mish
-        x, w, b = r(2304, 256) * 3, r(256), r(256)
-        e = [check(f"fused_layer_norm_{act}", dtype, K3.fused_layer_norm(x, w, b, 1e-5, act),
-                   K3.layer_norm_plain(x, w, b, 1e-5, act)) for act in ("none", "mish")]
+        # K3: LayerNorm with and without the fused mish, on both routes: the
+        # vector route at the estimator's width (an odd row count leaves a
+        # warp's second row absent) and at C = 1024; the element route at
+        # C = 64 and 96 and for an x that is not 16-byte aligned
+        e = []
+        for N, C, off in K3_CASES:
+            x = (r(N * C + off) * 3)[off:].view(N, C)
+            w, b = r(C), r(C)
+            for act in ("none", "mish"):
+                name = f"fused_layer_norm_{N}x{C}{'_unaligned' if off else ''}_{act}"
+                e.append(check(name, dtype, K3.fused_layer_norm(x, w, b, 1e-5, act),
+                               K3.layer_norm_plain(x, w, b, 1e-5, act)))
         errs["fused_layer_norm"] = max(e)
     return errs
 
@@ -406,16 +433,24 @@ def check_step(K6, inp: dict, dtype, phase="kernels") -> float:
 
 
 def quant_kernel_checks(K5, K6) -> dict:
-    """K5 at the LM's projection shapes (decode: 1 row, prefill: 200 rows,
-    group 128) and K6 for one full-width step at pos 364, each against its
-    plain version in fp32 and bf16; returns the max error per kernel (bf16)."""
+    """K5's launch plan at one row (at least K5_MIN_BLOCKS blocks), then K5
+    at the LM's projection shapes (K5_ROWS rows, group 128) and K6 for one
+    full-width step at pos 364, each against its plain version in fp32 and
+    bf16; returns the max error per kernel (bf16)."""
     g = torch.Generator(device="cuda").manual_seed(5)
     errs = {"int4_matmul": 0.0, "lm_step": 0.0}
+    for (IN, OUT), need in K5_MIN_BLOCKS.items():
+        p = K5.plan(1, IN, OUT, 128)
+        ok = p["route"] == "split" and p["blocks"] >= need
+        emit({"phase": "kernels", "check": f"int4_matmul_plan_1x{IN}x{OUT}", **p,
+              "min_blocks": need, "ok": ok})
+        if not ok:
+            raise AssertionError(f"int4_matmul at 1x{IN}x{OUT} launches {p}")
     for dtype in (torch.float32, torch.bfloat16):
         for IN, OUT in K5_SHAPES:
             w = K5.pack_int4(torch.randint(-7, 8, (IN, OUT), generator=g, device="cuda"))
             scale = torch.rand(IN // 128, OUT, generator=g, device="cuda") * 0.02 + 1e-3
-            for rows in (1, 200):
+            for rows in K5_ROWS:
                 x = torch.randn(rows, IN, generator=g, device="cuda").to(dtype)
                 e = check(f"int4_matmul_{rows}x{IN}x{OUT}", dtype, K5.int4_matmul(x, w, scale),
                           K5.int4_matmul_plain(x, w, scale))
@@ -1163,6 +1198,39 @@ def device_ms(fn, calls: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
+def dev_time(fn, prefix: str = "dev") -> dict:
+    """`{prefix}_ms`: the median of three device_ms runs of fn, all three
+    listed under `{prefix}_ms_runs`.  Where fn refuses stream capture (a
+    cooperative launch may), the three runs are CUDA events around 50
+    back-to-back calls instead, and `{prefix}_method` says "events"."""
+    method = "graph"
+    try:
+        runs = [device_ms(fn) for _ in range(3)]
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        method, runs = "events", [time_ms(fn, iters=50) for _ in range(3)]
+        emit({"phase": "timing", "capture_refused": prefix, "error": str(e)[:200]})
+    return {f"{prefix}_ms": sorted(runs)[1], f"{prefix}_ms_runs": runs,
+            f"{prefix}_method": method}
+
+
+def int4pack_call(x, w_packed, scale, group: int = 128):
+    """PyTorch's own group-wise int4 matmul (torch._weight_int4pack_mm, the
+    tinygemm kernel) set up to compute K5's function on the same inputs: the
+    weights converted once to its layout (unsigned nibbles n + 8, even input
+    row in the high nibble of its byte), its scales x's dtype and its zero
+    points 0, so it dequantises to T(n * T(scale)) and sums in fp32, as K5
+    does.  A timing yardstick only; the port never calls it.  Returns the
+    call; raises where this PyTorch build lacks the op."""
+    p = w_packed.to(torch.int32) & 0xFF
+    lo, hi = (p & 0xF) ^ 8, ((p >> 4) & 0xF) ^ 8          # [in/2, out], n + 8
+    packed = ((lo.t() << 4) | hi.t()).to(torch.uint8).contiguous()   # [out, in/2]
+    wq = torch._convert_weight_to_int4pack(packed, 8)
+    sz = torch.stack([scale.to(x.dtype), torch.zeros_like(scale, dtype=x.dtype)], -1)
+    sz = sz.contiguous()
+    return lambda: torch._weight_int4pack_mm(x, wq, group, sz)
+
+
 def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
     """At the last request's shapes (bf16; K4 at the batched phase's flow
     shape; K7 fp32 at the bigvgan phase's third stage): each kernel against
@@ -1201,7 +1269,7 @@ def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
         ms=time_ms(k1),
         plain_ms=time_ms(lambda: K1.lm_decode_attention_plain(q, kn, vn, ck, cv, bias, p,
                                                               64, 0.125)),
-        library_ms=time_ms(sdpa), device_ms=device_ms(k1), library_device_ms=device_ms(sdpa),
+        library_ms=time_ms(sdpa), **dev_time(k1), **dev_time(sdpa, "library_dev"),
         bytes=k1_bytes, flops=k1_flops, max_abs_err=k1_err))
 
     # K1 at the engine's and the batched phase's shape: B = 8, cache 384,
@@ -1226,10 +1294,10 @@ def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
         name="lm_decode_attention", source="cosyvoice_tpu_torch/csrc/lm_decode_attention.cu",
         replaces="cosyvoice_tpu/ops/pallas/lm_decode_attention.py:123",
         shape=[B8, T8, list(K1_BATCH_POS)], launches_from="engine (full width, B = 8)",
-        ms=time_ms(k1b), device_ms=device_ms(k1b),
+        ms=time_ms(k1b), **dev_time(k1b),
         plain_ms=time_ms(lambda: K1.lm_decode_attention_plain(q, kn, vn, ck, cv, bias, p8,
                                                               64, 0.125)),
-        library_ms=time_ms(sdpa_b), library_device_ms=device_ms(sdpa_b),
+        library_ms=time_ms(sdpa_b), **dev_time(sdpa_b, "library_dev"),
         bytes=2 * live * 128 * isz + live * 4 + B8 * (2 * 7 + 4) * 128 * isz,
         flops=sum(4 * 7 * 128 * (pb + 1) for pb in K1_BATCH_POS), max_abs_err=k1b_err))
 
@@ -1253,9 +1321,9 @@ def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
     rows.append(dict(
         name="dit_attention", source="cosyvoice_tpu_torch/csrc/dit_attention.cu",
         replaces="cosyvoice_tpu/ops/pallas/dit_attention.py:124", shape=[2, Tp, 1536, L],
-        ms=time_ms(k2), device_ms=device_ms(k2),
+        ms=time_ms(k2), **dev_time(k2),
         plain_ms=time_ms(lambda: K2.dit_attention_plain(q3, k3, v3, lens, 0.125)),
-        library_ms=time_ms(sdpa), library_device_ms=device_ms(sdpa),
+        library_ms=time_ms(sdpa), **dev_time(sdpa, "library_dev"),
         bytes=k2_bytes, flops=2 * 4 * 8 * Tp * L * 64, max_abs_err=k2_err))
 
     # K3: the estimator's LayerNorm over the CFG batch's rows
@@ -1263,12 +1331,14 @@ def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
     k3_err = max(check(f"fused_layer_norm_{act}", bf, K3.fused_layer_norm(x, w, b, 1e-5, act),
                        K3.layer_norm_plain(x, w, b, 1e-5, act), phase="timing")
                  for act in ("none", "mish"))
+    k3 = lambda: K3.fused_layer_norm(x, w, b, 1e-5, "none")
+    ln = lambda: F.layer_norm(x, (256,), w, b, 1e-5)
     rows.append(dict(
         name="fused_layer_norm", source="cosyvoice_tpu_torch/csrc/fused_norm.cu",
         replaces="cosyvoice_tpu/ops/pallas/fused_norm.py:54", shape=[2 * Tp, 256],
-        ms=time_ms(lambda: K3.fused_layer_norm(x, w, b, 1e-5, "none")),
+        ms=time_ms(k3), **dev_time(k3),
         plain_ms=time_ms(lambda: K3.layer_norm_plain(x, w, b, 1e-5, "none")),
-        library_ms=time_ms(lambda: F.layer_norm(x, (256,), w, b, 1e-5)),
+        library_ms=time_ms(ln), **dev_time(ln, "library_dev"),
         bytes=2 * 2 * Tp * 256 * isz + 2 * 256 * isz, flops=10 * 2 * Tp * 256,
         max_abs_err=k3_err))
 
@@ -1280,21 +1350,58 @@ def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
     def k5_bytes(IN, OUT, rows=1):
         return IN // 2 * OUT + IN // 128 * OUT * 4 + rows * (IN + OUT) * isz
 
-    shapes = []
+    def k5_library(x5, name):
+        """torch._weight_int4pack_mm on x5, held against the plain version
+        (recorded, not gated: it is a yardstick): timing keys, or the error
+        where this PyTorch build has no such op."""
+        try:
+            lib = int4pack_call(*x5)
+            got = lib()
+        except (RuntimeError, AttributeError, NotImplementedError) as e:
+            emit({"phase": "timing", "library_refused": name, "error": str(e)[:300]})
+            return dict(library_ms=None, library_dev_ms=None, library_error=str(e)[:300])
+        want = K5.int4_matmul_plain(*x5).float()
+        atol, rtol = CHECK_TOL[bf]
+        return dict(library_ms=time_ms(lib), **dev_time(lib, "library_dev"),
+                    library_call="torch._weight_int4pack_mm (zero points 0)",
+                    library_max_abs_err=float((got.float() - want).abs().max()),
+                    library_within_tol=bool(torch.allclose(got.float(), want, atol=atol,
+                                                           rtol=rtol)))
+
+    # one row a projection shape; launches are the int4 request's, all four
+    # shapes together
     for IN, OUT in K5_SHAPES:
-        args = k5_inputs(IN, OUT)
-        shapes.append(dict(shape=[1, IN, OUT], ms=time_ms(lambda: K5.int4_matmul(*args)),
-                           bound_ms=k5_bytes(IN, OUT) / HBM_BYTES_PER_S * 1e3))
-    emit({"phase": "timing", "kernel": "int4_matmul", "decode_shapes": shapes})
-    x5 = k5_inputs(896, 4864)
-    k5_err = check("int4_matmul", bf, K5.int4_matmul(*x5), K5.int4_matmul_plain(*x5),
-                   phase="timing")
-    rows.append(dict(
-        name="int4_matmul", source="cosyvoice_tpu_torch/csrc/int4_matmul.cu",
-        replaces="cosyvoice_tpu/ops/pallas/int4_matmul.py:84", shape=[1, 896, 4864],
-        ms=time_ms(lambda: K5.int4_matmul(*x5)),
-        plain_ms=time_ms(lambda: K5.int4_matmul_plain(*x5)), library_ms=None,
-        bytes=k5_bytes(896, 4864), flops=2 * 896 * 4864, max_abs_err=k5_err))
+        x5 = k5_inputs(IN, OUT)
+        k5_err = check(f"int4_matmul_1x{IN}x{OUT}", bf, K5.int4_matmul(*x5),
+                       K5.int4_matmul_plain(*x5), phase="timing")
+        k5 = lambda: K5.int4_matmul(*x5)
+        rows.append(dict(
+            name="int4_matmul", source="cosyvoice_tpu_torch/csrc/int4_matmul.cu",
+            replaces="cosyvoice_tpu/ops/pallas/int4_matmul.py:84", shape=[1, IN, OUT],
+            launches_scope="the int4 request, all four shapes together",
+            plan=K5.plan(1, IN, OUT, 128), ms=time_ms(k5), **dev_time(k5),
+            plain_ms=time_ms(lambda: K5.int4_matmul_plain(*x5)),
+            **k5_library(x5, f"int4_matmul_1x{IN}x{OUT}"),
+            bytes=k5_bytes(IN, OUT), flops=2 * IN * OUT, max_abs_err=k5_err))
+    # a decode step's 168 K5 launches (24 layers x K5_STEP), each on weights
+    # of its own as in the int4 request: 179 MB of packed int4, more than the
+    # 50 MB L2 holds, where each row above reuses one weight from the L2; the
+    # library yardstick runs the same step on the same weights
+    step_args = [k5_inputs(IN, OUT) for _ in range(24) for IN, OUT in K5_STEP]
+    k5_step = lambda: [K5.int4_matmul(*a) for a in step_args]
+    before = K5.launches
+    k5_step()
+    step = dict(launches=K5.launches - before, **dev_time(k5_step, "step_dev"),
+                bound_ms=sum(k5_bytes(2 * a[1].shape[0], a[1].shape[1]) for a in step_args)
+                / HBM_BYTES_PER_S * 1e3)
+    try:
+        lib_step = [int4pack_call(*a) for a in step_args]
+        step.update(dev_time(lambda: [f() for f in lib_step], "library_step_dev"))
+        del lib_step
+    except (RuntimeError, AttributeError, NotImplementedError) as e:
+        step.update(library_step_dev_ms=None, library_error=str(e)[:300])
+    del step_args
+    rows[-len(K5_SHAPES)]["decode_step"] = step
 
     # K6: one full-width step at the K1 row's frontier (pos 364 of 384 rows)
     inp = step_inputs(K6, bf, 7, C=T, pos=pos)
@@ -1303,20 +1410,23 @@ def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
     n_int8 = sum(t.numel() for t in (w.wqkv, w.wo, w.wg, w.wu, w.wd))
     n_f32 = sum(t.numel() for t in (w.sqkv, w.bqkv, w.so, w.sg, w.su, w.sd, w.n1, w.n2))
     L = w.wqkv.shape[0]
-    k6_ms = time_ms(lambda: run_step(K6, inp))
+    k6 = lambda: run_step(K6, inp)
+    k6_ms, k6_dev = time_ms(k6), dev_time(k6)
     n_sync = 5 * L - 1
-    grid = K6.sync_probe(n_sync, 896, 4864, 14, T, bf, dev)
-    sync_ms = time_ms(lambda: K6.sync_probe(n_sync, 896, 4864, 14, T, bf, dev))
+    probe = lambda: K6.sync_probe(n_sync, 896, 4864, 14, T, bf, dev)
+    grid = probe()
+    sync_ms, sync_dev = time_ms(probe), dev_time(probe, "sync_dev")
     rows.append(dict(
         name="lm_step", source="cosyvoice_tpu_torch/csrc/lm_step.cu",
         replaces="cosyvoice_tpu/ops/pallas/lm_step.py:222", shape=[L, 1, 896, T, pos],
-        ms=k6_ms, plain_ms=time_ms(lambda: run_step(K6, inp, plain=True), iters=10),
+        ms=k6_ms, **k6_dev, plain_ms=time_ms(lambda: run_step(K6, inp, plain=True), iters=10),
         library_ms=None,
         # int8 weights + fp32 scales/biases/norms + live cache rows read +
         # the new rows written + x, y and the RoPE tables
         bytes=n_int8 + 4 * n_f32 + 2 * L * (pos + 1) * 128 * isz + 2 * 896 * isz + 2 * 64 * 4,
         flops=2 * n_int8 + L * 4 * 14 * 64 * (pos + 1), max_abs_err=k6_err,
-        grid_blocks=grid, grid_syncs=n_sync, sync_ms=sync_ms, sync_share=sync_ms / k6_ms))
+        grid_blocks=grid, grid_syncs=n_sync, sync_ms=sync_ms, **sync_dev,
+        sync_share=sync_dev["sync_dev_ms"] / k6_dev["dev_ms"]))
     # K4: one DiT block of the main path's estimator (its bf16 weights) over
     # the batched phase's CFG batch; the yardstick is the same block unfused
     # (K3 norms, K2 attention, cuBLAS projections): no one PyTorch call
@@ -1333,12 +1443,15 @@ def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
                          phase="timing")
     dim, inner, ff = 256, 512, 1024
     blk.fused_block = False
+    k4 = lambda: K4.dit_block_fused(x4, L4, *w4, **kw4)
+    unfused = lambda: blk(x4, None, L4)
     rows.append(dict(
         name="dit_block", source="cosyvoice_tpu_torch/csrc/dit_block.cu",
         replaces="cosyvoice_tpu/ops/pallas/dit_block.py:115", shape=[B4, T4, dim],
-        ms=time_ms(lambda: K4.dit_block_fused(x4, L4, *w4, **kw4), iters=20),
+        ms=time_ms(k4, iters=20), **dev_time(k4),
         plain_ms=time_ms(lambda: K4.dit_block_plain(x4, L4, *w4, **kw4), iters=10),
-        library_ms=None, unfused_block_ms=time_ms(lambda: blk(x4, None, L4), iters=20),
+        library_ms=None, unfused_block_ms=time_ms(unfused, iters=20),
+        **dev_time(unfused, "unfused_block_dev"),
         # its three launches (LN1 + qkv, attention, out-proj + LN3 + FFN)
         phase_ms=device_ms_by_kernel(lambda: K4.dit_block_fused(x4, L4, *w4, **kw4)),
         # x in and y out, the weights once, the fp32 vectors, the lengths
@@ -1354,16 +1467,19 @@ def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
     k7_err = check("snake_aa", torch.float32, K7.snake_aa(x7, a7, b7),
                    K7.snake_aa_plain(x7, a7, b7), phase="timing")
     x7cf = x7.transpose(1, 2).contiguous().transpose(1, 2)    # channels-first memory
+    k7 = lambda: K7.snake_aa(x7, a7, b7)
+    composite = lambda: anti_alias_activation(x7, a7, b7)
+    copy = lambda: x7cf.contiguous()
     rows.append(dict(
         name="snake_aa", source="cosyvoice_tpu_torch/csrc/snake_aa.cu",
         replaces="cosyvoice_tpu/ops/pallas/snake_aa.py:99", shape=[4, 120000, 192],
-        dtype="float32", ms=time_ms(lambda: K7.snake_aa(x7, a7, b7)),
+        dtype="float32", ms=time_ms(k7), **dev_time(k7),
         plain_ms=time_ms(lambda: K7.snake_aa_plain(x7, a7, b7), iters=20),
-        library_ms=time_ms(lambda: anti_alias_activation(x7, a7, b7), iters=20),
+        library_ms=time_ms(composite, iters=20), **dev_time(composite, "library_dev"),
         library_call="composite anti_alias_activation (upsample2 -> snake_beta -> downsample2)",
         # AAAct's x.contiguous() ahead of each launch: the convs leave x
         # channels-first in memory, so every forward launch pays this copy too
-        layout_copy_ms=time_ms(lambda: x7cf.contiguous(), iters=20),
+        layout_copy_ms=time_ms(copy, iters=20), **dev_time(copy, "layout_copy_dev"),
         # x read and y written once, alpha and beta once, in fp32
         bytes=2 * x7.numel() * 4 + 2 * 192 * 4, flops=K7_FLOPS_PER_OUTPUT * x7.numel(),
         peak_flops=FP32_FLOPS, max_abs_err=k7_err))

@@ -33,7 +33,8 @@ _SIGNATURES = {
     "cvt_lm_decode_attention": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
     "cvt_dit_attention": [_P] * 5 + [_I] * 4 + [_LL] * 4 + [_F, _I, _P],
     "cvt_fused_layer_norm": [_P] * 4 + [_LL, _I, _F, _I, _I, _P],
-    "cvt_int4_matmul": [_P] * 4 + [_I] * 5 + [_P],
+    "cvt_int4_matmul": [_P] * 6 + [_I] * 5 + [_P],
+    "cvt_int4_matmul_plan": [_I] * 4 + [ctypes.POINTER(_I)],
     "cvt_lm_step": [_P] * 19 + [_I] * 7 + [_F, _F, _I, _P],
     "cvt_lm_step_sync_probe": [_I] * 6 + [ctypes.POINTER(_I), _P],
     "cvt_dit_block": [_P] * 16 + [_I] * 6 + [_F, _I, _P],
@@ -127,6 +128,22 @@ def stream_of(t: torch.Tensor) -> int:
     """The raw handle of PyTorch's current stream on t's device (the call
     PyTorch's own generated kernels use: no Stream object is built)."""
     return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def scratch_for(store: dict, device: torch.device, stream: int, counters: int,
+                floats: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A split kernel's scratch from `store`, one set per (device, raw stream):
+    (int32 arrival counters, zero between launches, since each launch leaves
+    them zero; fp32 partials), grown to at least `counters` and `floats`.
+    Launches on one stream run in order, so they may share a set; a launch on
+    another stream gets its own."""
+    cnt, work = store.get((device, stream), (None, None))
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(counters, dtype=torch.int32, device=device)
+    if work is None or work.numel() < floats:
+        work = torch.empty(floats, dtype=torch.float32, device=device)
+    store[(device, stream)] = (cnt, work)
+    return cnt, work
 
 
 def check_launch(rc: int, name: str) -> None:

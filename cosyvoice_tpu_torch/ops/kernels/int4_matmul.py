@@ -8,10 +8,15 @@ The dequantised weight is rounded to x.dtype before the product,
 is cast to x.dtype once.
 
 `int4_matmul` launches the CUDA kernel in `csrc/int4_matmul.cu` for CUDA
-tensors and runs `int4_matmul_plain`, the same function in plain PyTorch, for
-CPU tensors.  Port of cosyvoice_tpu/ops/pallas/int4_matmul.py.
+tensors (one-row decode calls as a split-K GEMV whose partial sums and
+arrival counters the wrapper keeps, one set per device and stream) and
+runs `int4_matmul_plain`, the same function in plain PyTorch, for CPU
+tensors.  Port of cosyvoice_tpu/ops/pallas/int4_matmul.py.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -19,6 +24,20 @@ from cosyvoice_tpu_torch.ops.kernels import build
 
 # kernel launches so far (plain integer; callers may reset it to 0)
 launches = 0
+# the split route's scratch, per (device, raw stream) (build.scratch_for)
+_scratch: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def plan(rows: int, IN: int, OUT: int, group: int) -> dict:
+    """How the kernel launches for these shapes (csrc/int4_matmul.cu
+    plan_for): the route, columns a tile, packed rows a split, splits, blocks
+    and threads a block."""
+    out = (ctypes.c_int * 6)()
+    rc = build.library().cvt_int4_matmul_plan(rows, IN, OUT, group // 2, out)
+    build.check_launch(rc, "int4_matmul plan")
+    return dict(route="split" if out[0] else "prefill", cols=out[1], split_rows=out[2],
+                splits=out[3], blocks=out[4], threads=out[5])
 
 
 def pack_int4(w: torch.Tensor) -> torch.Tensor:
@@ -72,9 +91,19 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     out = torch.empty((rows, OUT), dtype=x.dtype, device=x.device)
     if rows == 0:
         return out
+    p = plan(rows, IN, OUT, IN // n_g)
+    stream = build.stream_of(x)
+    work = counters = None
+    if p["route"] == "split":
+        if w_packed.data_ptr() % 16:
+            raise ValueError("int4_matmul: packed weights must be 16-byte aligned")
+        counters, work = build.scratch_for(_scratch, x.device, stream,
+                                           OUT // p["cols"], p["splits"] * OUT)
     rc = build.library().cvt_int4_matmul(
         x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        rows, IN, OUT, IN2 // n_g, build.dtype_code(x), build.stream_of(x))
+        0 if work is None else work.data_ptr(),
+        0 if counters is None else counters.data_ptr(),
+        rows, IN, OUT, IN2 // n_g, build.dtype_code(x), stream)
     build.check_launch(rc, "int4_matmul")
     launches += 1
     return out

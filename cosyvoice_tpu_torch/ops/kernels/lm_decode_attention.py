@@ -17,21 +17,9 @@ from cosyvoice_tpu_torch.ops.kernels import build
 launches = 0
 # keys a block of the split kernel takes (csrc/lm_decode_attention.cu kChunk)
 CHUNK = 32
-# per (device, raw stream): (counters [B*KH] int32, zero between launches;
-# fp32 partials).  Launches on one stream run in order, so they may share a
-# set; a launch on another stream gets its own.
+# the split kernel's scratch, per (device, raw stream) (build.scratch_for):
+# counters [B*KH] and fp32 partials
 _scratch: dict = {}
-
-
-def _scratch_for(device: torch.device, stream: int, pairs: int, floats: int):
-    key = (device, stream)
-    counters, work = _scratch.get(key, (None, None))
-    if counters is None or counters.numel() < pairs:
-        counters = torch.zeros(pairs, dtype=torch.int32, device=device)
-    if work is None or work.numel() < floats:
-        work = torch.empty(floats, dtype=torch.float32, device=device)
-    _scratch[key] = (counters, work)
-    return counters, work
 
 
 def _pos_vector(pos, B: int, device) -> torch.Tensor:
@@ -109,8 +97,8 @@ def lm_decode_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tenso
         raise ValueError("lm_decode_attention: q and the cache must be 16-byte aligned")
     KH = KHD // head_dim
     stream = build.stream_of(q)
-    counters, work = _scratch_for(q.device, stream, B * KH,
-                                  B * KH * -(-T // CHUNK) * G * (head_dim + 2))
+    counters, work = build.scratch_for(_scratch, q.device, stream, B * KH,
+                                       B * KH * -(-T // CHUNK) * G * (head_dim + 2))
     out = torch.empty_like(q)
     rc = build.library().cvt_lm_decode_attention(
         *ptrs, out.data_ptr(), work.data_ptr(), counters.data_ptr(), B, G, KH, head_dim,

@@ -17,6 +17,9 @@ from cosyvoice_tpu_torch.ops.kernels import lm_decode_attention as K1
 from cosyvoice_tpu_torch.ops.kernels import lm_step as K6
 from cosyvoice_tpu_torch.ops.kernels import snake_aa as K7
 
+# the LM's projection shapes (in, out) at Qwen2-0.5B width: q/o, k/v, gate/up, down
+K5_SHAPES = ((896, 896), (896, 128), (896, 4864), (4864, 896))
+
 
 @pytest.fixture
 def cuda():
@@ -182,18 +185,87 @@ def test_dit_attention_ragged(cuda, dtype, T):
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 2e-5),
                                              (torch.bfloat16, 1e-4, 2.0 ** -7)])
 def test_int4_matmul_matches_plain(cuda, dtype, atol, rtol):
-    """K5 at the LM's four projection shapes, group 128, decode (1 row) and
-    prefill (200 rows) sizes; same bars as above (one fp32 sum per output,
-    rounded once)."""
+    """K5 at the LM's four projection shapes, group 128: one row (the split
+    route; 896 -> 4864 splits its 7 groups unevenly, 3 splits of 2 and one
+    of 1) and 3, 8 and 200 rows (the 8-row kernel).  Same bars as above (one
+    fp32 sum per output, rounded once)."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    for IN, OUT in ((896, 896), (896, 128), (896, 4864), (4864, 896)):
+    for IN, OUT in K5_SHAPES:
         w = K5.pack_int4(torch.randint(-7, 8, (IN, OUT), generator=g, device=cuda))
         scale = torch.rand(IN // 128, OUT, generator=g, device=cuda) * 0.02 + 1e-3
-        for rows in (1, 200):
+        for rows in (1, 3, 8, 200):
             x = torch.randn(rows, IN, generator=g, device=cuda).to(dtype)
             torch.testing.assert_close(K5.int4_matmul(x, w, scale).float(),
                                        K5.int4_matmul_plain(x, w, scale).float(),
                                        atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_int4_matmul_plan_fills_the_card(cuda):
+    """At one row K5's split route launches at least one block an SM at the
+    three wide projections and at least 56 at 896 -> 128 (57 KB of packed
+    weights); one shape splits its groups unevenly; more than one row takes
+    the 8-row route."""
+    for (IN, OUT), need in ((K5_SHAPES[0], 132), (K5_SHAPES[1], 56), (K5_SHAPES[2], 132),
+                            (K5_SHAPES[3], 132)):
+        p = K5.plan(1, IN, OUT, 128)
+        assert p["route"] == "split" and p["blocks"] >= need, (IN, OUT, p)
+    p = K5.plan(1, 896, 4864, 128)
+    assert (896 // 2) % p["split_rows"], p
+    for rows in (2, 8, 200):
+        assert K5.plan(rows, 896, 4864, 128)["route"] == "prefill", rows
+
+
+@pytest.mark.gpu
+def test_int4_matmul_two_streams(cuda):
+    """K5's decode route launched on two streams at once: each stream gets
+    its own partials and counters, so both outputs match the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    side = torch.cuda.Stream(cuda)
+    w = K5.pack_int4(torch.randint(-7, 8, (4864, 896), generator=g, device=cuda))
+    scale = torch.rand(38, 896, generator=g, device=cuda) * 0.02 + 1e-3
+    xs = [torch.randn(1, 4864, generator=g, device=cuda) for _ in range(2)]
+    refs = [K5.int4_matmul_plain(x, w, scale) for x in xs]
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    outs = []
+    for i in range(40):
+        if i % 2:
+            with torch.cuda.stream(side):
+                outs.append(K5.int4_matmul(xs[1], w, scale))
+        else:
+            outs.append(K5.int4_matmul(xs[0], w, scale))
+    torch.cuda.synchronize(cuda)
+    for i, y in enumerate(outs):
+        torch.testing.assert_close(y, refs[i % 2], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 1e-4, 2.0 ** -7)])
+def test_fused_layer_norm_routes(cuda, dtype, atol, rtol):
+    """K3 on its vector route (C = 256 with an odd row count, C = 1024) and
+    its element route (C = 64 and 96, and an x that is not 16-byte
+    aligned), with and without the mish."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda).to(dtype)
+    for N, C, off in ((1281, 256, 0), (37, 1024, 0), (37, 64, 0), (37, 96, 0), (100, 256, 1)):
+        x = (r(N * C + off) * 3)[off:].view(N, C)
+        w, b = r(C), r(C)
+        for act in ("none", "mish"):
+            torch.testing.assert_close(K3.fused_layer_norm(x, w, b, 1e-5, act).float(),
+                                       K3.layer_norm_plain(x, w, b, 1e-5, act).float(),
+                                       atol=atol, rtol=rtol)
+
+
+def _step_case(cuda, dtype, seed, L, C, pos):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    H, I, nq, nkv = 896, 4864, 14, 2
+    w = K6.random_step_weights(L, H, I, nq, nkv, 64, g, cuda)
+    x = torch.randn(1, H, generator=g, device=cuda).to(dtype)
+    kc, vc = (torch.randn(L, C, nkv * 64, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    ang = pos * 1e6 ** (-torch.arange(0, 64, 2, device=cuda) / 64.0)
+    return w, x, kc, vc, torch.cos(ang).repeat(2), torch.sin(ang).repeat(2)
 
 
 @pytest.mark.gpu
@@ -219,6 +291,28 @@ def test_lm_step_matches_plain(cuda, dtype, rel):
         err = (got.float() - want.float()).abs().max()
         assert err <= rel * want.float().abs().max(), float(err)
     assert torch.equal(kc[:, :pos], kc2[:, :pos]) and torch.equal(kc[:, pos + 1:], kc2[:, pos + 1:])
+
+
+@pytest.mark.gpu
+# the bars of test_lm_step_matches_plain
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("C,pos", [(384, 0), (384, 1), (384, 383), (4096, 4000)],
+                         ids=["first_row", "second_row", "last_row", "long_cache"])
+def test_lm_step_cache_frontiers(cuda, dtype, rel, C, pos):
+    """K6 (4 layers at Qwen2-0.5B widths) at the cache's frontiers: the new
+    token alone (pos 0), one cached row, a full 384-row cache, and a 4096-row
+    cache at pos 4000; y and the new k/v within the bar, every other cache
+    row untouched."""
+    w, x, kc, vc, cos, sin = _step_case(cuda, dtype, 13, 4, C, pos)
+    kc2, vc2 = kc.clone(), vc.clone()
+    y = K6.lm_step(w, x, kc, vc, pos, cos, sin, nq=14, nkv=2, hd=64)
+    y_ref = K6.lm_step_plain(w, x, kc2, vc2, pos, cos, sin, nq=14, nkv=2, hd=64)
+    for got, want in ((y, y_ref), (kc[:, pos], kc2[:, pos]), (vc[:, pos], vc2[:, pos])):
+        assert torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs().max()
+        assert err <= rel * want.float().abs().max(), float(err)
+    for a, b in ((kc, kc2), (vc, vc2)):
+        assert torch.equal(a[:, :pos], b[:, :pos]) and torch.equal(a[:, pos + 1:], b[:, pos + 1:])
 
 
 @pytest.mark.gpu

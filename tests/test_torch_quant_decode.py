@@ -189,6 +189,39 @@ def test_lm_step_plain_matches_jax():
         jvc = jvc.at[:, pos].set(nv)
 
 
+@pytest.mark.parametrize("pos", [0, 31], ids=["first_row", "last_row"])
+def test_lm_step_plain_matches_jax_at_cache_frontiers(pos):
+    """One fp32 decode step at the cache's frontiers, 2e-5: at pos 0 the new
+    token attends to itself alone, at pos C - 1 to every cached row.  The
+    plain version against lm_step_xla and the Pallas kernel in interpret
+    mode; the k/v it writes at row pos equal the new k/v the JAX step
+    returns, and no other row moves."""
+    _, jw, tw = _step_models()
+    rng = np.random.default_rng(15 + pos)
+    L, C, KHD = STEP_QWEN["num_layers"], 32, 16
+    kc, vc = (rng.standard_normal((L, C, KHD)).astype(np.float32) * 0.5 for _ in range(2))
+    tkc, tvc = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    kw = dict(nq=4, nkv=2, hd=8)
+    x = (rng.standard_normal((1, 32)) * 0.3).astype(np.float32)
+    cos, sin = (np.array(a)[0] for a in j_rope_cos_sin(jnp.asarray([[pos]]), 8, 1e6))
+    jargs = (jnp.asarray(np.pad(x, ((0, 7), (0, 0)))), jnp.asarray(kc), jnp.asarray(vc),
+             jnp.asarray(pos), jnp.asarray(cos), jnp.asarray(sin))
+    y_x, nk, nv = jax.jit(jax_step.lm_step_xla, static_argnames=("nq", "nkv", "hd"))(
+        jw, *jargs, **kw)
+    y_p, nk_p, nv_p = jax_step.lm_step_fused(jw, *jargs, **kw, interpret=True)
+    got = K6.lm_step(tw, torch.from_numpy(x), tkc, tvc, pos, torch.from_numpy(cos),
+                     torch.from_numpy(sin), **kw)
+    for want in (y_x, y_p):
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want)[0], atol=2e-5, rtol=2e-5)
+    for new in (nk, nk_p):
+        np.testing.assert_allclose(tkc[:, pos].numpy(), np.asarray(new), atol=2e-5, rtol=2e-5)
+    for new in (nv, nv_p):
+        np.testing.assert_allclose(tvc[:, pos].numpy(), np.asarray(new), atol=2e-5, rtol=2e-5)
+    rest = np.arange(C) != pos
+    np.testing.assert_array_equal(tkc.numpy()[:, rest], kc[:, rest])
+    np.testing.assert_array_equal(tvc.numpy()[:, rest], vc[:, rest])
+
+
 def test_lm_generate_fused_step_greedy_matches_jax():
     """At the JAX package's fused-step test shape: the port's
     lm_generate_fused_step (plain lm_step on the CPU) emits exactly the
