@@ -79,9 +79,15 @@ Phases, each printing JSON lines:
 Phase 3 also holds K3 on both of its routes (K3_CASES), K5 (int4_matmul;
 its decode route's block count at K5_MIN_BLOCKS) and K6 (lm_step) against
 their plain versions at the shapes phases 6 and 7 give them (K5 at 1, 3, 8
-and 200 rows), K4 (dit_block) at the
-estimator's full width with ragged lengths, and K7 (snake_aa) at the
-recipe's first and last stage shapes and its edge cases.
+and 200 rows), K6's launch plan (at most one item a block a phase, a grid of
+one block an SM, two launches bit-identical), K4 (dit_block) at the
+estimator's full width with ragged lengths and a ragged T, and K7 (snake_aa)
+at the recipe's first and last stage shapes and its edge cases.  The timing
+phase's K6 row adds its grid, plan, barrier share (sync_dev_ms: its 5 x L
+grid barriers alone) and hbm_share (bytes / device time / 3.35 TB/s); the K4
+row its launches' device times by kernel (phase_ms: LN1 + qkv, K2's
+attention kernel, out-proj + LN3 + FFN) and K2 alone at the block's qkv
+shape (k2_dev_ms).
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero.
 """
 from __future__ import annotations
@@ -368,13 +374,14 @@ def check_block(name, dtype, got, want, phase="kernels") -> float:
 def block_checks(K4) -> float:
     """K4 against its plain version at the estimator's full width (dim 256,
     8 x 64 heads, ff 1024) in fp32 and bf16: the batched phase's shape
-    [16, 640] and T = 1152 (a multiple of 128 that is not a power of two),
-    each with one L = T row, one L = 0 row and ragged rows; every row is
-    compared.  Returns the largest bf16 error."""
+    [16, 640], T = 1152 (a multiple of 128 that is not a power of two) and
+    T = 600 (a ragged last row tile), each with one L = T row, one L = 0 row
+    and ragged rows; every row is compared.  Returns the largest bf16
+    error."""
     g = torch.Generator(device="cuda").manual_seed(8)
     err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for B, T in ((16, 640), (4, 1152)):
+        for B, T in ((16, 640), (4, 1152), (4, 600)):
             lens = [T, 0] + [int(T * (1 - 0.06 * i)) for i in range(1, B - 1)]
             x = torch.randn(B, T, 256, generator=g, device="cuda").to(dtype)
             w = K4.random_block_weights(256, 8, 64, 1024, dtype, g, "cuda")
@@ -432,6 +439,12 @@ def check_step(K6, inp: dict, dtype, phase="kernels") -> float:
     return max(errs.values())
 
 
+def step_plan(K6, C: int, dev) -> dict:
+    """K6's launch plan for a full-width step with a C-row cache on this card."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return K6.plan(896, 4864, 14, 2, C, sms)
+
+
 def quant_kernel_checks(K5, K6) -> dict:
     """K5's launch plan at one row (at least K5_MIN_BLOCKS blocks), then K5
     at the LM's projection shapes (K5_ROWS rows, group 128) and K6 for one
@@ -456,6 +469,23 @@ def quant_kernel_checks(K5, K6) -> dict:
                           K5.int4_matmul_plain(x, w, scale))
                 errs["int4_matmul"] = max(errs["int4_matmul"], e)
         errs["lm_step"] = check_step(K6, step_inputs(K6, dtype, 6), dtype)
+    # K6's plan: at most one item a block in every phase, on a grid of one
+    # block an SM; two launches on the same inputs give the same bits (fixed
+    # merge order)
+    p = step_plan(K6, 384, "cuda")
+    items = {k: p[k]["items"] for k in ("qkv", "o", "gate_up", "down", "attention")}
+    inp = step_inputs(K6, torch.bfloat16, 6)
+    caches = [(inp["kc"].clone(), inp["vc"].clone()) for _ in range(2)]
+    y1, y2 = (run_step(K6, inp, kc=kc, vc=vc) for kc, vc in caches)
+    same = bool(torch.equal(y1, y2)) and all(torch.equal(a, b) for a, b in zip(*caches))
+    grid = K6.sync_probe(1, "cuda")                  # the grid lm_step launches
+    ok = max(items.values()) <= p["blocks"] == grid and same
+    emit({"phase": "kernels", "check": "lm_step_plan", "blocks": p["blocks"], "grid": grid,
+          "items": items, "region_bytes": p["region_bytes"], "smem_bytes": p["smem_bytes"],
+          "two_launches_bit_identical": same, "ok": ok})
+    if not ok:
+        raise AssertionError(f"lm_step plan {items} on {p['blocks']} blocks (grid {grid}), "
+                             f"bit-identical: {same}")
     return errs
 
 
@@ -1412,21 +1442,22 @@ def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
     L = w.wqkv.shape[0]
     k6 = lambda: run_step(K6, inp)
     k6_ms, k6_dev = time_ms(k6), dev_time(k6)
-    n_sync = 5 * L - 1
-    probe = lambda: K6.sync_probe(n_sync, 896, 4864, 14, T, bf, dev)
+    n_sync = 5 * L                  # five grid barriers a layer
+    probe = lambda: K6.sync_probe(n_sync, dev)
     grid = probe()
     sync_ms, sync_dev = time_ms(probe), dev_time(probe, "sync_dev")
+    # int8 weights + fp32 scales/biases/norms + live cache rows read + the
+    # new rows written + x, y and the RoPE tables
+    k6_bytes = n_int8 + 4 * n_f32 + 2 * L * (pos + 1) * 128 * isz + 2 * 896 * isz + 2 * 64 * 4
     rows.append(dict(
         name="lm_step", source="cosyvoice_tpu_torch/csrc/lm_step.cu",
         replaces="cosyvoice_tpu/ops/pallas/lm_step.py:222", shape=[L, 1, 896, T, pos],
         ms=k6_ms, **k6_dev, plain_ms=time_ms(lambda: run_step(K6, inp, plain=True), iters=10),
-        library_ms=None,
-        # int8 weights + fp32 scales/biases/norms + live cache rows read +
-        # the new rows written + x, y and the RoPE tables
-        bytes=n_int8 + 4 * n_f32 + 2 * L * (pos + 1) * 128 * isz + 2 * 896 * isz + 2 * 64 * 4,
+        library_ms=None, bytes=k6_bytes,
         flops=2 * n_int8 + L * 4 * 14 * 64 * (pos + 1), max_abs_err=k6_err,
-        grid_blocks=grid, grid_syncs=n_sync, sync_ms=sync_ms, **sync_dev,
-        sync_share=sync_dev["sync_dev_ms"] / k6_dev["dev_ms"]))
+        grid_blocks=grid, plan=step_plan(K6, T, dev), grid_syncs=n_sync, sync_ms=sync_ms,
+        **sync_dev, sync_share=sync_dev["sync_dev_ms"] / k6_dev["dev_ms"],
+        hbm_share=k6_bytes / (k6_dev["dev_ms"] * 1e-3) / HBM_BYTES_PER_S))
     # K4: one DiT block of the main path's estimator (its bf16 weights) over
     # the batched phase's CFG batch; the yardstick is the same block unfused
     # (K3 norms, K2 attention, cuBLAS projections): no one PyTorch call
@@ -1445,6 +1476,9 @@ def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
     blk.fused_block = False
     k4 = lambda: K4.dit_block_fused(x4, L4, *w4, **kw4)
     unfused = lambda: blk(x4, None, L4)
+    # K2 alone at the block's qkv shape: the floor of K4's attention launch
+    qkv4 = r(B4, T4, 3 * inner)
+    k2_block = dev_time(lambda: K2.dit_attention_packed(qkv4, L4, 0.125, 64), "k2_dev")
     rows.append(dict(
         name="dit_block", source="cosyvoice_tpu_torch/csrc/dit_block.cu",
         replaces="cosyvoice_tpu/ops/pallas/dit_block.py:115", shape=[B4, T4, dim],
@@ -1452,8 +1486,9 @@ def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
         plain_ms=time_ms(lambda: K4.dit_block_plain(x4, L4, *w4, **kw4), iters=10),
         library_ms=None, unfused_block_ms=time_ms(unfused, iters=20),
         **dev_time(unfused, "unfused_block_dev"),
-        # its three launches (LN1 + qkv, attention, out-proj + LN3 + FFN)
+        # its three launches (LN1 + qkv, K2's attention, out-proj + LN3 + FFN)
         phase_ms=device_ms_by_kernel(lambda: K4.dit_block_fused(x4, L4, *w4, **kw4)),
+        plan=K4.plan(B4, T4, dim, 8, 64, ff), k2_shape=[B4, T4, 3 * inner], **k2_block,
         # x in and y out, the weights once, the fp32 vectors, the lengths
         bytes=(2 * B4 * T4 * dim + 3 * dim * inner + inner * dim + 2 * dim * ff) * isz
         + (6 * dim + ff) * 4 + 4 * B4,

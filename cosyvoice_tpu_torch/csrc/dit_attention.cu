@@ -35,12 +35,15 @@
 // subtraction and clamped exp2 at 108; the two agree wherever that clamp does
 // not bind.  A row with lengths[b] == 0 has no keys and returns zeros, as the
 // TPU kernel's floored divide does; query rows past T are never written.
-// wgmma/TMA tiles and a persistent grid are the next steps for speed.
+// wgmma/TMA tiles and a persistent grid are the next steps for speed.  The
+// launcher is declared in dit_attention.cuh: K4 (dit_block.cu) runs its
+// attention phase through this kernel.
 //
 // fp32: the SIMT kernel below (exact fp32, no tensor cores): each block keeps
 // 32 query rows in shared memory and streams 64-key tiles through it.
 
 #include "common.cuh"
+#include "dit_attention.cuh"
 
 namespace {
 
@@ -303,15 +306,16 @@ void launch_simt(const float* q, const float* k, const float* v, float* out,
       q, k, v, out, lengths, T_len, in_bs, in_rs, out_bs, out_rs, qscale);
 }
 
-void launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* out, const int* lengths,
-               int B, int T_len, int H, long long in_bs, long long in_rs, long long out_bs,
-               long long out_rs, float qscale, cudaStream_t stream) {
+}  // namespace
+
+void dit_attention_tc_launch(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                             const int* lengths, int B, int T_len, int H, long long in_bs,
+                             long long in_rs, long long out_bs, long long out_rs, float qscale,
+                             cudaStream_t stream) {
   const dim3 grid((T_len + kTcBQ - 1) / kTcBQ, H, B);
   dit_attention_tc_kernel<<<grid, kTcWarps * 32, 0, stream>>>(
       q, k, v, out, lengths, T_len, in_bs, in_rs, out_bs, out_rs, qscale);
 }
-
-}  // namespace
 
 // bf16: q, k and v 16-byte aligned, strides multiples of 8 (the wrapper checks).
 extern "C" int cvt_dit_attention(const void* q, const void* k, const void* v, void* out,
@@ -327,9 +331,9 @@ extern "C" int cvt_dit_attention(const void* q, const void* k, const void* v, vo
                 (const int*)lengths, B, T_len, H, in_bstride, in_rstride, out_bstride,
                 out_rstride, qscale, s);
   } else if (dtype == kBFloat16) {
-    launch_tc((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
-              (const int*)lengths, B, T_len, H, in_bstride, in_rstride, out_bstride,
-              out_rstride, qscale, s);
+    dit_attention_tc_launch((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
+                            (const int*)lengths, B, T_len, H, in_bstride, in_rstride,
+                            out_bstride, out_rstride, qscale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -29,30 +29,41 @@
 // memory, and attention for a query tile needs the keys and values of every
 // valid row of its batch row, so the projection of all rows must finish
 // before any attention starts.  The call is three launches on one stream:
-//   A. per (64-row tile, 128 qkv columns, batch row): LN1 of the rows into
-//      shared memory, then their qkv columns, written to a [B, T, 3*inner]
-//      scratch in the working type (the rounding point the TPU kernel has);
-//   B. per (query tile, head, batch row): attention over the valid keys,
-//      64-key tiles streamed through shared memory, online exp2 softmax,
-//      written to an o scratch [B, T, inner] (64 queries a block in bf16,
-//      32 in fp32);
-//   C. per (32-row tile, batch row): o @ wo + bo + x -> x1 (kept in shared
+//   A. LN1 of a row tile into shared memory, then its qkv columns, written
+//      to a [B, T, 3*inner] scratch in the working type (the rounding point
+//      the TPU kernel has);
+//   B. attention over the valid keys into an o scratch [B, T, inner];
+//   C. per (row tile, batch row): o @ wo + bo + x -> x1 (kept in shared
 //      memory), LN3 -> h2, then the FFN in chunks of 128 mid columns, so the
-//      [32, ff] mid never sits in shared memory whole, its second product
+//      [rows, ff] mid never sits in shared memory whole, its second product
 //      accumulated in registers; y = x1 + (.. + bo2) written once.
-// In bf16 every product runs on the tensor cores (mma.sync m16n8k16, bf16
-// operands, fp32 accumulators): weight tiles of 64 rows are copied into shared
-// memory 16 bytes a thread and read as B fragments by ldmatrix.trans, the
-// activations sit there in bf16 (the rounding point the TPU kernel has), and
-// attention is a flash loop whose score fragments become the p operand of
-// the p @ v product in registers.  In fp32 the products stay on the SIMT
-// units in full fp32: weight tiles of 32 rows in shared memory, each of the
-// 256 threads owning a strip of the output tile in registers.  wgmma/TMA
-// tiles are the next step for speed.
+// bf16 (the serving route), on the tensor cores (mma.sync m16n8k16, bf16
+// operands, fp32 accumulators, ldmatrix fragments):
+//   A. a block per (64 rows, 384 qkv columns, batch row): LN1 once into
+//      shared memory, the columns in chunks of 128;
+//   B. K2's kernel (dit_attention.cu, declared in dit_attention.cuh) on the
+//      packed qkv scratch through its strides: one attention kernel in the
+//      port;
+//   C. a block of 12 warps per (96 rows, batch row): one wave at the
+//      serving shape; x1 stays in shared memory in bf16 (it is
+//      bf16-valued), each warp owns 32 rows x a quarter of a product's
+//      columns, so each B fragment feeds two products.
+// In A and C every weight slab (64 input rows) streams through a ring of
+// two shared-memory slots by cp.async, the next slab in flight while the
+// tensor cores work on this one, across the products' epilogues too; A
+// starts its stream before LN1 and fits three blocks an SM (a third slot
+// bought C nothing and cost A one of them).  At the serving shape (dim
+// 256, inner 512, ff 1024) phase C takes 218 KB of shared memory (o streams
+// beside wo, never whole), and its 1.25 MB of weights stream from the L2
+// once a 96-row tile: a third of the traffic of 32-row tiles.
+// fp32: the products stay on the SIMT units in full fp32 (the GPU tests'
+// route): weight tiles of 32 rows in shared memory, each of the 256 threads
+// owning a strip of the output tile in registers, and a SIMT attention.
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "dit_attention.cuh"
 
 namespace {
 
@@ -66,8 +77,14 @@ constexpr int kD = 64;         // head_dim
 constexpr int kBQ = 32;        // query rows per block in phase B (8 warps x 4)
 constexpr int kBK = 64;        // key rows per tile in phase B (2 per lane)
 constexpr float kEps = 1e-5f;
-constexpr int kKT2 = 64;       // depth of one staged weight tile (tensor-core path)
-constexpr int kBQ2 = 64;       // query rows per block in the tensor-core attention
+// bf16 route
+constexpr int kRows = 64;      // rows a block in phase A
+constexpr int kRowsC2 = 96;    // rows a block in phase C
+constexpr int kThreadsC = 384; // phase C: 12 warps, 3 x 32 rows by 4 column quarters
+constexpr int kSlab = 64;      // input rows of one streamed weight slab
+constexpr int kStages = 2;     // slabs in the ring (the next in flight while one computes)
+constexpr int kChunk = 128;    // columns of a phase A chunk and of a phase C mid chunk
+constexpr int kColsTc = 384;   // qkv columns a block in phase A
 
 using bf16 = __nv_bfloat16;
 
@@ -122,7 +139,7 @@ __device__ __forceinline__ void layer_norm_rows(const S* src, int lds, D* dst, i
                                                 const float* __restrict__ g,
                                                 const float* __restrict__ b) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < rows; r += kThreads / 32) {
+  for (int r = warp; r < rows; r += blockDim.x / 32) {
     float s = 0.f, ss = 0.f;
     for (int c = lane; c < n; c += 32) {
       const float v = to_float(src[(long long)r * lds + c]);
@@ -333,220 +350,143 @@ out_ffn_kernel(const T* __restrict__ x, const T* __restrict__ o, const T* __rest
 
 // ---------------------------------------------------------------- bf16 path
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ void store2(bf16* p, float lo, float hi) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
 }
 
-// acc[mi][ni] += A[r0 + 16 mi .., 0:K] @ B[0:K, n0 + 8 ni ..] for one warp,
-// A [m][k] and B [k][n] bf16 in shared memory (row strides lda, ldb).
-// Fragment layout of m16n8k16: lane = 4 g + t; A rows g and g + 8, columns
-// 2t, 2t + 1 (+ 8); B column g, rows 2t, 2t + 1 (+ 8), read transposed by
-// ldmatrix; C rows g and g + 8, columns 2t, 2t + 1.
+// rows [0, nrows) x columns [0, ncols) (a multiple of 8) of a bf16 tensor
+// (row stride lds) into dst (row stride ldd), 16 bytes a cp.async spread over
+// the block; rows >= valid are zero-filled and their source is not read; the
+// caller commits
+__device__ __forceinline__ void load_tile(bf16* dst, int ldd, const bf16* src, long long lds,
+                                          int nrows, int ncols, int valid) {
+  const int cpr = ncols / 8;
+  for (int i = threadIdx.x; i < nrows * cpr; i += blockDim.x) {
+    const int r = i / cpr, c = 8 * (i - r * cpr);
+    const bool live = r < valid;
+    cp_async16(dst + r * ldd + c, src + (live ? r : 0) * lds + c, live);
+  }
+}
+
+// one [kSlab][n] weight slab (global row stride ldw) into dst (row stride n + 8)
+__device__ __forceinline__ void load_slab(bf16* dst, const bf16* src, int ldw, int n) {
+  load_tile(dst, n + 8, src, ldw, kSlab, n, kSlab);
+}
+
+// acc[mi][ni] += A[r0 + 16 mi .., 0:kSlab] @ B[0:kSlab, n0 + 8 ni ..] for one
+// warp: A [m][k] (row stride lda) and the slab B [k][n] (row stride ldb) bf16
+// in shared memory, A fragments by ldmatrix.x4, two B fragments a
+// ldmatrix.x4.trans, each B fragment feeding MI products.
 template <int MI, int NI>
-__device__ __forceinline__ void warp_mma(float (&acc)[MI][NI][4], const bf16* A, int lda,
-                                         int r0, const bf16* B, int ldb, int n0, int K) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int k = 0; k < K; k += 16) {
+__device__ __forceinline__ void slab_mma(float (&acc)[MI][NI][4], const bf16* A, int lda,
+                                         int r0, const bf16* B, int ldb, int n0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < kSlab; k += 16) {
     uint32_t a[MI][4];
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-      const bf16* p = A + (r0 + 16 * mi + g) * lda + k + 2 * t;
-      a[mi][0] = ld32(p);
-      a[mi][1] = ld32(p + 8 * lda);
-      a[mi][2] = ld32(p + 8);
-      a[mi][3] = ld32(p + 8 * lda + 8);
-    }
+    for (int mi = 0; mi < MI; ++mi)
+      ldsm_x4(a[mi], A + (r0 + 16 * mi + (lane & 15)) * lda + k + 8 * (lane >> 4));
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      uint32_t b0, b1;
-      ldsm_x2_trans(b0, b1, B + (k + (lane & 15)) * ldb + n0 + 8 * ni);
+    for (int ni = 0; ni < NI; ni += 2) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, B + (k + (lane & 15)) * ldb + n0 + 8 * ni + 8 * (lane >> 4));
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi) mma16816(acc[mi][ni], a[mi], b0, b1);
+      for (int mi = 0; mi < MI; ++mi) {
+        mma16816(acc[mi][ni], a[mi], b[0], b[1]);
+        mma16816(acc[mi][ni + 1], a[mi], b[2], b[3]);
+      }
     }
   }
 }
 
-// Block-wide: each warp's acc += A[its rows, 0:K] @ W[0:K, its columns].  W
-// is global [K, ldw] row-major (16-byte aligned rows), offset to the block's
-// first column; BN of its columns are copied per 64-row step into w_s
-// ([k][n], row stride BN + 8), 16 bytes a thread.  Starts with a barrier, so
-// writes to A made before the call are visible, and w_s is free.
-template <int MI, int NI, int BN>
-__device__ __forceinline__ void block_mma(float (&acc)[MI][NI][4], const bf16* A, int lda,
-                                          int K, const bf16* __restrict__ W, int ldw,
-                                          bf16* w_s, int r0, int n0) {
-  constexpr int ldb = BN + 8;
-  for (int k0 = 0; k0 < K; k0 += kKT2) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kKT2 * BN / 8; idx += kThreads) {
-      const int kk = idx / (BN / 8), c = 8 * (idx % (BN / 8));
-      *reinterpret_cast<uint4*>(w_s + kk * ldb + c) =
-          *reinterpret_cast<const uint4*>(W + (long long)(k0 + kk) * ldw + c);
-    }
-    __syncthreads();
-    warp_mma<MI, NI>(acc, A + k0, lda, r0, w_s, ldb, n0, kKT2);
-  }
+template <int MI, int NI>
+__device__ __forceinline__ void zero(float (&acc)[MI][NI][4]) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 }
 
-// Phase A in bf16: LN1 of 64 rows straight from x into shared memory (bf16),
-// then their 128 qkv columns; warp (wr, wc) owns rows 32 wr.., columns 32 wc..
+// Phase A in bf16: LN1 of 64 rows into shared memory (bf16), once, then
+// their kColsTc qkv columns in chunks of kChunk; the weight slabs stream
+// through a kStages ring of cp.async copies, the first ones in flight
+// before LN1.  Warp (wr, wc) owns rows 32 wr.., columns 32 wc.. of a chunk.
 template <int DIM>
 __global__ void __launch_bounds__(kThreads)
 ln_qkv_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ g1,
                  const float* __restrict__ b1, const bf16* __restrict__ wqkv,
                  bf16* __restrict__ qkv, int T_len, int n_qkv) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int ldh = DIM + 8;
-  bf16* h_s = reinterpret_cast<bf16*>(smem_raw);    // [kRowsA][ldh]
-  bf16* w_s = h_s + kRowsA * ldh;                   // [kKT2][kColsA + 8]
-  const int t0 = blockIdx.x * kRowsA, n0 = blockIdx.y * kColsA, b = blockIdx.z;
+  constexpr int ldh = DIM + 8, ldw = kChunk + 8, KS = DIM / kSlab;
+  constexpr int NS = kColsTc / kChunk * KS;            // slabs a block
+  bf16* h_s = reinterpret_cast<bf16*>(smem_raw);       // [kRows][ldh]
+  bf16* ring = h_s + kRows * ldh;                      // kStages x [kSlab][ldw]
+  const int t0 = blockIdx.x * kRows, n0 = blockIdx.y * kColsTc, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wr = warp / 4, wc = warp % 4;
-  const int rows = min(kRowsA, T_len - t0);
-  for (int idx = threadIdx.x; idx < (kRowsA - rows) * ldh; idx += kThreads)
+  // slab s: input rows (s % KS) * kSlab .., columns of chunk s / KS
+  auto src = [&](int s) {
+    return wqkv + (long long)(s % KS) * kSlab * n_qkv + n0 + (s / KS) * kChunk;
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    load_slab(ring + s * kSlab * ldw, src(s), n_qkv, kChunk);
+    cp_async_commit();
+  }
+  const int rows = min(kRows, T_len - t0);
+  for (int idx = threadIdx.x; idx < (kRows - rows) * ldh; idx += kThreads)
     h_s[rows * ldh + idx] = __float2bfloat16(0.f);
   layer_norm_rows<bf16>(x + ((long long)b * T_len + t0) * DIM, DIM, h_s, ldh, rows, DIM,
                         g1, b1);
-  float acc[2][4][4] = {};
-  block_mma<2, 4, kColsA>(acc, h_s, ldh, DIM, wqkv + n0, n_qkv, w_s, 32 * wr, 32 * wc);
+  float acc[2][4][4];
+  zero(acc);
   bf16* out = qkv + (long long)b * T_len * n_qkv + n0 + 32 * wc + 2 * t;
+  for (int s = 0; s < NS; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();                    // slab s landed; slab s - 1's slot is free
+    if (s + kStages - 1 < NS)
+      load_slab(ring + (s + kStages - 1) % kStages * kSlab * ldw, src(s + kStages - 1), n_qkv,
+                kChunk);
+    cp_async_commit();
+    const int ks = s % KS;
+    slab_mma<2, 4>(acc, h_s + ks * kSlab, ldh, 32 * wr, ring + s % kStages * kSlab * ldw, ldw,
+                   32 * wc);
+    if (ks == KS - 1) {                 // a chunk's columns are done
+      const int c0 = s / KS * kChunk;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int tt = t0 + 32 * wr + 16 * mi + g + 8 * h;
-      if (tt >= T_len) continue;
+        for (int h = 0; h < 2; ++h) {
+          const int tt = t0 + 32 * wr + 16 * mi + g + 8 * h;
+          if (tt >= T_len) continue;
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        store2(out + (long long)tt * n_qkv + 8 * ni, acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+          for (int ni = 0; ni < 4; ++ni)
+            store2(out + (long long)tt * n_qkv + c0 + 8 * ni, acc[mi][ni][2 * h],
+                   acc[mi][ni][2 * h + 1]);
+        }
+      zero(acc);
     }
-}
-
-// Phase B in bf16: flash attention for 64 query rows of one head (4 warps x
-// 16 rows).  S = q k^T and o += p v run on the tensor cores; each score tile's
-// accumulators are the A fragments of the p @ v product (p rounded to bf16).
-__global__ void __launch_bounds__(128)
-attention_tc_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o,
-                    const int* __restrict__ lengths, int T_len, int inner, float qscale) {
-  constexpr int ld = kD + 8;
-  __shared__ __align__(16) bf16 q_s[kBQ2][ld];
-  __shared__ __align__(16) bf16 k_s[kBK][ld];
-  __shared__ __align__(16) bf16 v_s[kBK][ld];
-  const int q0 = blockIdx.x * kBQ2, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int L = min(max(lengths[b], 0), T_len);
-  const long long rs = 3LL * inner;
-  const bf16* base = qkv + (long long)b * T_len * rs + h * kD;
-
-  for (int idx = tid; idx < kBQ2 * kD / 8; idx += 128) {    // 8 values a thread
-    const int r = idx / (kD / 8), c = 8 * (idx % (kD / 8)), tt = q0 + r;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (tt < T_len) raw = *reinterpret_cast<const uint4*>(base + tt * rs + c);
-    const bf16* v = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) q_s[r][c + i] = __float2bfloat16(__bfloat162float(v[i]) * qscale);
-  }
-  __syncthreads();
-  uint32_t qa[kD / 16][4];
-  const int r0 = 16 * warp + g;
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    qa[kk][0] = ld32(&q_s[r0][16 * kk + 2 * t]);
-    qa[kk][1] = ld32(&q_s[r0 + 8][16 * kk + 2 * t]);
-    qa[kk][2] = ld32(&q_s[r0][16 * kk + 2 * t + 8]);
-    qa[kk][3] = ld32(&q_s[r0 + 8][16 * kk + 2 * t + 8]);
-  }
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[kD / 8][4] = {};
-  for (int j0 = 0; j0 < L; j0 += kBK) {
-    __syncthreads();                                   // previous tile consumed
-    for (int idx = tid; idx < kBK * kD / 8; idx += 128) {
-      const int jj = idx / (kD / 8), c = 8 * (idx % (kD / 8)), j = j0 + jj;
-      uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
-      if (j < L) {
-        kr = *reinterpret_cast<const uint4*>(base + inner + j * rs + c);
-        vr = *reinterpret_cast<const uint4*>(base + 2 * inner + j * rs + c);
-      }
-      *reinterpret_cast<uint4*>(&k_s[jj][c]) = kr;
-      *reinterpret_cast<uint4*>(&v_s[jj][c]) = vr;
-    }
-    __syncthreads();
-    float s[kBK / 8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-#pragma unroll
-      for (int ni = 0; ni < kBK / 8; ++ni)
-        mma16816(s[ni], qa[kk], ld32(&k_s[8 * ni + g][16 * kk + 2 * t]),
-                 ld32(&k_s[8 * ni + g][16 * kk + 2 * t + 8]));
-    // rows g (s[.][0..1]) and g + 8 (s[.][2..3]); key j0 + 8 ni + 2t (+1)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int ni = 0; ni < kBK / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (j0 + 8 * ni + 2 * t + (e & 1) >= L) s[ni][e] = -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[ni][e]);
-      }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);          // finite: key j0 is valid
-      corr[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= corr[r];
-    }
-#pragma unroll
-    for (int ni = 0; ni < kBK / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[ni][e] = exp2f(s[ni][e] - m[e >> 1]);
-        l[e >> 1] += s[ni][e];
-      }
-#pragma unroll
-    for (int ni = 0; ni < kD / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[ni][e] *= corr[e >> 1];
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pa[4] = {pack2(s[2 * kk][0], s[2 * kk][1]),
-                              pack2(s[2 * kk][2], s[2 * kk][3]),
-                              pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int ni = 0; ni < kD / 8; ++ni) {
-        uint32_t b0, b1;
-        ldsm_x2_trans(b0, b1, &v_s[16 * kk + (lane & 15)][8 * ni]);
-        mma16816(acc[ni], pa, b0, b1);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int tt = q0 + r0 + 8 * r;
-    if (tt >= T_len) continue;
-    bf16* ot = o + ((long long)b * T_len + tt) * inner + h * kD + 2 * t;
-#pragma unroll
-    for (int ni = 0; ni < kD / 8; ++ni)
-      store2(ot + 8 * ni, l[r] > 0.f ? acc[ni][2 * r] / l[r] : 0.f,
-             l[r] > 0.f ? acc[ni][2 * r + 1] / l[r] : 0.f);
   }
 }
 
-// Phase C in bf16: as out_ffn_kernel, with warp (wr, wc) owning rows 16 wr..
-// and a quarter of each product's columns.
+// Phase C in bf16 for kRowsC2 (96) rows of one batch row: x1 = x + T(o @ wo
+// + bo), h2 = LN3(x1), then the FFN in chunks of kChunk mid columns, y = x1 +
+// T(.. + bo2).  96-row tiles make one wave of blocks at the serving shape
+// (7 x 16 = 112 on 132 SMs, where 64-row tiles took two) with 12 warps an SM.
+// Every slab streams through one kStages ring of cp.async copies, so the next
+// loads while the tensor cores work on this one, across the products'
+// epilogues too: during the out projection a ring slot holds the tile's o
+// columns of the slab's depth beside wo's rows (o never sits in shared
+// memory whole), then wi's and wo2's slabs.  x, then x1 (bf16-valued, so
+// exact in bf16), sit in x1_s, h2 in h_s, one chunk of the mid in m_s.  Warp
+// (wr, wc) owns rows 32 wr.. and a quarter of each product's columns (32 x 64
+// of the out projection and the FFN's second product at dim 256, 32 x 32 of
+// a mid chunk), so each B fragment feeds two products.
 template <int DIM>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreadsC)
 out_ffn_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ o,
                   const bf16* __restrict__ wo, const float* __restrict__ bo,
                   const float* __restrict__ g3, const float* __restrict__ b3,
@@ -554,71 +494,107 @@ out_ffn_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ o,
                   const bf16* __restrict__ wo2, const float* __restrict__ bo2,
                   bf16* __restrict__ y, int T_len, int inner, int ff) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int ldx = DIM + 1, ldh = DIM + 8, ldm = kFC + 8, NO = DIM / 32, WO = DIM / 4;
-  const int lda = inner + 8;
-  bf16* a_s = reinterpret_cast<bf16*>(smem_raw);    // [kRowsC][max(lda, ldh)]: o, then h2
-  float* x1_s = reinterpret_cast<float*>(a_s + kRowsC * (lda > ldh ? lda : ldh));
-  bf16* m_s = reinterpret_cast<bf16*>(x1_s + kRowsC * ldx);   // [kRowsC][ldm]
-  bf16* w_s = m_s + kRowsC * ldm;                   // [kKT2][max(DIM, kFC) + 8]
-  const int t0 = blockIdx.x * kRowsC, b = blockIdx.y;
+  constexpr int R = kRowsC2, ldx = DIM + 8, ldm = kChunk + 8, ldr = DIM + 8, ldo = kSlab + 8;
+  constexpr int NO = DIM / 32, WO = DIM / 4;
+  constexpr int KS = DIM / kSlab, CS = KS + kChunk / kSlab;   // slabs a chunk: wi, wo2
+  constexpr int kSlot = R * ldo + kSlab * ldr;                 // an o slab, then a weight slab
+  const int S1 = inner / kSlab, NS = S1 + ff / kChunk * CS;
+  bf16* x1_s = reinterpret_cast<bf16*>(smem_raw);   // [R][ldx]: x, then x1
+  bf16* h_s = x1_s + R * ldx;                       // [R][ldx]: h2
+  bf16* m_s = h_s + R * ldx;                        // [R][ldm]
+  bf16* ring = m_s + R * ldm;                       // kStages x kSlot
+  const int t0 = blockIdx.x * R, b = blockIdx.y, valid = min(R, T_len - t0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wr = warp / 4, wc = warp % 4;
-  const bf16* xb = x + (long long)b * T_len * DIM;
-  const bf16* ob = o + (long long)b * T_len * inner;
-  for (int idx = threadIdx.x; idx < kRowsC * inner / 8; idx += kThreads) {
-    const int r = idx / (inner / 8), c = 8 * (idx % (inner / 8));
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (t0 + r < T_len) raw = *reinterpret_cast<const uint4*>(ob + (long long)(t0 + r) * inner + c);
-    *reinterpret_cast<uint4*>(a_s + r * lda + c) = raw;
-  }
-  for (int idx = threadIdx.x; idx < kRowsC * DIM; idx += kThreads) {
-    const int r = idx / DIM, c = idx % DIM;
-    x1_s[r * ldx + c] = t0 + r < T_len ? __bfloat162float(xb[(long long)(t0 + r) * DIM + c]) : 0.f;
-  }
-
-  float acc[1][NO][4] = {};
-  block_mma<1, NO, DIM>(acc, a_s, lda, inner, wo, DIM, w_s, 16 * wr, WO * wc);
-#pragma unroll
-  for (int ni = 0; ni < NO; ++ni)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = 16 * wr + g + 8 * (e >> 1), c = WO * wc + 8 * ni + 2 * t + (e & 1);
-      x1_s[row * ldx + c] =
-          round_to<bf16>(x1_s[row * ldx + c] + round_to<bf16>(acc[0][ni][e] + bo[c]));
+  // slab s: o's columns and wo's rows s * kSlab .. (s < S1), else of chunk c:
+  // wi's rows j * kSlab .., columns c * kChunk .. (j < KS), then wo2's rows
+  // c * kChunk + (j - KS) * kSlab ..
+  auto load = [&](int s) {
+    bf16* slot = ring + s % kStages * kSlot;
+    if (s < S1) {
+      load_tile(slot, ldo, o + ((long long)b * T_len + t0) * inner + s * kSlab, inner, R, kSlab,
+                valid);
+      load_slab(slot + R * ldo, wo + (long long)s * kSlab * DIM, DIM, DIM);
+    } else {
+      const int c = (s - S1) / CS, j = (s - S1) % CS;
+      if (j < KS) load_slab(slot + R * ldo, wi + (long long)j * kSlab * ff + c * kChunk, ff, kChunk);
+      else load_slab(slot + R * ldo, wo2 + (long long)(c * kChunk + (j - KS) * kSlab) * DIM, DIM, DIM);
     }
-  __syncthreads();                         // x1 complete; every read of o done
-  layer_norm_rows<bf16>(x1_s, ldx, a_s, ldh, kRowsC, DIM, g3, b3);
+  };
+  load_tile(x1_s, ldx, x + ((long long)b * T_len + t0) * DIM, DIM, R, DIM, valid);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    load(s);
+    cp_async_commit();
+  }
 
+  float acc[2][NO][4], mid[2][4][4];
+  zero(acc);
+  zero(mid);
+  for (int s = 0; s < NS; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();                    // slab s landed; slab s - 1's slot is free
+    if (s + kStages - 1 < NS) load(s + kStages - 1);
+    cp_async_commit();
+    const bf16* slot = ring + s % kStages * kSlot;
+    const bf16* w_s = slot + R * ldo;
+    if (s < S1) {
+      slab_mma<2, NO>(acc, slot, ldo, 32 * wr, w_s, ldr, WO * wc);
+      if (s == S1 - 1) {                // x1 = x + T(o @ wo + bo), then h2
 #pragma unroll
-  for (int ni = 0; ni < NO; ++ni)
+        for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[0][ni][e] = 0.f;
-  for (int c0 = 0; c0 < ff; c0 += kFC) {
-    float mid[1][4][4] = {};
-    block_mma<1, 4, kFC>(mid, a_s, ldh, DIM, wi + c0, ff, w_s, 16 * wr, 32 * wc);
+          for (int ni = 0; ni < NO; ++ni)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = 16 * wr + g + 8 * h, c = 32 * wc + 8 * ni + 2 * t;
-        store2(m_s + row * ldm + c, gelu_tanh(mid[0][ni][2 * h] + bi[c0 + c]),
-               gelu_tanh(mid[0][ni][2 * h + 1] + bi[c0 + c + 1]));
+            for (int h = 0; h < 2; ++h) {
+              const int row = 32 * wr + 16 * mi + g + 8 * h, c = WO * wc + 8 * ni + 2 * t;
+              const __nv_bfloat162 xv = *reinterpret_cast<__nv_bfloat162*>(x1_s + row * ldx + c);
+              store2(x1_s + row * ldx + c,
+                     __low2float(xv) + round_to<bf16>(acc[mi][ni][2 * h] + bo[c]),
+                     __high2float(xv) + round_to<bf16>(acc[mi][ni][2 * h + 1] + bo[c + 1]));
+            }
+        zero(acc);
+        __syncthreads();                // x1 complete
+        layer_norm_rows<bf16>(x1_s, ldx, h_s, ldx, R, DIM, g3, b3);
       }
-    block_mma<1, NO, DIM>(acc, m_s, ldm, kFC, wo2 + (long long)c0 * DIM, DIM, w_s, 16 * wr,
-                          WO * wc);
+    } else {
+      const int c = (s - S1) / CS, j = (s - S1) % CS;
+      if (j < KS) {
+        slab_mma<2, 4>(mid, h_s + j * kSlab, ldx, 32 * wr, w_s, ldm, 32 * wc);
+        if (j == KS - 1) {              // the chunk's mid = T(gelu(h2 @ wi + bi))
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int row = 32 * wr + 16 * mi + g + 8 * h, col = 32 * wc + 8 * ni + 2 * t;
+                const float* bc = bi + c * kChunk + col;
+                store2(m_s + row * ldm + col, gelu_tanh(mid[mi][ni][2 * h] + bc[0]),
+                       gelu_tanh(mid[mi][ni][2 * h + 1] + bc[1]));
+              }
+          zero(mid);
+        }
+      } else {
+        slab_mma<2, NO>(acc, m_s + (j - KS) * kSlab, ldm, 32 * wr, w_s, ldr, WO * wc);
+      }
+    }
   }
 
   bf16* yb = y + (long long)b * T_len * DIM;
 #pragma unroll
-  for (int ni = 0; ni < NO; ++ni)
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = 16 * wr + g + 8 * h, c = WO * wc + 8 * ni + 2 * t;
-      if (t0 + row >= T_len) continue;
-      store2(yb + (long long)(t0 + row) * DIM + c,
-             x1_s[row * ldx + c] + round_to<bf16>(acc[0][ni][2 * h] + bo2[c]),
-             x1_s[row * ldx + c + 1] + round_to<bf16>(acc[0][ni][2 * h + 1] + bo2[c + 1]));
-    }
+    for (int ni = 0; ni < NO; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 32 * wr + 16 * mi + g + 8 * h, c = WO * wc + 8 * ni + 2 * t;
+        if (row >= valid) continue;
+        const __nv_bfloat162 xv = *reinterpret_cast<__nv_bfloat162*>(x1_s + row * ldx + c);
+        store2(yb + (long long)(t0 + row) * DIM + c,
+               __low2float(xv) + round_to<bf16>(acc[mi][ni][2 * h] + bo2[c]),
+               __high2float(xv) + round_to<bf16>(acc[mi][ni][2 * h + 1] + bo2[c + 1]));
+      }
 }
 
 struct BlockArgs {
@@ -628,14 +604,19 @@ struct BlockArgs {
   float qscale;
 };
 
+// dynamic shared memory of the bf16 route's phase A and phase C kernels
+size_t smem_ln_qkv_tc(int dim) {
+  return (size_t)(kRows * (dim + 8) + kStages * kSlab * (kChunk + 8)) * sizeof(bf16);
+}
+size_t smem_out_ffn_tc(int dim) {
+  return (size_t)(kRowsC2 * (2 * (dim + 8) + (kChunk + 8)) +
+                  kStages * (kRowsC2 * (kSlab + 8) + kSlab * (dim + 8))) *
+         sizeof(bf16);
+}
+
 template <int DIM>
 int launch_tc(const BlockArgs& a, cudaStream_t stream) {
-  const size_t smem_a = (size_t)(kRowsA * (DIM + 8) + kKT2 * (kColsA + 8)) * sizeof(bf16);
-  const int lda = (a.inner > DIM ? a.inner : DIM) + 8;
-  const size_t smem_c = (size_t)kRowsC * lda * sizeof(bf16) +
-                        (size_t)kRowsC * (DIM + 1) * sizeof(float) +
-                        (size_t)(kRowsC * (kFC + 8) + kKT2 * ((DIM > kFC ? DIM : kFC) + 8)) *
-                            sizeof(bf16);
+  const size_t smem_a = smem_ln_qkv_tc(DIM), smem_c = smem_out_ffn_tc(DIM);
   cudaError_t e = cudaFuncSetAttribute(ln_qkv_tc_kernel<DIM>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem_a);
@@ -643,16 +624,18 @@ int launch_tc(const BlockArgs& a, cudaStream_t stream) {
     e = cudaFuncSetAttribute(out_ffn_tc_kernel<DIM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
   if (e != cudaSuccess) return (int)e;
-  const int n_qkv = 3 * a.inner;
-  ln_qkv_tc_kernel<DIM><<<dim3((a.T_len + kRowsA - 1) / kRowsA, n_qkv / kColsA, a.B),
-                          kThreads, smem_a, stream>>>(
+  const int n_qkv = 3 * a.inner, tiles = (a.T_len + kRows - 1) / kRows;
+  ln_qkv_tc_kernel<DIM><<<dim3(tiles, n_qkv / kColsTc, a.B), kThreads, smem_a, stream>>>(
       (const bf16*)a.x, (const float*)a.g1, (const float*)a.b1, (const bf16*)a.wqkv,
       (bf16*)a.qkv, a.T_len, n_qkv);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  attention_tc_kernel<<<dim3((a.T_len + kBQ2 - 1) / kBQ2, a.heads, a.B), 128, 0, stream>>>(
-      (const bf16*)a.qkv, (bf16*)a.o, (const int*)a.lengths, a.T_len, a.inner, a.qscale);
+  const bf16* qkv = (const bf16*)a.qkv;
+  dit_attention_tc_launch(qkv, qkv + a.inner, qkv + 2 * a.inner, (bf16*)a.o,
+                          (const int*)a.lengths, a.B, a.T_len, a.heads,
+                          (long long)a.T_len * n_qkv, n_qkv, (long long)a.T_len * a.inner,
+                          a.inner, a.qscale, stream);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  out_ffn_tc_kernel<DIM><<<dim3((a.T_len + kRowsC - 1) / kRowsC, a.B), kThreads, smem_c,
+  out_ffn_tc_kernel<DIM><<<dim3((a.T_len + kRowsC2 - 1) / kRowsC2, a.B), kThreadsC, smem_c,
                            stream>>>(
       (const bf16*)a.x, (const bf16*)a.o, (const bf16*)a.wo, (const float*)a.bo,
       (const float*)a.g3, (const float*)a.b3, (const bf16*)a.wi, (const float*)a.bi,

@@ -35,8 +35,9 @@ _SIGNATURES = {
     "cvt_fused_layer_norm": [_P] * 4 + [_LL, _I, _F, _I, _I, _P],
     "cvt_int4_matmul": [_P] * 6 + [_I] * 5 + [_P],
     "cvt_int4_matmul_plan": [_I] * 4 + [ctypes.POINTER(_I)],
-    "cvt_lm_step": [_P] * 19 + [_I] * 7 + [_F, _F, _I, _P],
-    "cvt_lm_step_sync_probe": [_I] * 6 + [ctypes.POINTER(_I), _P],
+    "cvt_lm_step": [_P] * 20 + [_I] * 7 + [_F, _F, _I, _P],
+    "cvt_lm_step_sync_probe": [_I, ctypes.POINTER(_I), _P],
+    "cvt_lm_step_int8_to_float": [_P, _P, _I, _P],
     "cvt_dit_block": [_P] * 16 + [_I] * 6 + [_F, _I, _P],
     "cvt_snake_aa": [_P] * 5 + [_I] * 4 + [_P],
 }

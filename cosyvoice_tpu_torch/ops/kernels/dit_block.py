@@ -3,7 +3,8 @@ projection, H-head self-attention over per-row prefix key lengths, out
 projection + bias + residual, LayerNorm, tanh-GELU FFN + residual.
 
 `dit_block_fused` launches the CUDA kernels in `csrc/dit_block.cu` for CUDA
-tensors (three launches on one stream, counted as one) and runs
+tensors (three launches on one stream, counted as one; in bf16 the attention
+launch is K2's kernel, `csrc/dit_attention.cu`) and runs
 `dit_block_plain`, the same function in plain PyTorch, for CPU tensors.  Port
 of cosyvoice_tpu/ops/pallas/dit_block.py: the weights keep its layout (wqkv
 [dim, 3*inner] with lanes q | k | v and heads minor, wo [inner, dim], wi
@@ -25,12 +26,43 @@ LOG2E = 1.4426950408889634
 
 
 def supports(T: int, heads: int, head_dim: int, dim: int, ff: int) -> bool:
-    """The shapes the CUDA kernel takes: T a multiple of 128 (the TPU kernel's
-    alignment, which the estimator's padding gives), head_dim 64, dim 128 or
-    256, inner and ff multiples of 128.  The estimator routes a block here
-    only where this holds, and the wrapper refuses other shapes on the GPU."""
-    return (T % 128 == 0 and head_dim == 64 and dim in (128, 256)
-            and heads * head_dim % 128 == 0 and ff % 128 == 0)
+    """The blocks the estimator routes to K4: T a multiple of 128 (the TPU
+    kernel's alignment, which the estimator's padding gives) and widths the
+    CUDA kernel takes (`widths_supported`).  The kernel itself takes any T."""
+    return T % 128 == 0 and widths_supported(heads, head_dim, dim, ff)
+
+
+def widths_supported(heads: int, head_dim: int, dim: int, ff: int) -> bool:
+    """The widths the CUDA kernel takes: head_dim 64, dim 128 or 256, inner
+    and ff multiples of 128; the wrapper refuses others on the GPU."""
+    return (head_dim == 64 and dim in (128, 256) and heads * head_dim % 128 == 0
+            and ff % 128 == 0)
+
+
+ROWS_A, ROWS_C = 64, 96    # rows a block of the bf16 route's phases A and C
+QKV_COLS = 384             # qkv columns a phase A block
+SLAB, STAGES, CHUNK = 64, 2, 128   # weight slab rows, ring slots, mid/qkv chunk
+
+
+def plan(B: int, T: int, dim: int, heads: int, head_dim: int, ff: int) -> dict:
+    """The bf16 route's three launches at x [B, T, dim] (csrc/dit_block.cu
+    launch_tc): each one's grid, threads a block and shared memory in bytes
+    (dynamic for A and C, which the kernel sizes the same way; static for
+    K2's attention kernel)."""
+    inner = heads * head_dim
+    bf = 2
+    return {
+        "ln_qkv": dict(grid=(-(-T // ROWS_A), 3 * inner // QKV_COLS, B), threads=256,
+                       rows=ROWS_A, cols=QKV_COLS,
+                       smem=(ROWS_A * (dim + 8) + STAGES * SLAB * (CHUNK + 8)) * bf),
+        "attention": dict(grid=(-(-T // 64), heads, B), threads=128, rows=64,
+                          smem=(64 * 72 + 2 * 2 * 64 * 72) * bf),
+        # x1, h2 and a mid chunk of the tile's rows, and a ring of slots that
+        # each hold an o slab [rows, SLAB] beside a weight slab [SLAB, dim]
+        "out_ffn": dict(grid=(-(-T // ROWS_C), B), threads=384, rows=ROWS_C,
+                        smem=(ROWS_C * (2 * (dim + 8) + CHUNK + 8)
+                              + STAGES * (ROWS_C * (SLAB + 8) + SLAB * (dim + 8))) * bf),
+    }
 
 
 def random_block_weights(dim: int, heads: int, head_dim: int, ff: int, dtype,
@@ -119,9 +151,10 @@ def dit_block_fused(x: torch.Tensor, lengths: torch.Tensor, g1, b1, wqkv, wo, bo
                         f"{[str(w.dtype) for w in (wqkv, wo, wi, wo2)]} for {x.dtype}")
     if any(t.data_ptr() % 16 for t in (x, wqkv, wo, wi, wo2)):
         raise ValueError("dit_block_fused: x and the weights must start 16-byte aligned")
-    if not B * T or not supports(T, heads, head_dim, dim, ff):
+    if not B * T or not widths_supported(heads, head_dim, dim, ff):
         raise ValueError(f"dit_block_fused: the kernel does not take x{tuple(x.shape)} "
-                         f"with {heads}x{head_dim} heads and ff {ff} (see supports())")
+                         f"with {heads}x{head_dim} heads and ff {ff} "
+                         "(see widths_supported())")
     qkv = torch.empty((B, T, 3 * inner), dtype=x.dtype, device=x.device)
     o = torch.empty((B, T, inner), dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)

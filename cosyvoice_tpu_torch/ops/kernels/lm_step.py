@@ -1,16 +1,19 @@
 """Whole-step B=1 Qwen2 decode: every layer of one decode step in one kernel.
 
 `lm_step` launches the cooperative CUDA kernel in `csrc/lm_step.cu` for CUDA
-tensors and runs `lm_step_plain`, the same function in plain PyTorch, for CPU
-tensors.  The weights are the int8 projections of the Qwen2 body stacked per
-layer in the JAX package's [in, out] layout (`pack_step_weights`); the cache
-is stacked [L, C, KH*D] (`cache_to_step_layout`).  Both versions write the
-step's new k/v into the cache at row `pos` in place (the JAX package returns
-them for the caller to scatter).  Port of cosyvoice_tpu/ops/pallas/lm_step.py.
+tensors (one block an SM; `plan` cuts every phase into one item a block, and
+the wrapper keeps the split-K partials per device and stream) and runs
+`lm_step_plain`, the same function in plain PyTorch, for CPU tensors.  The weights are the int8 projections of the Qwen2 body stacked
+per layer in the JAX package's [in, out] layout (`pack_step_weights`); the
+cache is stacked [L, C, KH*D] (`cache_to_step_layout`).  Both versions write
+the step's new k/v into the cache at row `pos` in place (the JAX package
+returns them for the caller to scatter).  Port of
+cosyvoice_tpu/ops/pallas/lm_step.py.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -21,6 +24,81 @@ from cosyvoice_tpu_torch.ops.kernels import build
 _LOG2E = 1.4426950408889634
 # kernel launches so far (plain integer; callers may reset it to 0)
 launches = 0
+# split-K partials and the residual stream, per (device, raw stream) (build.scratch_for)
+_scratch: dict = {}
+
+THREADS = 512                  # a block of the kernel; one block an SM
+HEAD_DIM = 64                  # the one head width the kernel instantiates
+_TILES = (16, 32, 64, 128, 256)
+_ATTN_STRIDE = 2 + HEAD_DIM    # a chunk's attention partial: max, sum, acc
+
+
+def _gemv_plan(K: int, N: int, nm: int, sms: int) -> dict:
+    """Column tile x input-row split of a GEMV phase of nm int8 [K, N]
+    matrices with at most `sms` items, minimising the largest item's bytes
+    (then the splits, whose partials the next phase reads)."""
+    best = None
+    for tc in _TILES:
+        if N % tc or tc * nm > 512 or N // tc > sms:
+            continue
+        rows = -(-K // min(sms // (N // tc), K))
+        splits = -(-K // rows)
+        key = (nm * rows * tc, splits)
+        if best is None or key < best[0]:
+            best = (key, dict(cols=tc, splits=splits, rows=rows, items=N // tc * splits,
+                              item_bytes=nm * rows * tc))
+    if best is None:
+        raise ValueError(f"lm_step: no tiling of a [{K}, {N}] GEMV fits {sms} blocks")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def plan(H: int, I: int, nq: int, nkv: int, C: int, sms: int, itemsize: int = 2) -> dict:
+    """How the kernel cuts a step for these widths on `sms` SMs (one block
+    each): per GEMV phase (qkv, o, gate_up, down) its column tile, input-row
+    splits and rows a split; the attention's keys a chunk (32, doubled until
+    nkv x chunks of the whole cache fit the grid); each phase's shared-memory
+    region (its share: weights, or a chunk's K and V rows of `itemsize`-byte
+    values padded by 16 bytes, then the fp32 vectors the phase reads) and
+    the kernel's dynamic shared memory, which the kernel computes the same
+    way (csrc/lm_step.cu check_plan)."""
+    QKVW = (nq + 2 * nkv) * HEAD_DIM
+    p = {"qkv": _gemv_plan(H, QKVW, 1, sms), "o": _gemv_plan(nq * HEAD_DIM, H, 1, sms),
+         "gate_up": _gemv_plan(H, I, 2, sms), "down": _gemv_plan(I, H, 1, sms)}
+    chunk = 32
+    while nkv * -(-C // chunk) > sms:
+        chunk *= 2
+    if p["o"]["rows"] > THREADS:
+        raise ValueError(f"lm_step: {p['o']['rows']} o-proj rows a block exceed {THREADS}")
+    chunks = -(-C // chunk)
+    grp = nq // nkv
+    attn_bytes = 2 * chunk * (HEAD_DIM * itemsize + 16)
+    # each phase's region holds its share and, behind it, the fp32 vectors
+    # the phase reads: norm weights and the residual's scales (qkv,
+    # gate_up), the rows' gate and up scales from a 16-byte boundary (down),
+    # the group's qkv scales and biases (attention)
+    side = {"qkv": 2 * H, "o": 0, "gate_up": 2 * H,
+            "down": 2 * -(-(p["down"]["rows"] + 4) // 4) * 4}
+    region = {k: -(-v["item_bytes"] // 16) * 16 + 4 * side[k] for k, v in p.items()}
+    region["attention"] = attn_bytes + 4 * 2 * (grp + 2) * HEAD_DIM
+    region = {k: -(-region[k] // 16) * 16 for k in ("qkv", "attention", "o", "gate_up", "down")}
+    red = max(v["cols"] * (2 if k == "gate_up" else 1) for k, v in p.items())
+    vec = max(H, p["o"]["rows"] + (p["o"]["rows"] // HEAD_DIM + 2) * (chunks + 1),
+              p["down"]["rows"], 2 * grp * HEAD_DIM + 3 * HEAD_DIM + grp * chunk)
+    smem = sum(region.values()) + 4 * (THREADS // 32 * red + vec)
+    floats = (p["qkv"]["splits"] * QKVW + nq * chunks * _ATTN_STRIDE + p["o"]["splits"] * H
+              + p["gate_up"]["splits"] * 2 * I + p["down"]["splits"] * H + 2 * H)
+    return dict(p, attention=dict(chunk=chunk, chunks=chunks, items=nkv * chunks,
+                                  item_bytes=attn_bytes),
+                blocks=sms, threads=THREADS, region_bytes=region, smem_bytes=smem,
+                scratch_floats=floats)
+
+
+def _plan_args(p: dict):
+    gemv = [p[k] for k in ("qkv", "o", "gate_up", "down")]
+    vals = ([g["cols"] for g in gemv] + [g["splits"] for g in gemv]
+            + [g["rows"] for g in gemv] + [p["attention"]["chunk"]])
+    return (ctypes.c_int * len(vals))(*vals)
 
 
 class StepWeights(NamedTuple):
@@ -165,6 +243,8 @@ def _raise_for(rc: int) -> None:
     if rc == -2:
         raise RuntimeError("lm_step: the grid exceeds the blocks the device can hold at "
                            "once (cudaErrorCooperativeLaunchTooLarge)")
+    if rc == -3:
+        raise RuntimeError("lm_step: the kernel refused the launch plan for these widths")
     build.check_launch(rc, "lm_step")
 
 
@@ -203,30 +283,48 @@ def lm_step(w: StepWeights, x: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                                                w.su, w.sd, w.n1, w.n2)):
         raise TypeError("lm_step: int8 kernels with float32 scales, biases, norms "
                         "and RoPE tables expected")
-    if hd != 64 or H % 64 or I % 64:
+    if hd != HEAD_DIM or H % 64 or I % 64:
         raise ValueError(f"lm_step: kernel takes head_dim 64 and widths that are "
                          f"multiples of 64, got hd={hd} H={H} I={I}")
+    if any(t.data_ptr() % 16 for t in (x, kc, vc, w.wqkv, w.wo, w.wg, w.wu, w.wd)):
+        raise ValueError("lm_step: x, the caches and the int8 kernels must start "
+                         "16-byte aligned")
+    p = plan(H, I, nq, nkv, C, torch.cuda.get_device_properties(x.device).multi_processor_count,
+             x.element_size())
+    stream = build.stream_of(x)
+    _, work = build.scratch_for(_scratch, x.device, stream, 0, p["scratch_floats"])
     y = x.clone()
-    work = torch.empty(2 * nq * hd + I, dtype=torch.float32, device=x.device)
     rc = build.library().cvt_lm_step(
         y.data_ptr(), kc.data_ptr(), vc.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        *(t.data_ptr() for t in w), work.data_ptr(), L, H, I, nq, nkv, C, int(pos),
-        float(eps), float(1.0 / math.sqrt(hd) * _LOG2E), build.dtype_code(x),
-        build.stream_of(x))
+        *(t.data_ptr() for t in w), work.data_ptr(), _plan_args(p),
+        L, H, I, nq, nkv, C, int(pos), float(eps), float(1.0 / math.sqrt(hd) * _LOG2E),
+        build.dtype_code(x), stream)
     _raise_for(rc)
     launches += 1
     return y
 
 
-def sync_probe(n_syncs: int, H: int, I: int, nq: int, C: int, dtype,
-               device) -> int:
+def sync_probe(n_syncs: int, device) -> int:
     """Launch `n_syncs` grid barriers, nothing else, on the grid `lm_step`
-    uses for these widths (to time the barriers' share of a step); returns
-    the grid's block count.  Not counted in `launches`."""
+    launches (one block of THREADS threads an SM), to time the barriers'
+    share of a step; returns the grid's block count.  Not counted in
+    `launches`."""
     grid = ctypes.c_int(0)
-    probe = torch.empty(0, dtype=dtype, device=device)
-    rc = build.library().cvt_lm_step_sync_probe(
-        n_syncs, H, I, nq, C, build.dtype_code(probe), ctypes.byref(grid),
-        build.stream_of(probe))
+    probe = torch.empty(0, device=device)
+    rc = build.library().cvt_lm_step_sync_probe(n_syncs, ctypes.byref(grid),
+                                                build.stream_of(probe))
     _raise_for(rc)
     return grid.value
+
+
+def int8_to_float(t: torch.Tensor) -> torch.Tensor:
+    """float32 copy of a CUDA int8 tensor through the kernel's own int8 ->
+    fp32 conversion (byte permutes into a float's mantissa, no I2F), to hold
+    that conversion to exactness; numel a multiple of 4."""
+    build.require_cuda("lm_step int8_to_float", t)
+    if t.dtype != torch.int8 or t.numel() % 4:
+        raise ValueError("int8_to_float: an int8 tensor of 4k elements expected")
+    out = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    build.check_launch(build.library().cvt_lm_step_int8_to_float(
+        t.data_ptr(), out.data_ptr(), t.numel(), build.stream_of(t)), "lm_step int8_to_float")
+    return out

@@ -296,13 +296,17 @@ def test_lm_step_matches_plain(cuda, dtype, rel):
 @pytest.mark.gpu
 # the bars of test_lm_step_matches_plain
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("C,pos", [(384, 0), (384, 1), (384, 383), (4096, 4000)],
-                         ids=["first_row", "second_row", "last_row", "long_cache"])
+@pytest.mark.parametrize("C,pos", [(384, 0), (384, 1), (384, 383), (4096, 4000), (384, 17),
+                                   (384, 32), (4096, 64)],
+                         ids=["first_row", "second_row", "last_row", "long_cache",
+                              "in_first_chunk", "chunk_boundary", "long_chunk_boundary"])
 def test_lm_step_cache_frontiers(cuda, dtype, rel, C, pos):
     """K6 (4 layers at Qwen2-0.5B widths) at the cache's frontiers: the new
-    token alone (pos 0), one cached row, a full 384-row cache, and a 4096-row
-    cache at pos 4000; y and the new k/v within the bar, every other cache
-    row untouched."""
+    token alone (pos 0), one cached row, a full 384-row cache, a 4096-row
+    cache at pos 4000, a pos inside the first 32-key chunk, and the new token
+    alone in a chunk of its own (pos 32; pos 64 with the 4096-row cache's
+    64-key chunks); y and the new k/v within the bar, every other cache row
+    untouched."""
     w, x, kc, vc, cos, sin = _step_case(cuda, dtype, 13, 4, C, pos)
     kc2, vc2 = kc.clone(), vc.clone()
     y = K6.lm_step(w, x, kc, vc, pos, cos, sin, nq=14, nkv=2, hd=64)
@@ -316,6 +320,29 @@ def test_lm_step_cache_frontiers(cuda, dtype, rel, C, pos):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_step_is_deterministic(cuda, dtype):
+    """K6 adds its split-K partials and attention chunks in a fixed order, so
+    two launches on the same inputs give bit-identical y and cache rows."""
+    w, x, kc, vc, cos, sin = _step_case(cuda, dtype, 21, 4, 384, 300)
+    runs = []
+    for _ in range(2):
+        k2, v2 = kc.clone(), vc.clone()
+        runs.append((K6.lm_step(w, x, k2, v2, 300, cos, sin, nq=14, nkv=2, hd=64), k2, v2))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+def test_lm_step_int8_conversion_is_exact(cuda):
+    """K6's int8 -> fp32 conversion (byte permutes into a float's mantissa,
+    no I2F) on all 256 byte values, at each of the four bytes of a word."""
+    v = torch.arange(-128, 128, dtype=torch.int8, device=cuda)
+    for shift in range(4):
+        t = torch.roll(v, shift)
+        assert torch.equal(K6.int8_to_float(t), t.float())
+
+
+@pytest.mark.gpu
 # fp32: the two differ only in the order of fp32 sums.  bf16: both round at
 # the TPU kernel's points, but a sum taken in another order (or p rounded
 # against the online softmax's running max) can land on the other side of a
@@ -324,18 +351,26 @@ def test_lm_step_cache_frontiers(cuda, dtype, rel, C, pos):
 # at max |plain|, for y and, on its own, for o (y is dominated by the
 # residual, so an attention fault could hide in it).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dim,heads", [(128, 2), (256, 8)])
-def test_dit_block_matches_plain(cuda, dtype, dim, heads):
-    """K4 at a small ragged shape: lengths with a full row, a short row and a
-    length-0 row; every row of y and of the attention output compared, all
-    values finite."""
+@pytest.mark.parametrize("dim,heads,T,lens", [
+    (128, 2, 256, [200, 256, 100, 0]), (256, 8, 256, [200, 256, 100, 0]),
+    (256, 8, 600, [600, 0, 1, 333]),
+    (256, 8, 640, [640, 0, 1] + [640 - 40 * i for i in range(1, 14)])],
+    ids=["dim128", "dim256", "ragged_T600", "serving_16x640"])
+def test_dit_block_matches_plain(cuda, dtype, dim, heads, T, lens):
+    """K4 at ragged shapes: lengths with a full row, short rows, a length-1
+    row and a length-0 row (whose attention output must be all zeros), T not
+    a multiple of 64, and the batched phase's [16, 640, 256] serving shape;
+    every row of y and of the attention output compared, all values
+    finite."""
     g = torch.Generator(device=cuda).manual_seed(5)
-    x = torch.randn(4, 256, dim, generator=g, device=cuda).to(dtype)
+    x = torch.randn(len(lens), T, dim, generator=g, device=cuda).to(dtype)
     w = K4.random_block_weights(dim, heads, 64, 4 * dim, dtype, g, cuda)
-    lens = torch.tensor([200, 256, 100, 0], dtype=torch.int32, device=cuda)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
     kw = dict(sm_scale=0.125, heads=heads, head_dim=64, return_attention=True)
     got = K4.dit_block_fused(x, lens, *w, **kw)
     want = K4.dit_block_plain(x, lens, *w, **kw)
+    for b in torch.nonzero(lens == 0).flatten():
+        assert not got[1][b].any()
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
         if dtype == torch.float32:
