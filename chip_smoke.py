@@ -48,11 +48,14 @@ Phases, each printing JSON lines:
      recipe (examples/tts_vc/cosyvoice2/conf/cosyvoice2_bigvgan_tts.yaml:
      two 512-d conformer encoders, rates [8, 5, 3, 2], 1536 initial
      channels) on seeded random weights, every anti-aliased activation
-     through K7 (snake_aa): 4 rows of 250/200/150/100 tokens (10/8/6/4 s of
-     24 kHz audio), one warm-up and one timed forward: wall time, seconds of
-     audio, RTF, peak memory, K7 launches (must be 73: 4 stages x 3
-     resblocks x 6, plus activation_post), a finite wav in [-1, 1], K7's
-     share of the device time, and the wav difference and the wall time
+     through K7 (snake_aa) on the convolutions' channels-first memory: 4
+     rows of 250/200/150/100 tokens (10/8/6/4 s of 24 kHz audio), one
+     warm-up and one timed forward: wall time, seconds of audio, RTF, peak
+     memory, K7 launches (must be 73: 4 stages x 3 resblocks x 6, plus
+     activation_post; 18/18/18/19 by stage shape) and the layout of each
+     input, a finite wav in [-1, 1], K7's device time and share (every
+     kernel named snake_aa*; must be > 0) beside the copy kernels' device
+     time and launches a forward, and the wav difference and the wall time
      with the composite activations instead (printed only: the first and
      last ~6 samples of each activation differ by design);
  11. stream  - one full-width zero-shot request streamed through
@@ -69,8 +72,10 @@ Phases, each printing JSON lines:
      K1 also at the engine's shape (B = 8, cache 384, per-row frontiers)
      beside SDPA with a boolean key mask;
      K4 at the batched phase's flow shape, beside the port's unfused block;
-     K7 at [4, 120000, 192] fp32 (the recipe's third stage), beside the
-     composite anti_alias_activation (no one PyTorch call computes K7);
+     K7 fp32 at the recipe's four stage shapes with x channels-first (the
+     path's layout) and channels-last (nested), beside the composite
+     anti_alias_activation (no one PyTorch call computes K7) and, at the
+     third stage, the layout copy AAAct no longer makes;
      K5 one row a projection shape and a decode step's 168 launches, beside
      torch._weight_int4pack_mm (PyTorch's group-wise int4 matmul, zero
      points 0) on the same inputs.  Every row and yardstick also gets its
@@ -82,7 +87,9 @@ their plain versions at the shapes phases 6 and 7 give them (K5 at 1, 3, 8
 and 200 rows), K6's launch plan (at most one item a block a phase, a grid of
 one block an SM, two launches bit-identical), K4 (dit_block) at the
 estimator's full width with ragged lengths and a ragged T, and K7 (snake_aa)
-at the recipe's first and last stage shapes and its edge cases.  The timing
+at the recipe's first and last stage shapes and its edge cases in both
+layouts, and its copy of sinf's fast path against sinf over every float
+below 105615.  The timing
 phase's K6 row adds its grid, plan, barrier share (sync_dev_ms: its 5 x L
 grid barriers alone) and hbm_share (bytes / device time / 3.35 TB/s); the K4
 row its launches' device times by kernel (phase_ms: LN1 + qkv, K2's
@@ -109,10 +116,14 @@ FP32_FLOPS = 67e12             # fp32 outside the tensor cores (K7's work)
 # K7's fp32 operations per output: two upsampled samples of 6 taps and a
 # snake (~20 with its sin) each, then the 12-tap decimation
 K7_FLOPS_PER_OUTPUT = 2 * (6 * 2 + 20) + 12 * 2
-# K7 cases of phase 3: the recipe's first and last stage shapes (4 rows of up
-# to 250 tokens after rates 8 and 8*5*3*2, with 768 and 96 channels), then
-# T = 1, T = 5 with C = 3 (both edges clamp), beta absent, linear-scale
-# alpha/beta, and C not a multiple of the kernel's 32-channel tile
+# the recipe's four stage shapes, where the bigvgan phase runs K7: 4 rows of
+# up to 250 tokens after the two 2x encoders and rates 8, 8*5, 8*5*3 and
+# 8*5*3*2, with 1536 / 2^(i+1) channels
+K7_STAGES = ((4, 8000, 768), (4, 40000, 384), (4, 120000, 192), (4, 240000, 96))
+# K7 cases of phase 3 (each in both layouts): the recipe's first and last
+# stage shapes, then T = 1, T = 5 with C = 3 (both edges clamp), beta absent,
+# linear-scale alpha/beta, and C not a multiple of the channels-last route's
+# 32-channel warp (T = 5, 130: the channels-first route's scalar loads)
 K7_CASES = (((4, 8000, 768), True, True), ((4, 240000, 96), True, True),
             ((1, 1, 40), True, True), ((2, 5, 3), False, True), ((3, 700, 3), True, False),
             ((1, 130, 100), False, False))
@@ -499,16 +510,35 @@ def snake_inputs(shape, beta: bool, logscale: bool, g):
     return x, a, (b if beta else None), logscale
 
 
+def channels_first(x: torch.Tensor) -> torch.Tensor:
+    """x [B, T, C] with the same values in channels-first memory, as
+    BigVGAN's convolutions leave it (x.transpose(1, 2) contiguous)."""
+    return x.transpose(1, 2).contiguous().transpose(1, 2)
+
+
 def snake_checks(K7) -> float:
-    """K7 against its plain version, fp32, every sample (edges included):
-    the full-width stage shapes and the edge cases of K7_CASES."""
+    """K7 against its plain version, fp32, every sample (edges included),
+    on the full-width stage shapes and the edge cases of K7_CASES, each with
+    x channels-last and channels-first (y must come back with x's strides);
+    then the kernel's copy of sinf's fast path against sinf itself, bit for
+    bit, over every float below 105615."""
     g = torch.Generator(device="cuda").manual_seed(10)
     err = 0.0
     for shape, beta, logscale in K7_CASES:
-        args = snake_inputs(shape, beta, logscale, g)
-        name = ("snake_aa_" + "x".join(map(str, shape)) + ("" if beta else "_nobeta")
-                + ("" if logscale else "_linear"))
-        err = max(err, check(name, torch.float32, K7.snake_aa(*args), K7.snake_aa_plain(*args)))
+        x, a, b, ls = snake_inputs(shape, beta, logscale, g)
+        want = K7.snake_aa_plain(x, a, b, ls)
+        for layout, xx in ((K7.CHANNELS_LAST, x), (K7.CHANNELS_FIRST, channels_first(x))):
+            name = ("snake_aa_" + "x".join(map(str, shape)) + ("" if beta else "_nobeta")
+                    + ("" if logscale else "_linear") + "_" + layout)
+            y = K7.snake_aa(xx, a, b, ls)
+            if y.stride() != xx.stride():
+                raise AssertionError(f"{name}: y strides {y.stride()}, x {xx.stride()}")
+            err = max(err, check(name, torch.float32, y, want))
+    mismatches = K7.sin2_mismatches("cuda")
+    emit({"phase": "kernels", "check": "snake_aa_sin2_equals_sinf", "mismatches": mismatches,
+          "ok": mismatches == 0})
+    if mismatches:
+        raise AssertionError(f"snake_aa: sin2 differs from sinf on {mismatches} floats")
     return err
 
 
@@ -1015,9 +1045,11 @@ def engine_phase(res_main: dict, K1, smi: str) -> dict:
 def bigvgan_phase(K7, smi: str) -> dict:
     """BigVGAN at the recipe's full width on seeded random weights, every
     AAAct through K7: a warm-up forward and a timed one over 4 rows of
-    250/200/150/100 tokens; then K7's share of the device time
-    (torch.profiler), and the same input through the composite activations
-    (warm-up, timed): the wall time and the wav difference."""
+    250/200/150/100 tokens, the timed one counting K7's launches by stage
+    shape and the memory layout each AAAct hands K7 (forward hooks); then
+    the device time of K7 and of the copy kernels (torch.profiler), and the
+    same input through the composite activations (warm-up, timed): the wall
+    time and the wav difference."""
     from cosyvoice_tpu_torch.models.bigvgan import RECIPE, AAAct, BigVGAN
 
     cfg = dataclasses.replace(RECIPE, use_pallas_act=True)
@@ -1043,13 +1075,32 @@ def bigvgan_phase(K7, smi: str) -> dict:
         torch.cuda.synchronize()
         return wav, mel, time.perf_counter() - t0
 
+    # K7 launches by stage shape (T, C) and the layouts AAAct hands K7
+    by_stage, layouts, before = {}, [], []
+
+    def pre(module, args):
+        layouts.append(K7.memory_layout(args[0]))
+        before.append(K7.launches)
+
+    def post(module, args, out):
+        key = "x".join(map(str, args[0].shape[1:]))
+        by_stage[key] = by_stage.get(key, 0) + K7.launches - before.pop()
+
     forward()                                               # warm-up
+    hooks = [h for m in acts for h in (m.register_forward_pre_hook(pre),
+                                       m.register_forward_hook(post))]
     K7.launches = 0
     torch.cuda.reset_peak_memory_stats()
     wav, mel, wall = forward()
     k7 = K7.launches
+    for h in hooks:
+        h.remove()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    device_ms = device_ms_by_kernel(lambda: model(token, tlen, spk), n=1)
+    kernels = kernel_times(lambda: model(token, tlen, spk), n=1)
+    device_ms = sum(ms for ms, _ in kernels.values())
+    k7_ms = sum(ms for name, (ms, _) in kernels.items()
+                if kernel_key(name).startswith("snake_aa"))
+    copies = {name: v for name, v in kernels.items() if "copy" in name.lower()}
     for m in acts:
         m.use_kernel = False
     forward()
@@ -1063,15 +1114,21 @@ def bigvgan_phase(K7, smi: str) -> dict:
            "rows_tokens": lens, "wav_shape": list(wav.shape), "mel_shape": list(mel.shape),
            "wall_s": wall, "audio_s": audio_s, "rtf": wall / audio_s, "peak_mem_gb": peak,
            "k7_launches": k7, "k7_launches_expected": expected,
-           "k7_device_ms": device_ms.get("snake_aa_kernel", 0.0),
-           "device_ms": sum(device_ms.values()),
-           "k7_device_share": device_ms.get("snake_aa_kernel", 0.0) / sum(device_ms.values()),
+           "k7_launches_by_stage": by_stage,
+           "k7_input_layouts": {lay: layouts.count(lay) for lay in sorted(set(layouts))},
+           "k7_device_ms": k7_ms, "device_ms": device_ms, "k7_device_share": k7_ms / device_ms,
+           # every copy kernel of the forward (the convolutions' F.pad among
+           # them): device ms and launches a forward, by kernel name
+           "copy_device_ms": sum(ms for ms, _ in copies.values()),
+           "copy_launches": sum(n for _, n in copies.values()),
+           "copy_kernels": {name[:160]: v for name, v in copies.items()},
            "wav_finite": finite, "wav_max_abs": float(wav.abs().max()),
            "composite_wall_s": wall_off,
            "wav_max_abs_diff_kernel_vs_composite": float((wav - wav_off).abs().max())}
     emit(res)
     if (k7 != expected or len(acts) != expected or not finite or res["wav_max_abs"] > 1.0
-            or tuple(wav.shape) != (4, T * upsample)):
+            or tuple(wav.shape) != (4, T * upsample) or (k7 and not k7_ms)
+            or sum(by_stage.values()) != k7):
         raise AssertionError(f"bigvgan phase failed: {res}")
     return res
 
@@ -1178,13 +1235,9 @@ def profile_request(run) -> None:
           "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:25]]})
 
 
-def device_ms_by_kernel(fn, n: int = 10) -> dict:
-    """Device time per call of each CUDA kernel that fn launches, over n calls
-    under torch.profiler.  Kernels are keyed by their first `*_kernel` word,
-    and the template instances that share a key add up, so the values sum to
-    the device time of every CUDA event."""
-    import re
-
+def kernel_times(fn, n: int = 10) -> dict:
+    """{CUDA event name: (device ms, launches)} per call of fn, over n calls
+    under torch.profiler (after one call outside it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1194,11 +1247,29 @@ def device_ms_by_kernel(fn, n: int = 10) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    ms = {}
+    out = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            k = (re.search(r"\w+_kernel", e.key) or re.search(r"\w+", e.key)).group(0)
-            ms[k] = ms.get(k, 0.0) + e.self_device_time_total / 1e3 / n
+            ms, count = out.get(e.key, (0.0, 0.0))
+            out[e.key] = (ms + e.self_device_time_total / 1e3 / n, count + e.count / n)
+    return out
+
+
+def kernel_key(name: str) -> str:
+    """A kernel's first `*_kernel` word (else its first word): template
+    instances and both of a kernel's routes share it."""
+    import re
+
+    return (re.search(r"\w+_kernel", name) or re.search(r"\w+", name)).group(0)
+
+
+def device_ms_by_kernel(fn, n: int = 10) -> dict:
+    """Device time per call of each CUDA kernel that fn launches, over n calls
+    under torch.profiler, keyed by kernel_key; the instances that share a key
+    add up, so the values sum to the device time of every CUDA event."""
+    ms = {}
+    for name, (t, _) in kernel_times(fn, n).items():
+        ms[kernel_key(name)] = ms.get(kernel_key(name), 0.0) + t
     return ms
 
 
@@ -1263,12 +1334,13 @@ def int4pack_call(x, w_packed, scale, group: int = 128):
 
 def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
     """At the last request's shapes (bf16; K4 at the batched phase's flow
-    shape; K7 fp32 at the bigvgan phase's third stage): each kernel against
-    its plain version on the same inputs, then kernel, plain and library
-    times."""
+    shape; K7 fp32 at the bigvgan phase's four stage shapes, both layouts):
+    each kernel against its plain version on the same inputs, then kernel,
+    plain and library times."""
     from cosyvoice_tpu_torch.ops.resample import anti_alias_activation
 
     dev, bf = torch.device("cuda"), torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(2)
     r = lambda *s: torch.randn(*s, generator=g, device=dev).to(bf)
     n_text, n_prompt, n_tok = last_decode
@@ -1495,29 +1567,49 @@ def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
         flops=sum(2 * T4 * dim * 3 * inner + 4 * 8 * T4 * Lb * 64 + 2 * T4 * inner * dim
                   + 4 * T4 * dim * ff for Lb in lens4),
         max_abs_err=k4_err))
-    # K7: one AAAct of the recipe's third stage (4 rows, 120000 samples, 192
-    # channels), fp32; no single PyTorch call computes it, so the library
-    # column times the composite (upsample2 -> snake_beta -> downsample2)
-    x7, a7, b7, _ = snake_inputs((4, 120000, 192), True, True, g)
-    k7_err = check("snake_aa", torch.float32, K7.snake_aa(x7, a7, b7),
-                   K7.snake_aa_plain(x7, a7, b7), phase="timing")
-    x7cf = x7.transpose(1, 2).contiguous().transpose(1, 2)    # channels-first memory
-    k7 = lambda: K7.snake_aa(x7, a7, b7)
-    composite = lambda: anti_alias_activation(x7, a7, b7)
-    copy = lambda: x7cf.contiguous()
-    rows.append(dict(
-        name="snake_aa", source="cosyvoice_tpu_torch/csrc/snake_aa.cu",
-        replaces="cosyvoice_tpu/ops/pallas/snake_aa.py:99", shape=[4, 120000, 192],
-        dtype="float32", ms=time_ms(k7), **dev_time(k7),
-        plain_ms=time_ms(lambda: K7.snake_aa_plain(x7, a7, b7), iters=20),
-        library_ms=time_ms(composite, iters=20), **dev_time(composite, "library_dev"),
-        library_call="composite anti_alias_activation (upsample2 -> snake_beta -> downsample2)",
-        # AAAct's x.contiguous() ahead of each launch: the convs leave x
-        # channels-first in memory, so every forward launch pays this copy too
-        layout_copy_ms=time_ms(copy, iters=20), **dev_time(copy, "layout_copy_dev"),
-        # x read and y written once, alpha and beta once, in fp32
-        bytes=2 * x7.numel() * 4 + 2 * 192 * 4, flops=K7_FLOPS_PER_OUTPUT * x7.numel(),
-        peak_flops=FP32_FLOPS, max_abs_err=k7_err))
+    # K7: one AAAct at each stage shape of the bigvgan phase, fp32, with x
+    # channels-first (the convolutions' memory: the path's layout) and, nested,
+    # channels-last (the TPU kernel's layout); no single PyTorch call computes
+    # it, so the library column times the composite (upsample2 -> snake_beta
+    # -> downsample2) on the same channels-first x
+    for shape in K7_STAGES:
+        x7, a7, b7, _ = snake_inputs(shape, True, True, g)
+        x7cf = channels_first(x7)
+        want = K7.snake_aa_plain(x7, a7, b7)
+        tag = "x".join(map(str, shape))
+        err_cf, err_cl = (check(f"snake_aa_{tag}_{lay}", torch.float32,
+                                K7.snake_aa(xx, a7, b7), want, phase="timing")
+                          for lay, xx in (("channels_first", x7cf), ("channels_last", x7)))
+        del want
+        k7 = lambda: K7.snake_aa(x7cf, a7, b7)
+        k7_cl = lambda: K7.snake_aa(x7, a7, b7)
+        composite = lambda: anti_alias_activation(x7cf, a7, b7)
+        B7, T7, C7 = shape
+        row = dict(
+            name="snake_aa", source="cosyvoice_tpu_torch/csrc/snake_aa.cu",
+            replaces="cosyvoice_tpu/ops/pallas/snake_aa.py:99", shape=list(shape),
+            dtype="float32", layout="channels_first",
+            plan=K7.plan(B7, T7, C7, K7.CHANNELS_FIRST, sms),
+            ms=time_ms(k7, iters=20), **dev_time(k7),
+            plain_ms=time_ms(lambda: K7.snake_aa_plain(x7cf, a7, b7), iters=10),
+            library_ms=time_ms(composite, iters=10), **dev_time(composite, "library_dev"),
+            library_call="composite anti_alias_activation (upsample2 -> snake_beta -> "
+                         "downsample2)",
+            channels_last=dict(plan=K7.plan(B7, T7, C7, K7.CHANNELS_LAST, sms),
+                               ms=time_ms(k7_cl, iters=20), **dev_time(k7_cl),
+                               max_abs_err=err_cl),
+            # x read and y written once, alpha and beta once, in fp32
+            bytes=2 * x7.numel() * 4 + 2 * C7 * 4, flops=K7_FLOPS_PER_OUTPUT * x7.numel(),
+            peak_flops=FP32_FLOPS, max_abs_err=err_cf)
+        if shape == K7_STAGES[2]:
+            # the copy that AAAct made ahead of each launch until K7 took
+            # channels-first x: what the path no longer pays
+            copy = lambda: x7cf.contiguous()
+            row.update(layout_copy_ms=time_ms(copy, iters=20),
+                       **dev_time(copy, "layout_copy_dev"))
+        rows.append(row)
+        del x7, x7cf
+        torch.cuda.empty_cache()
     for row in rows:
         row.setdefault("peak_flops", BF16_FLOPS)
         t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1571,7 +1663,8 @@ def main() -> int:
     batched = batched_phase(res, K1, K4, smi)
     launches["dit_block"] = batched["k4_launches"]
     k1_engine = engine_phase(res, K1, smi)["full_width_int8"]["k1_launches"]
-    launches["snake_aa"] = bigvgan_phase(K7, smi)["k7_launches"]
+    vocoder = bigvgan_phase(K7, smi)
+    launches["snake_aa"] = vocoder["k7_launches"]
     stream_phase(res, K1, K2, K3, smi)
     flow = res["stack"][1]
     del res["stack"]
@@ -1581,7 +1674,12 @@ def main() -> int:
                  "dit_attention": {"bf16_ulps_at_max_plain_per_row_head": K2_BF16_ULPS},
                  "snake_aa": CHECK_TOL[torch.float32]}
     for row in rows:
-        row["launches"] = k1_engine if "launches_from" in row else launches[row["name"]]
+        if row["name"] == "snake_aa":
+            # the bigvgan forward's launches at this row's stage shape
+            row["launches"] = vocoder["k7_launches_by_stage"].get(
+                "x".join(map(str, row["shape"][1:])), 0)
+        else:
+            row["launches"] = k1_engine if "launches_from" in row else launches[row["name"]]
         row.update(edge_max_abs_err=errs[row["name"]],
                    tolerance=tolerance.get(row["name"], CHECK_TOL[torch.bfloat16]),
                    kernel_ms=row["ms"])

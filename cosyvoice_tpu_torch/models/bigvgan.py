@@ -102,8 +102,9 @@ class AAAct(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         alpha, beta = self.act.alpha, self.act.beta
         if self.use_kernel:
-            # the conv outputs are channels-first in memory: K7 takes [B, T, C] rows
-            return snake_aa(x.contiguous(), alpha, beta, self.logscale)
+            # the conv outputs are channels-first in memory; K7 reads and
+            # writes that layout as it is
+            return snake_aa(x, alpha, beta, self.logscale)
         return anti_alias_activation(x, alpha, beta, self.logscale)
 
 

@@ -39,7 +39,8 @@ _SIGNATURES = {
     "cvt_lm_step_sync_probe": [_I, ctypes.POINTER(_I), _P],
     "cvt_lm_step_int8_to_float": [_P, _P, _I, _P],
     "cvt_dit_block": [_P] * 16 + [_I] * 6 + [_F, _I, _P],
-    "cvt_snake_aa": [_P] * 5 + [_I] * 4 + [_P],
+    "cvt_snake_aa": [_P] * 5 + [_I] * 10 + [_P],
+    "cvt_snake_aa_sin2_mismatches": [_P, _P],
 }
 
 _lock = threading.Lock()

@@ -66,6 +66,21 @@ def test_snake_aa_plain_matches_pallas_kernel(shape, beta, logscale, monkeypatch
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
 
 
+def test_snake_aa_plain_channels_first_matches_pallas_kernel(monkeypatch):
+    """The plain version (K7's CPU route) on a channels-first x, the memory
+    BigVGAN's convolutions give, against the Pallas kernel on the same
+    values (the shape and inputs of the snakebeta case above); y comes back
+    channels-first."""
+    U.interpret_pallas(monkeypatch)
+    x, alpha, b = _inputs(1, (2, 700, 24), True, True)
+    want = np.asarray(snake_aa_pallas(jnp.asarray(x), jnp.asarray(alpha), jnp.asarray(b), True))
+    xcf = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1))).transpose(1, 2)
+    for fn in (K7.snake_aa_plain, K7.snake_aa):
+        got = fn(xcf, torch.from_numpy(alpha), torch.from_numpy(b), True)
+        assert got.transpose(1, 2).is_contiguous()
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+
+
 def test_resample_matches_jax():
     x, alpha, beta = _inputs(2, (2, 50, 4), True, True)
     xj, xt = jnp.asarray(x), torch.from_numpy(x)

@@ -381,24 +381,42 @@ def test_dit_block_matches_plain(cuda, dtype, dim, heads, T, lens):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["channels_last", "channels_first",
+                                    "channels_first_unaligned"])
 @pytest.mark.parametrize("shape,beta,logscale", [
     ((2, 700, 24), True, True), ((1, 5, 3), False, True), ((1, 130, 96), True, False),
     ((1, 1, 40), True, True), ((4, 8000, 768), True, True)],
     ids=["snakebeta", "short_snake", "linear_scale", "one_sample", "full_width_stage"])
-def test_snake_aa_matches_plain(cuda, shape, beta, logscale):
-    """K7 against its plain version in fp32 (the sums in another order and
-    sinf's rounding: ~1e-6 at these magnitudes), every sample, edges included."""
+def test_snake_aa_matches_plain(cuda, shape, beta, logscale, layout):
+    """K7 against its plain version in fp32 (the sums in another order:
+    ~1e-6 at these magnitudes), every sample, edges included, with x
+    channels-last, channels-first (16-byte vectors where T % 4 == 0) and
+    channels-first at an offset of one float (the scalar route); y has x's
+    strides, and each call is one launch."""
     g = torch.Generator(device=cuda).manual_seed(4)
-    C = shape[-1]
+    B, T, C = shape
     x = torch.randn(*shape, generator=g, device=cuda)
     a, b = (torch.randn(C, generator=g, device=cuda) * 0.3 + (0.0 if logscale else 1.0)
             for _ in range(2))
     b = b if beta else None
+    if layout == "channels_first":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    elif layout == "channels_first_unaligned":
+        mem = torch.empty(B * C * T + 1, device=cuda)[1:].view(B, C, T)
+        x = mem.copy_(x.transpose(1, 2)).transpose(1, 2)
     K7.launches = 0
     y = K7.snake_aa(x, a, b, logscale)
     torch.cuda.synchronize()
     assert K7.launches == 1
+    assert y.stride() == x.stride()
     torch.testing.assert_close(y, K7.snake_aa_plain(x, a, b, logscale), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+def test_snake_aa_sin2_is_sinf_bit_for_bit(cuda):
+    """The kernel's branch-free copy of sinf's fast path, squared, equals
+    sinf(z)^2 in every bit for every float |z| < 105615."""
+    assert K7.sin2_mismatches(cuda) == 0
 
 
 @pytest.mark.gpu
@@ -409,3 +427,5 @@ def test_snake_aa_refuses_what_the_kernel_does_not_take(cuda):
         K7.snake_aa(x.bfloat16(), a.bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         K7.snake_aa(x[:, ::2], a)
+    with pytest.raises(ValueError, match="contiguous"):
+        K7.snake_aa(x.transpose(1, 2).contiguous().transpose(1, 2)[:, ::2], a)
