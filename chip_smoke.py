@@ -66,7 +66,25 @@ Phases, each printing JSON lines:
      lengths (must follow the hop-50 / lookahead-3 / 8-frame-cache formula),
      the token count (must equal a non-streaming greedy decode's) and the
      K1/K2/K3 launches (each must be > 0);
- 12. timing  - at the main path's shapes: each kernel against its plain
+ 12. continuous - ContinuousSynthesizer: on the small fp32 stack, 4 greedy
+     requests through 2 slots on the card, windowed (batch_chunks on and
+     off; tokens exact and every chunk within CONT_WAV_TOL of the same
+     stack's sequential tts(stream=True) on the CPU) and incremental (the
+     stream family; within INC_WAV_TOL of its one-shot stream-masked flow
+     vocoded with the same windows); then at full width bench.py's engine
+     traffic (8 streams of 500 tokens through 8 slots, hop_scale 2.0),
+     windowed (flow_context_tokens 250) and incremental: first-chunk latency
+     a stream and the segments before it, wall, audio, RTF, chunks,
+     segments, peak memory and K1-K3 launches (windowed all > 0,
+     incremental K1 and K3 > 0), beside the stream phase's B=1 first chunk;
+ 13. serve   - the HTTP server (bin/serve.py, continuous worker) over the
+     full-width stack: GET /health, 4 concurrent streamed zero-shot
+     requests (time to first data chunk), one request each to sft,
+     cross_lingual, instruct2 and vc; every response a 200 with a
+     well-formed 24 kHz WAV and no exception on a worker's queue; then over
+     the small fp32 stack (sequential flush, deterministic cuDNN) the PCM
+     equal to pcm16 of a direct ContinuousSynthesizer run;
+ 14. timing  - at the main path's shapes: each kernel against its plain
      version on the same inputs, then the kernel, the plain version and the
      one PyTorch call that computes the same function, timed (CUDA events);
      K1 also at the engine's shape (B = 8, cache 384, per-row frontiers)
@@ -94,7 +112,8 @@ phase's K6 row adds its grid, plan, barrier share (sync_dev_ms: its 5 x L
 grid barriers alone) and hbm_share (bytes / device time / 3.35 TB/s); the K4
 row its launches' device times by kernel (phase_ms: LN1 + qkv, K2's
 attention kernel, out-proj + LN3 + FFN) and K2 alone at the block's qkv
-shape (k2_dev_ms).
+shape (k2_dev_ms); every row adds launches_continuous, its launches in the
+continuous phase's windowed and incremental runs.
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero.
 """
 from __future__ import annotations
@@ -175,6 +194,18 @@ K2_BF16_ULPS = 2
 # K1's shape in the engine and batched phases: 8 rows of a 384-row cache with
 # per-row frontiers spread over 100-380
 K1_BATCH_POS = (100, 140, 180, 220, 260, 300, 340, 380)
+# the continuous phase's bars on the small fp32 stack: each chunk of the
+# windowed server on the card against the same stack's sequential
+# tts(stream=True) on the CPU (the reference phase's bar), and the
+# incremental server against the one-shot stream-masked flow on the card
+# vocoded with the same windows (both fp32 on the card: sums in other orders)
+CONT_WAV_TOL = 1e-2
+INC_WAV_TOL = 1e-3
+# the continuous phase's full-width traffic (bench.py's engine section): 8
+# streams through 8 slots, 500 tokens a stream (min = max = 20 tokens a byte
+# of a 25-byte text), hop_scale 2.0
+CONT_STREAMS, CONT_TOKENS = 8, 500
+CONT_TEXT = "The quick brown fox jumps"
 # the batched phase: new-text lengths of 5-10 bytes give decode caps of 100-200
 BATCH_TEXTS = ("Hello", "Hi there", "Good night", "See you", "Thank you", "Go ahead",
                "Next one", "Hi you")
@@ -542,8 +573,10 @@ def snake_checks(K7) -> float:
     return err
 
 
-def small_stack(device: str):
-    """A small fp32 stack whose widths the kernels take (head_dim 64, C % 32 == 0)."""
+def small_stack(device: str, max_decode_tokens: int = 60, stream: bool = False):
+    """A small fp32 stack whose widths the kernels take (head_dim 64, C % 32 == 0);
+    `stream` gives its flow the stream family's estimator (2 chunks of left
+    context, the incremental flow's configuration)."""
     from cosyvoice_tpu_torch.models.conformer import ConformerConfig
     from cosyvoice_tpu_torch.models.flow import (CausalMaskedDiffWithXvec, EstimatorConfig,
                                                  FlowConfig)
@@ -562,11 +595,13 @@ def small_stack(device: str):
         64, 80, 24, 67, encoder=ConformerConfig(64, 4, 128, 1, 64, static_chunk_size=50),
         estimator=EstimatorConfig(in_channels=320, channels=64, n_blocks=1,
                                   num_mid_blocks=1, num_heads=2, attention_head_dim=64,
-                                  fused_attention=True, fused_norm=True, approx_gelu=True)))
+                                  fused_attention=True, fused_norm=True, approx_gelu=True,
+                                  stream=stream, left_chunks=2 if stream else -1)))
     hift = HiFTGenerator(HiFTConfig(base_channels=64, nb_harmonics=2, f0_cond_channels=32,
                                     resblock_kernel_sizes=(3,),
                                     resblock_dilation_sizes=((1, 3),)), deterministic=True)
-    return CosyVoice2Model(llm=llm, flow=flow, hift=hift, max_decode_tokens=60, device=device)
+    return CosyVoice2Model(llm=llm, flow=flow, hift=hift, max_decode_tokens=max_decode_tokens,
+                           device=device)
 
 
 def reference_check() -> dict:
@@ -1214,6 +1249,383 @@ def stream_phase(res_main: dict, K1, K2, K3, smi: str) -> dict:
     return res
 
 
+class EngineRecord:
+    """Within the block, runtime/serving.py's ContinuousSynthesizer runs a
+    ServingEngine that records the tokens each request streams (in admission
+    order, which is submission order), counts its segments and stamps the
+    host clock at the end of each (before its flush)."""
+
+    def __enter__(self):
+        from cosyvoice_tpu_torch.runtime import serving
+
+        rec, base = self, serving.ServingEngine
+        self.tokens, self.segments, self.segment_end, self._base = [], 0, [], base
+
+        class Recording(base):
+            def serve(self, submissions, gen=None, on_segment=None):
+                class Sub:
+                    @staticmethod
+                    def get(block=True):
+                        item = submissions.get(block=block)
+                        if item is None:
+                            return None
+                        req, cb = item
+                        toks: list = []
+                        rec.tokens.append(toks)
+                        return req, lambda new, fin: (toks.extend(new.tolist()), cb(new, fin))
+
+                def segment():
+                    rec.segments += 1
+                    rec.segment_end.append(time.perf_counter())
+                    on_segment()
+                return base.serve(self, Sub(), gen=gen, on_segment=segment)
+
+        serving.ServingEngine = Recording
+        return self
+
+    def __exit__(self, *exc):
+        from cosyvoice_tpu_torch.runtime import serving
+
+        serving.ServingEngine = self._base
+
+
+def biased_small_stack(device: str, stream: bool = False):
+    """small_stack with its LM head biased away from EOS and the ids it does
+    not emit, so that every request decodes to the 160-token cap: three
+    streamed chunks and a final one a request at hop 50."""
+    model = small_stack(device, max_decode_tokens=160, stream=stream)
+    with torch.no_grad():
+        model.llm.llm_decoder.bias[model.llm.cfg.speech_token_size:] = -30.0
+    return model
+
+
+def small_continuous_checks() -> dict:
+    """ContinuousSynthesizer on the card over the small fp32 stack, 4 greedy
+    requests through 2 slots: windowed (batch_chunks on and off) against the
+    same stack's sequential tts(stream=True) on the CPU (tokens exact, every
+    chunk within CONT_WAV_TOL), and incremental on the stream family against
+    its one-shot stream-masked flow (chunk_anchor) on the card, vocoded with
+    the same windows (INC_WAV_TOL)."""
+    from cosyvoice_tpu_torch.runtime.serving import ContinuousSynthesizer, TTSRequest
+
+    rng = np.random.default_rng(21)
+    reqs = [TTSRequest(text_tokens=rng.integers(0, 256, n), prompt_text_len=0,
+                       prompt_speech_tokens=rng.integers(0, 64, p),
+                       prompt_feat=(rng.standard_normal((2 * p, 80)) * 0.3).astype(np.float32),
+                       embedding=rng.standard_normal(24).astype(np.float32))
+            for n, p in ((9, 25), (12, 10), (8, 18), (10, 30))]
+    kw = dict(num_slots=2, cache_len=256, text_bucket=16, speech_bucket=32)
+    cpu = biased_small_stack("cpu")
+    want = [(cpu.llm_generate(r.text_tokens, 0, r.prompt_speech_tokens, None),
+             [o["tts_speech"] for o in cpu.tts(r.text_tokens, 0, r.prompt_speech_tokens,
+                                                r.prompt_speech_tokens, r.prompt_feat,
+                                                r.embedding, stream=True)])
+            for r in reqs]
+    gpu = biased_small_stack("cuda")
+    out = {}
+    for batch_chunks in (True, False):
+        got = [[] for _ in reqs]
+        with EngineRecord() as rec:
+            ContinuousSynthesizer(gpu, batch_chunks=batch_chunks, **kw).synthesize_batch(
+                reqs, on_chunk=lambda i, wav, fin: got[i].append(wav))
+        shapes = [[len(c) for c in g] for g in got]
+        same_shapes = shapes == [[len(c) for c in w[1]] for w in want]
+        out[f"windowed_batch_chunks_{batch_chunks}"] = dict(
+            tokens=[len(t) for t in rec.tokens],
+            tokens_equal=all(np.array_equal(t, w[0]) for t, w in zip(rec.tokens, want)),
+            chunk_samples=shapes, chunk_samples_equal=same_shapes,
+            max_abs_err=max(float(np.abs(a - b).max()) for g, w in zip(got, want)
+                            for a, b in zip(g, w[1])) if same_shapes else float("inf"),
+            tol=CONT_WAV_TOL)
+    stream = biased_small_stack("cuda", stream=True)
+    with EngineRecord() as rec:
+        got = ContinuousSynthesizer(stream, incremental=True, **kw).synthesize_batch(reqs)
+    hop, la = stream.token_hop_len, stream.pre_lookahead_len
+    errs = []
+    for r, toks, wav in zip(reqs, rec.tokens, got):
+        toks = np.asarray(toks)
+        seq = np.concatenate([r.prompt_speech_tokens, toks])
+        mel = stream.flow.inference(
+            torch.as_tensor(seq[None], device="cuda"), torch.tensor([len(seq)], device="cuda"),
+            torch.as_tensor(r.prompt_feat[None], device="cuda"),
+            torch.as_tensor(r.embedding[None], device="cuda"), streaming=True,
+            chunk_anchor=torch.tensor([len(r.prompt_speech_tokens)], device="cuda"))
+        session, parts, off = stream.new_session(), [], 0
+        while len(toks) - off >= hop + la:
+            parts += stream.mel2wav_stream_group(mel, [0], [2 * off], [session],
+                                                 win_rows=2 * hop)
+            off += hop
+        parts += stream.mel2wav_final_group(mel, [0], [2 * off], [mel.shape[1] - 2 * off],
+                                            [session])
+        ref = np.concatenate(parts)
+        errs.append(float(np.abs(wav - ref).max()) if wav.shape == ref.shape else float("inf"))
+    out["incremental"] = dict(tokens=[len(t) for t in rec.tokens], max_abs_err=max(errs),
+                              tol=INC_WAV_TOL)
+    return out
+
+
+def continuous_full(model, reqs, K1, K2, K3, incremental: bool) -> dict:
+    """One run of ContinuousSynthesizer at full width over `reqs` (all
+    submitted at once): first-chunk latency a stream (submission to its first
+    on_chunk) and the segments before it, wall, audio, RTF, chunks,
+    segments, K1-K3 launches, peak memory."""
+    from cosyvoice_tpu_torch.runtime.serving import ContinuousSynthesizer
+
+    synth = ContinuousSynthesizer(model, num_slots=len(reqs), cache_len=768,
+                                  max_out=CONT_TOKENS, hop_scale=2.0, incremental=incremental)
+    first, first_segment, lens = {}, {}, [[] for _ in reqs]
+    for mod in (K1, K2, K3):
+        mod.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with EngineRecord() as rec:
+        t0 = time.perf_counter()
+
+        def on_chunk(i, wav, fin):
+            first.setdefault(i, time.perf_counter() - t0)
+            first_segment.setdefault(i, rec.segments)
+            lens[i].append(len(wav))
+
+        wavs = synth.synthesize_batch(reqs, gen=torch.Generator().manual_seed(0),
+                                      on_chunk=on_chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    audio_s = sum(len(w) for w in wavs) / 24000.0
+    lat = [first[i] for i in range(len(reqs))]
+    return dict(streams=len(reqs), tokens=[len(t) for t in rec.tokens],
+                first_chunk_s=lat, first_chunk_median_s=float(np.median(lat)),
+                first_chunk_max_s=max(lat),
+                # the first segment's end: what the first chunk waits for
+                # before its flush (flow and vocoder)
+                first_segment_end_s=rec.segment_end[0] - t0,
+                segments_before_first_chunk=[first_segment[i] for i in range(len(reqs))],
+                wall_s=wall, audio_s=audio_s, rtf=wall / max(audio_s, 1e-9),
+                chunks=sum(len(x) for x in lens), chunk_samples=lens[0], segments=rec.segments,
+                launches={"lm_decode_attention": K1.launches, "dit_attention": K2.launches,
+                          "fused_layer_norm": K3.launches},
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                finite=all(np.isfinite(w).all() and len(w) > 0 for w in wavs))
+
+
+@torch.no_grad()
+def continuous_phase(res_main: dict, b1_first_chunk_s: float, K1, K2, K3, smi: str) -> dict:
+    """The small-stack gates (small_continuous_checks), then at full width the
+    main path's weights under bench.py's engine traffic: CONT_STREAMS streams
+    through as many slots, CONT_TOKENS tokens a stream, hop_scale 2.0, once
+    windowed (flow_context_tokens 250) and once incremental (the stream
+    family: left_chunks 2, static_chunk_size 50)."""
+    from cosyvoice_tpu_torch.models.flow import CausalMaskedDiffWithXvec
+    from cosyvoice_tpu_torch.models.llm import Qwen2LM
+    from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model
+    from cosyvoice_tpu_torch.runtime.serving import TTSRequest
+
+    small = small_continuous_checks()
+    llm, flow, hift, frontend = res_main["stack"]
+    ratio = CONT_TOKENS / len(CONT_TEXT)       # min = max = CONT_TOKENS tokens
+    with torch.device("cuda"):
+        lm = Qwen2LM(dataclasses.replace(llm.cfg, min_token_text_ratio=ratio,
+                                         max_token_text_ratio=ratio))
+        iflow = CausalMaskedDiffWithXvec(dataclasses.replace(
+            flow.cfg, estimator=dataclasses.replace(flow.cfg.estimator, stream=True,
+                                                    left_chunks=2, static_chunk_size=50)))
+    lm.load_state_dict(llm.state_dict(), strict=True, assign=True)
+    iflow.load_state_dict(flow.state_dict(), strict=True, assign=True)
+    mi = frontend.frontend_zero_shot(CONT_TEXT, "A short prompt.", res_main["prompt_wav"])
+    req = TTSRequest(text_tokens=np.concatenate([mi["prompt_text"], mi["text"]]),
+                     prompt_text_len=len(mi["prompt_text"]),
+                     prompt_speech_tokens=mi["flow_prompt_speech_token"],
+                     prompt_feat=mi["prompt_speech_feat"], embedding=mi["flow_embedding"])
+    reqs = [req] * CONT_STREAMS
+    model = lambda f, **kw: CosyVoice2Model(llm=lm.eval(), flow=f, hift=hift,
+                                            max_decode_tokens=CONT_TOKENS, device="cuda", **kw)
+    windowed = continuous_full(model(flow, flow_context_tokens=250), reqs, K1, K2, K3, False)
+    incremental = continuous_full(model(iflow.eval()), reqs, K1, K2, K3, True)
+    res = {"phase": "continuous", "card": smi, "small_fp32": small,
+           "traffic": {"streams": CONT_STREAMS, "slots": CONT_STREAMS,
+                       "tokens_a_stream": CONT_TOKENS, "hop_scale": 2.0,
+                       "prompt_speech_tokens": len(req.prompt_speech_tokens)},
+           "windowed": windowed, "incremental": incremental,
+           "b1_stream_first_chunk_s": b1_first_chunk_s}
+    emit(res)
+    gates = [g["tokens_equal"] and g["chunk_samples_equal"] and g["max_abs_err"] <= g["tol"]
+             for k, g in small.items() if k.startswith("windowed")]
+    gates.append(small["incremental"]["max_abs_err"] <= small["incremental"]["tol"])
+    gates += [windowed["finite"], incremental["finite"],
+              all(windowed["launches"].values()),
+              incremental["launches"]["lm_decode_attention"] > 0,
+              incremental["launches"]["fused_layer_norm"] > 0]
+    if not all(gates):
+        raise AssertionError(f"continuous phase failed: {res}")
+    return res
+
+
+def _post(port: int, path: str, body: dict, stream: bool) -> dict:
+    """POST a JSON body; -> status, the whole body, and for a stream the
+    seconds to its first data chunk (after the 44-byte WAV header)."""
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    c.request("POST", path, json.dumps(dict(body, stream=stream)),
+              {"Content-Type": "application/json"})
+    r = c.getresponse()
+    first_s = None
+    if stream and r.status == 200:
+        head = r.read(44)
+        data = r.read(2)
+        first_s = time.perf_counter() - t0
+        data = head + data + r.read()
+    else:
+        data = r.read()
+    return {"status": r.status, "data": data, "first_data_s": first_s,
+            "total_s": time.perf_counter() - t0}
+
+
+def _wav_ok(resp: dict, sample_rate: int) -> bool:
+    """A 200 with a well-formed 16-bit mono RIFF/WAV at `sample_rate` and a
+    non-empty PCM payload."""
+    import struct
+
+    d = resp["data"]
+    return (resp["status"] == 200 and len(d) > 44 and d[:4] == b"RIFF" and d[8:12] == b"WAVE"
+            and d[36:40] == b"data" and struct.unpack("<I", d[24:28])[0] == sample_rate
+            and struct.unpack("<H", d[34:36])[0] == 16 and (len(d) - 44) % 2 == 0)
+
+
+def _served(cv, worker=None):
+    """The port's HTTP server over cv (continuous) on a free local port, in a
+    thread; its worker records every Exception it hands the handler."""
+    import threading
+
+    from cosyvoice_tpu_torch.bin.serve import serve
+
+    httpd = serve(cv, host="127.0.0.1", port=0, continuous=True, worker=worker)
+    errors, submit = [], httpd.worker.submit
+
+    class Watched:
+        def __init__(self, q):
+            self.q = q
+
+        def get(self):
+            piece = self.q.get()
+            if isinstance(piece, Exception):
+                errors.append(repr(piece))
+            return piece
+
+    httpd.worker.submit = lambda mode, body: Watched(submit(mode, body))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, errors
+
+
+def _concurrently(calls: list) -> list:
+    import threading
+
+    out = [None] * len(calls)
+
+    def run(i):
+        out[i] = calls[i]()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(calls))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def serve_phase(res_main: dict, smi: str) -> dict:
+    """The port's HTTP server (continuous) over the full-width CosyVoice2 on
+    the main path's weights: GET /health, 4 concurrent streaming zero-shot
+    requests, then one request each to sft (a speaker registered here),
+    cross-lingual, instruct2 and vc, all at once.  Then the same server over
+    the small fp32 stack with the sequential flush (batch_chunks off, so a
+    chunk does not depend on which streams share its flush) and cuDNN's
+    deterministic convolutions (its default ones give the same call
+    different last bits from run to run): its PCM must equal pcm16 of a
+    direct ContinuousSynthesizer run of the same requests."""
+    import base64
+    import http.client
+
+    from cosyvoice_tpu_torch.bin.serve import ContinuousWorker, pcm16, tts_requests
+    from cosyvoice_tpu_torch.runtime.api import CosyVoice2
+    from cosyvoice_tpu_torch.runtime.frontend import CosyVoiceFrontEnd
+    from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model
+    from cosyvoice_tpu_torch.runtime.serving import ContinuousSynthesizer
+    from cosyvoice_tpu_torch.tokenizer.text import ByteTokenizer
+
+    llm, flow, hift, frontend = res_main["stack"]
+    rng = np.random.default_rng(31)
+    frontend.spk2info = {"speaker": {"embedding": rng.standard_normal(192).astype(np.float32)}}
+    cv = CosyVoice2(frontend=frontend, model=CosyVoice2Model(
+        llm=llm, flow=flow, hift=hift, max_decode_tokens=200, device="cuda"))
+    prompt = {"prompt_wav_b64": base64.b64encode(
+        res_main["prompt_wav"].astype("<f4").tobytes()).decode()}
+    source = (0.3 * np.sin(2 * np.pi * 180 * np.arange(32000) / 16000.0)).astype("<f4")
+    httpd, errors = _served(cv)
+    port = httpd.server_address[1]
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    c.request("GET", "/health")
+    r = c.getresponse()
+    health = {"status": r.status, "body": json.loads(r.read())}
+    texts = ["Hello there.", "The quick brown fox jumps over the lazy dog.",
+             "Streams share the slot engine.", "One more request, please."]
+    streams = _concurrently([
+        lambda t=t: _post(port, "/tts/zero_shot", dict(prompt, text=t, prompt_text="A short "
+                                                       "prompt."), stream=True)
+        for t in texts])
+    modes = {"sft": {"text": "Good morning.", "spk_id": "speaker"},
+             "cross_lingual": dict(prompt, text="Good morning."),
+             "instruct2": dict(prompt, text="Good morning.", instruct_text="Speak slowly."),
+             "vc": dict(prompt, source_wav_b64=base64.b64encode(source.tobytes()).decode())}
+    others = dict(zip(modes, _concurrently([
+        lambda m=m, b=b: _post(port, f"/tts/{m}", b, stream=False) for m, b in modes.items()])))
+    httpd.shutdown()
+    httpd.worker.close()
+
+    def seeded(wav):
+        return np.random.default_rng(int(np.abs(wav).sum() * 1e3) % (1 << 32))
+
+    small = CosyVoice2(frontend=CosyVoiceFrontEnd(
+        tokenizer=ByteTokenizer(),
+        speech_tokenizer=lambda wav: seeded(wav).integers(0, 64, len(wav) * 25 // 16000),
+        spk_embedder=lambda wav: seeded(wav).standard_normal(24).astype(np.float32)),
+        model=biased_small_stack("cuda"))
+    torch.backends.cudnn.deterministic = True
+    worker = ContinuousWorker(small, num_slots=2, batch_chunks=False)
+    httpd, small_errors = _served(small, worker=worker)
+    port = httpd.server_address[1]
+    small_texts = ["Hello there, my friend.", "A second request.", "And a third one."]
+    body = dict(prompt, prompt_text="A short prompt.")
+    small_resp = _concurrently([
+        lambda i=i: _post(port, "/tts/zero_shot", dict(body, text=small_texts[i]),
+                          stream=i > 0) for i in range(3)])
+    httpd.shutdown()
+    worker.close()
+    reqs = [r for t in small_texts for r in tts_requests(small, "zero_shot", dict(body, text=t))]
+    direct = ContinuousSynthesizer(small.model, num_slots=2,
+                                   batch_chunks=False).synthesize_batch(reqs)
+    torch.backends.cudnn.deterministic = False
+    pcm_equal = [len(reqs) == 3 and resp["data"][44:] == pcm16(w)
+                 for resp, w in zip(small_resp, direct)]
+    summary = lambda resp: {"status": resp["status"], "bytes": len(resp["data"]),
+                            "wav_ok": _wav_ok(resp, cv.sample_rate),
+                            "first_data_s": resp["first_data_s"], "total_s": resp["total_s"]}
+    res = {"phase": "serve", "card": smi, "health": health,
+           "streams": [summary(x) for x in streams],
+           "modes": {m: summary(x) for m, x in others.items()},
+           "worker_errors": errors + small_errors,
+           "small_fp32": {"requests": len(small_resp),
+                          "wav_ok": [_wav_ok(x, small.sample_rate) for x in small_resp],
+                          "pcm_equal_direct": pcm_equal}}
+    emit(res)
+    ok = (health == {"status": 200, "body": {"status": "ok"}} and not res["worker_errors"]
+          and all(x["wav_ok"] for x in res["streams"] + list(res["modes"].values()))
+          and all(x["first_data_s"] is not None for x in res["streams"])
+          and all(res["small_fp32"]["wav_ok"]) and all(pcm_equal))
+    if not ok:
+        raise AssertionError(f"serve phase failed: {res}")
+    return res
+
+
 def profile_request(run) -> None:
     """One more request under torch.profiler: device kernel time by name and
     the device's busy share of the wall time."""
@@ -1665,7 +2077,9 @@ def main() -> int:
     k1_engine = engine_phase(res, K1, smi)["full_width_int8"]["k1_launches"]
     vocoder = bigvgan_phase(K7, smi)
     launches["snake_aa"] = vocoder["k7_launches"]
-    stream_phase(res, K1, K2, K3, smi)
+    b1 = stream_phase(res, K1, K2, K3, smi)["first_chunk_latency_s"]
+    cont = continuous_phase(res, b1, K1, K2, K3, smi)
+    serve_phase(res, smi)
     flow = res["stack"][1]
     del res["stack"]
     rows = timing(K1, K2, K3, K4, K5, K6, K7, res["last_decode"], flow, batched["block_shape"])
@@ -1680,6 +2094,9 @@ def main() -> int:
                 "x".join(map(str, row["shape"][1:])), 0)
         else:
             row["launches"] = k1_engine if "launches_from" in row else launches[row["name"]]
+        row["launches_continuous"] = {
+            mode: cont[mode]["launches"].get(row["name"], 0)
+            for mode in ("windowed", "incremental")}
         row.update(edge_max_abs_err=errs[row["name"]],
                    tolerance=tolerance.get(row["name"], CHECK_TOL[torch.bfloat16]),
                    kernel_ms=row["ms"])

@@ -2,8 +2,11 @@
 relative-position attention.
 
 Port of the parts of cosyvoice_tpu/models/conformer.py that the v2 flow
-encoder and BigVGAN's token upsamplers use (no macaron FFN, no conv module,
-no streaming caches).
+encoder and BigVGAN's token upsamplers use (no macaron FFN, no conv module),
+with the incremental `.chunk` steps that models/flow_chunk.py drives: new
+rows against cached K/V (the espnet rel-pos skew at a per-row offset) and
+2-row conv histories.  `chunk_anchor` anchors the encoder's chunk grid at
+the prompt/generation boundary (ops/masks.anchored_chunk_mask).
 Parameter names follow the reference checkpoint (`encoders.{i}.self_attn.linear_q`,
 `encoders.{i}.feed_forward.w_1`, `embed.out.0`, ...).
 """
@@ -12,6 +15,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from functools import lru_cache
+from typing import Optional
 
 import numpy as np
 import torch
@@ -22,7 +26,8 @@ from cosyvoice_tpu_torch.nn.conv import Conv1d
 from cosyvoice_tpu_torch.nn.dense import Dense
 from cosyvoice_tpu_torch.nn.norm import LayerNorm
 from cosyvoice_tpu_torch.ops.activations import swish
-from cosyvoice_tpu_torch.ops.masks import NEG_INF, add_chunk_mask, make_non_pad_mask
+from cosyvoice_tpu_torch.ops.masks import (NEG_INF, add_chunk_mask, anchored_chunk_mask,
+                                          make_non_pad_mask)
 
 
 @dataclass(frozen=True)
@@ -89,6 +94,39 @@ class RelPositionAttention(nn.Module):
         out = torch.einsum("bhij,bjhd->bihd", attn, v).reshape(B, T, self.dim)
         return self.linear_out(out)
 
+    def chunk_decode(self, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tensor,
+                     pos: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """M new rows at absolute positions pos_b + i (pos [B]) against the
+        cache layer_k/v [B, Tcap, H, D]: the new rows' K/V are written at
+        pos_b first (in place; rows past Tcap are pad rows and are not
+        written), then every row attends over the cache under the additive
+        bias [B, M, Tcap] (validity and the anchored chunk mask).  The
+        rel-pos term reads the espnet table at (Tcap - 1) - (pos_b + i) + j,
+        the full-sequence skew at a per-row offset.  -> out [B, M, dim]."""
+        H, D = self.heads, self.dim // self.heads
+        B, M, _ = x.shape
+        Tcap = layer_k.shape[1]
+        q = self.linear_q(x).reshape(B, M, H, D)
+        k = self.linear_k(x).reshape(B, M, H, D)
+        v = self.linear_v(x).reshape(B, M, H, D)
+        rows = pos.to(x.device)[:, None] + torch.arange(M, device=x.device)[None, :]
+        fits = rows < Tcap
+        b_idx = torch.arange(B, device=x.device)[:, None].expand(B, M)
+        layer_k[b_idx[fits], rows[fits]] = k[fits].to(layer_k.dtype)
+        layer_v[b_idx[fits], rows[fits]] = v[fits].to(layer_v.dtype)
+        p = self.linear_pos(espnet_rel_pos_emb(Tcap, self.dim, x.dtype, x.device))
+        p = p.reshape(1, -1, H, D)
+        ac = torch.einsum("bihd,bjhd->bhij", q + self.pos_bias_u.to(q.dtype),
+                          layer_k.to(q.dtype))
+        bd_full = torch.einsum("bihd,bjhd->bhij", q + self.pos_bias_v.to(q.dtype), p)
+        idx = ((Tcap - 1) - rows[:, :, None]
+               + torch.arange(Tcap, device=x.device)[None, None, :]).clamp(0, 2 * Tcap - 2)
+        bd = torch.gather(bd_full, 3, idx[:, None].expand(B, H, M, Tcap))
+        scores = (ac + bd) / math.sqrt(D) + bias[:, None].to(ac.dtype)
+        attn = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhij,bjhd->bihd", attn, layer_v.to(q.dtype))
+        return self.linear_out(out.reshape(B, M, self.dim))
+
 
 class PositionwiseFeedForward(nn.Module):
     def __init__(self, dim: int, hidden: int):
@@ -112,6 +150,11 @@ class ConformerEncoderLayer(nn.Module):
 
     def forward(self, x, pos_emb, attn_mask):
         x = x + self.self_attn(self.norm_mha(x), pos_emb, attn_mask)
+        return x + self.feed_forward(self.norm_ff(x))
+
+    def chunk(self, x, layer_k, layer_v, pos, bias):
+        """M-row incremental step over a static K/V cache (written in place)."""
+        x = x + self.self_attn.chunk_decode(self.norm_mha(x), layer_k, layer_v, pos, bias)
         return x + self.feed_forward(self.norm_ff(x))
 
 
@@ -142,6 +185,19 @@ class PreLookaheadLayer(nn.Module):
         h = self.conv2(F.pad(h, (0, 0, 2, 0)))
         return h + x
 
+    def chunk(self, x, ctx_buf, hist2):
+        """Incremental step over N new rows x [B, N, C] (pad rows zero):
+        ctx_buf [B, N + la, C] holds the lookahead rows placed at each row's
+        valid frontier (zeros where a stream ends: the one-shot right zero
+        pad); hist2 [B, 2, C] the last two valid conv2 inputs (zeros at the
+        stream's start: the one-shot left pad).  -> (out [B, N, C], conv2
+        inputs [B, 2 + N, C] for the caller's history roll)."""
+        la = self.pre_lookahead_len
+        h = F.pad(x, (0, 0, 0, la)) + ctx_buf
+        h = F.leaky_relu(self.conv1(h), 0.01)
+        h2in = torch.cat([hist2.to(h.dtype), h], dim=1)
+        return self.conv2(h2in) + x, h2in
+
 
 class Upsample1D(nn.Module):
     """Nearest x`stride` upsample, left zero-pad 2*stride, conv k=2*stride+1."""
@@ -154,6 +210,14 @@ class Upsample1D(nn.Module):
     def forward(self, x):
         x = torch.repeat_interleave(x, self.stride, dim=1)
         return self.conv(F.pad(x, (0, 0, self.stride * 2, 0)))
+
+    def chunk(self, x, hist2):
+        """Incremental step: x [B, N, C] new token-rate rows, hist2 [B, 2, C]
+        the last two valid ones (zeros at the stream's start: the one-shot
+        left zero pad of 2 * stride upsampled rows).  -> (out [B, N * stride,
+        C], conv inputs [B, 2 + N, C] for the history roll)."""
+        xin = torch.cat([hist2.to(x.dtype), x], dim=1)
+        return self.conv(torch.repeat_interleave(xin, self.stride, dim=1)), xin
 
 
 class UpsampleConformerEncoder(nn.Module):
@@ -177,15 +241,20 @@ class UpsampleConformerEncoder(nn.Module):
                                          for _ in range(up_blocks))
         self.after_norm = LayerNorm(cfg.dim, 1e-5)
 
-    def forward(self, xs: torch.Tensor, lens: torch.Tensor, streaming: bool = False):
-        """xs [B, T, input_size], lens [B] -> (h [B, 2T, dim], valid [B, 2T])."""
+    def forward(self, xs: torch.Tensor, lens: torch.Tensor, streaming: bool = False,
+                chunk_anchor: Optional[torch.Tensor] = None):
+        """xs [B, T, input_size], lens [B] -> (h [B, 2T, dim], valid [B, 2T]).
+        With `chunk_anchor` [B] (prompt tokens a row) the chunk grid starts
+        at the prompt/generation boundary."""
         cfg = self.cfg
         T = xs.shape[1]
         chunk = cfg.static_chunk_size if (self.chunk_always or streaming) else 0
+        anchored = chunk_anchor is not None and chunk > 0
         pad = make_non_pad_mask(lens, T)
         xs = self.embed(xs)
         pos_emb = espnet_rel_pos_emb(T, cfg.dim, xs.dtype, xs.device)
-        attn_mask = add_chunk_mask(pad, chunk)
+        attn_mask = (anchored_chunk_mask(pad, chunk, chunk_anchor) if anchored
+                     else add_chunk_mask(pad, chunk))
         # zero pad rows before the right-looking lookahead conv (the embed
         # LayerNorm maps zeros to its bias, which would leak into valid rows)
         xs = self.pre_lookahead_layer(xs * pad[..., None].to(xs.dtype))
@@ -196,7 +265,9 @@ class UpsampleConformerEncoder(nn.Module):
         pad2 = make_non_pad_mask(lens * self.up_stride, T2)
         xs = self.up_embed(xs)
         pos_emb2 = espnet_rel_pos_emb(T2, cfg.dim, xs.dtype, xs.device)
-        attn_mask2 = add_chunk_mask(pad2, chunk * self.up_stride)
+        attn_mask2 = (anchored_chunk_mask(pad2, chunk * self.up_stride,
+                                          torch.as_tensor(chunk_anchor) * self.up_stride)
+                      if anchored else add_chunk_mask(pad2, chunk * self.up_stride))
         for layer in self.up_encoders:
             xs = layer(xs, pos_emb2, attn_mask2)
         return self.after_norm(xs), pad2

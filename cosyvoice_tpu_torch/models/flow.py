@@ -25,7 +25,11 @@ stream family (`stream=True`, the reference's StreamConditionalDecoder)
 attends under a -inf key-pad bias, and with `streaming` under a static
 chunk mask of `static_chunk_size` mel frames and `left_chunks` chunks of
 left context.  The flow encoder applies its chunk mask always for
-`stream=False` and only while streaming for `stream=True`.
+`stream=False` and only while streaming for `stream=True`.  `chunk_anchor`
+(prompt tokens a row) anchors the stream family's chunk grid at the
+prompt/generation boundary (ops/masks.anchored_chunk_mask): the one-shot
+twin of the incremental flow (models/flow_chunk.py), which drives the
+`.chunk` steps of Block1D, ResnetBlock1D and DiTBlock below.
 """
 from __future__ import annotations
 
@@ -45,7 +49,8 @@ from cosyvoice_tpu_torch.nn.norm import LayerNorm
 from cosyvoice_tpu_torch.ops.activations import mish
 from cosyvoice_tpu_torch.ops.kernels import dit_block
 from cosyvoice_tpu_torch.ops.kernels.dit_attention import dit_attention_packed
-from cosyvoice_tpu_torch.ops.masks import NEG_INF, add_chunk_mask, make_non_pad_mask
+from cosyvoice_tpu_torch.ops.masks import (NEG_INF, add_chunk_mask, anchored_chunk_mask,
+                                          make_non_pad_mask)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -81,6 +86,15 @@ class Block1D(nn.Module):
         m = mask[..., None]
         return self.block[2](self.block[0](x * m)) * m
 
+    def chunk(self, x, mask, hist):
+        """Causal step over N new rows x [B, N, C] with hist [B, 2, C] the
+        stream's last two valid conv inputs (x * mask): the conv's own left
+        pad is replaced by the history and its two outputs are dropped.
+        -> (out [B, N, C], conv inputs [B, 2 + N, C] for the history roll)."""
+        m = mask[..., None]
+        xin = torch.cat([hist, x * m], dim=1)
+        return self.block[2](self.block[0](xin)[:, 2:]) * m, xin
+
 
 class ResnetBlock1D(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, time_emb_dim: int,
@@ -96,6 +110,14 @@ class ResnetBlock1D(nn.Module):
         h = h + self.mlp[1](mish(t))[:, None, :]
         h = self.block2(h, mask)
         return h + self.res_conv(x * mask[..., None])
+
+    def chunk(self, x, mask, t, h1, h2):
+        """Chunk step with the two convs' histories h1/h2 (Block1D.chunk).
+        -> (out, block1 inputs, block2 inputs) for the history rolls."""
+        h, x1 = self.block1.chunk(x, mask, h1)
+        h = h + self.mlp[1](mish(t))[:, None, :]
+        h, x2 = self.block2.chunk(h, mask, h2)
+        return h + self.res_conv(x * mask[..., None]), x1, x2
 
 
 class DiTBlock(nn.Module):
@@ -166,11 +188,35 @@ class DiTBlock(nn.Module):
                 scores = scores + attn_bias[:, None]
             o = torch.einsum("bhij,bjhd->bihd", torch.softmax(scores, dim=-1),
                              v).reshape(B, T, H * hd)
-        x = x + a["to_out"][0](o)
+        return self._out_ffn(x, o)
+
+    def _out_ffn(self, x, o):
+        """Out-projection + residual, then LN3 -> gelu FFN + residual."""
+        x = x + self.attn1["to_out"][0](o)
         net = self.ff["net"]
         h = F.gelu(net[0]["proj"](self.norm3(x)),
                    approximate="tanh" if self.approx_gelu else "none")
         return x + net[2](h)
+
+    def chunk(self, x, kv_cache, bias):
+        """Incremental step: x [B, N, dim] new rows; kv_cache [B, R, 2, inner]
+        the K/V of the retained left-context rows; bias [B, N, R + N] additive
+        (cached keys first).  The blocks carry no positional encoding, so only
+        the bias encodes structure.  Plain PyTorch attention, as in the JAX
+        package.  -> (x_out, k_new, v_new [B, N, inner])."""
+        B, N, _ = x.shape
+        H, hd = self.heads, self.head_dim
+        a = self.attn1
+        h = self.norm1(x)
+        w = torch.cat([a["to_q"].weight, a["to_k"].weight, a["to_v"].weight], 0)
+        q, k_new, v_new = (h @ w.to(h.dtype).t()).split(H * hd, dim=-1)
+        k = torch.cat([kv_cache[:, :, 0].to(h.dtype), k_new], dim=1)
+        v = torch.cat([kv_cache[:, :, 1].to(h.dtype), v_new], dim=1)
+        scores = torch.einsum("bihd,bjhd->bhij", q.reshape(B, N, H, hd),
+                              k.reshape(B, -1, H, hd)) / math.sqrt(hd)
+        attn = torch.softmax(scores + bias[:, None], dim=-1)
+        o = torch.einsum("bhij,bjhd->bihd", attn, v.reshape(B, -1, H, hd)).reshape(B, N, H * hd)
+        return self._out_ffn(x, o), k_new, v_new
 
 
 @dataclass(frozen=True)
@@ -225,15 +271,20 @@ class ConditionalDecoder(nn.Module):
         self.final_block = Block1D(ch, ch, cfg.fused_norm)
         self.final_proj = Conv1d(ch, cfg.out_channels, 1)
 
+    def time_embed(self, t: torch.Tensor, cdt) -> torch.Tensor:
+        """[B] t -> [B, time_dim]; the angles reach `scale` rad, so they stay
+        fp32 and only the embedding is cast."""
+        return self.time_mlp(sinusoidal_time_emb(t.float(), self.cfg.in_channels).to(cdt))
+
     def forward(self, x, mask, mu, t, spks, cond, streaming: bool = False,
-                exact_pad_mask: bool = False):
+                exact_pad_mask: bool = False, chunk_anchor: Optional[torch.Tensor] = None):
         """x/mu/cond [B, T, C], mask [B, T] float, t [B], spks [B, C] ->
-        [B, T, out_channels] fp32."""
+        [B, T, out_channels] fp32.  chunk_anchor [B] (mel rows) anchors the
+        stream family's streaming chunk grid."""
         cfg = self.cfg
         cdt = _DTYPES[cfg.dtype]
         x, mu, spks, cond, mask = (v.to(cdt) for v in (x, mu, spks, cond, mask))
-        # the angles reach `scale` rad: keep them fp32, cast the embedding only
-        t_emb = self.time_mlp(sinusoidal_time_emb(t.float(), cfg.in_channels).to(cdt))
+        t_emb = self.time_embed(t, cdt)
         T_in = x.shape[1]
         serving_fast = cfg.fused_attention and not (cfg.stream and streaming)
         if serving_fast and T_in % 128:
@@ -244,6 +295,10 @@ class ConditionalDecoder(nn.Module):
         m = mask[..., None]
         if serving_fast:
             bias, lengths = None, (mask > 0).sum(dim=1).to(torch.int32)
+        elif cfg.stream and streaming and chunk_anchor is not None:
+            keep = anchored_chunk_mask(mask > 0, cfg.static_chunk_size, chunk_anchor,
+                                       cfg.left_chunks)
+            bias, lengths = torch.where(keep, 0.0, NEG_INF).to(cdt), None
         elif cfg.stream:
             keep = add_chunk_mask(mask > 0, cfg.static_chunk_size if streaming else 0,
                                   cfg.left_chunks)
@@ -276,6 +331,7 @@ class ConditionalDecoder(nn.Module):
 class CFMConfig:
     inference_cfg_rate: float = 0.7
     noise_frames: int = 15000  # 50 fps * 300 s pinned-noise buffer
+    n_timesteps: int = 10      # Euler steps of the incremental flow (flow_chunk)
 
 
 @lru_cache(maxsize=None)
@@ -305,7 +361,8 @@ class CausalConditionalCFM(nn.Module):
 
     def forward(self, mu, mask, spks, cond, n_timesteps: int = 10,
                 temperature: float = 1.0, noise: Optional[torch.Tensor] = None,
-                streaming: bool = False, exact_pad_mask: bool = False):
+                streaming: bool = False, exact_pad_mask: bool = False,
+                chunk_anchor: Optional[torch.Tensor] = None):
         """mu [B,T,80], mask [B,T] float, spks [B,80], cond [B,T,80] -> mel [B,T,80]."""
         B, T, C = mu.shape
         if noise is None:
@@ -317,11 +374,13 @@ class CausalConditionalCFM(nn.Module):
         mu2 = torch.cat([mu, torch.zeros_like(mu)])
         spks2 = torch.cat([spks, torch.zeros_like(spks)])
         cond2 = torch.cat([cond, torch.zeros_like(cond)])
+        anchor2 = None if chunk_anchor is None else torch.cat([chunk_anchor, chunk_anchor])
         x = z
         for i in range(n_timesteps):
             t, dt = t_span[i], t_span[i + 1] - t_span[i]
             v = self.estimator(torch.cat([x, x]), mask2, mu2, t.expand(2 * B), spks2,
-                               cond2, streaming, exact_pad_mask=exact_pad_mask)
+                               cond2, streaming, exact_pad_mask=exact_pad_mask,
+                               chunk_anchor=anchor2)
             x = x + dt * ((1.0 + r) * v[:B] - r * v[B:])
         return x
 
@@ -358,17 +417,19 @@ class CausalMaskedDiffWithXvec(nn.Module):
         self.encoder_proj = Dense(cfg.encoder.dim, cfg.output_size)
         self.decoder = CausalConditionalCFM(cfg.cfm, cfg.estimator)
 
-    def _encode(self, token, token_len, streaming: bool = False):
+    def _encode(self, token, token_len, streaming: bool = False, chunk_anchor=None):
         mask = make_non_pad_mask(token_len, token.shape[1])
         emb = self.input_embedding(token.clamp_min(0)) * mask[..., None]
-        h, pad2 = self.encoder(emb.to(_DTYPES[self.cfg.encoder_dtype]), token_len, streaming)
+        h, pad2 = self.encoder(emb.to(_DTYPES[self.cfg.encoder_dtype]), token_len, streaming,
+                               chunk_anchor)
         return self.encoder_proj(h.float()), pad2
 
     @torch.no_grad()
     def inference(self, token, token_len, prompt_feat, embedding, n_timesteps: int = 10,
                   noise: Optional[torch.Tensor] = None,
                   prompt_feat_len: Optional[torch.Tensor] = None,
-                  streaming: bool = False) -> torch.Tensor:
+                  streaming: bool = False,
+                  chunk_anchor: Optional[torch.Tensor] = None) -> torch.Tensor:
         """token [B, Tp+Tg] (prompt ++ generated), prompt_feat [B, P, 80] with
         P = ratio * prompt token count, embedding [B, spk_embed_dim]
         -> mel [B, ratio*T - P, 80].
@@ -376,10 +437,15 @@ class CausalMaskedDiffWithXvec(nn.Module):
         With `prompt_feat_len` [B] (ragged batched serving: each row's prompt
         right-padded to a shared P) the conditioning is zeroed past each
         row's prompt and the whole mel [B, ratio*T, 80] is returned; the
-        caller keeps row b's [prompt_feat_len[b], ratio*token_len[b])."""
+        caller keeps row b's [prompt_feat_len[b], ratio*token_len[b]).
+        `chunk_anchor` [B] (prompt tokens a row) anchors the streaming chunk
+        grid at the prompt/generation boundary, in the encoder and, for the
+        stream family, in the estimator."""
         spks = embedding / embedding.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         spks = self.spk_embed_affine_layer(spks)
-        h, _ = self._encode(token, token_len, streaming)
+        if chunk_anchor is not None:
+            chunk_anchor = torch.as_tensor(chunk_anchor, device=token.device).reshape(-1)
+        h, _ = self._encode(token, token_len, streaming, chunk_anchor)
         P, T2 = prompt_feat.shape[1], h.shape[1]
         conds = torch.zeros((h.shape[0], T2, self.cfg.output_size), dtype=h.dtype,
                             device=h.device)
@@ -390,5 +456,7 @@ class CausalMaskedDiffWithXvec(nn.Module):
             conds = conds.masked_fill(~keep[..., None], 0.0)
         mask = make_non_pad_mask(token_len * self.cfg.token_mel_ratio, T2).to(h.dtype)
         feat = self.decoder(h, mask, spks, conds, n_timesteps=n_timesteps, noise=noise,
-                            streaming=streaming, exact_pad_mask=True)
+                            streaming=streaming, exact_pad_mask=True,
+                            chunk_anchor=None if chunk_anchor is None
+                            else chunk_anchor * self.cfg.token_mel_ratio)
         return feat if prompt_feat_len is not None else feat[:, P:]

@@ -6,8 +6,9 @@ lrelu_slope); reflection-pad (1, 0) follows the LAST upsample only; the
 magnitude is clipped at 1e2 before the iSTFT.  The f0 predictor, the sine
 source and the iSTFT head stay fp32; the conv stack runs in `dtype`.
 The NSF source's random phases and noise come from an explicit
-torch.Generator (drawn on that generator's device); `deterministic` zeroes
-them for parity tests.  Parameter names follow the reference checkpoint.
+torch.Generator (drawn on that generator's device), or from one generator a
+row so that a batched call draws each row's noise as its own B=1 call would;
+`deterministic` zeroes them for parity tests.  Parameter names follow the reference checkpoint.
 """
 from __future__ import annotations
 
@@ -127,11 +128,20 @@ class SourceModuleHnNSF(nn.Module):
         else:
             if gen is None:
                 raise ValueError("a non-deterministic HiFT needs a torch.Generator")
-            phase = (torch.rand((f0.shape[0], 1, H), generator=gen, device=gen.device)
-                     * 2 * np.pi - np.pi).to(f0.device, f0.dtype)
+            # one generator for the batch, or one a row (each row then draws
+            # what a B=1 call on its generator draws)
+            gens = list(gen) if isinstance(gen, (list, tuple)) else None
+            if gens is not None and len(gens) != f0.shape[0]:
+                raise ValueError(f"{len(gens)} generators for {f0.shape[0]} rows")
+            rows = [(g, 1) for g in gens] if gens is not None else [(gen, f0.shape[0])]
+            phase, noise_unit = [], []
+            for g, n in rows:
+                phase.append(torch.rand((n, 1, H), generator=g, device=g.device))
+                noise_unit.append(torch.randn((n,) + theta.shape[1:], generator=g,
+                                              device=g.device))
+            phase = (torch.cat(phase) * 2 * np.pi - np.pi).to(f0.device, f0.dtype)
             phase[:, :, 0] = 0.0
-            noise_unit = torch.randn(theta.shape, generator=gen, device=gen.device
-                                     ).to(f0.device, f0.dtype)
+            noise_unit = torch.cat(noise_unit).to(f0.device, f0.dtype)
         sine = cfg.nsf_alpha * torch.sin(theta + phase)
         uv = (f0 > cfg.nsf_voiced_threshold).to(f0.dtype)[..., None]
         noise_amp = uv * cfg.nsf_sigma + (1.0 - uv) * cfg.nsf_alpha / 3.0
@@ -208,7 +218,8 @@ class HiFTGenerator(nn.Module):
     def inference(self, mel: torch.Tensor, cache_source: Optional[torch.Tensor] = None,
                   gen: Optional[torch.Generator] = None):
         """mel [B, T, 80] -> (wav [B, T * upsample_scale], source [B, L, 1]);
-        `cache_source` [B, Lc, 1] is spliced over the head of the new source."""
+        `cache_source` [B, Lc, 1] is spliced over the head of the new source;
+        `gen` is one torch.Generator or a list of one a row."""
         s, _ = self._source(mel, gen)
         if cache_source is not None and cache_source.shape[1] > 0:
             s = torch.cat([cache_source.to(s.dtype), s[:, cache_source.shape[1]:]], dim=1)

@@ -45,3 +45,33 @@ def add_chunk_mask(pad_mask: torch.Tensor, static_chunk_size: int = 0,
         return pad_mask & cm[None]
     return pad_mask.expand(pad_mask.shape[0], T, T)
 
+
+
+def anchored_chunk_ids(pos: torch.Tensor, anchor: torch.Tensor,
+                       chunk_size: int) -> torch.Tensor:
+    """Chunk index of absolute position(s) `pos` on a grid anchored at
+    `anchor` (the prompt/generation boundary): the whole prompt [0, anchor)
+    is chunk 0, then one chunk a `chunk_size` positions.  Incremental
+    streaming flow emits hops that are multiples of chunk_size, so every
+    serving chunk ends on a grid boundary for any prompt length.  `anchor`
+    broadcasts against `pos`."""
+    rel = pos - anchor
+    return torch.where(rel < 0, torch.zeros_like(rel),
+                       torch.div(rel, chunk_size, rounding_mode="floor") + 1)
+
+
+def anchored_chunk_mask(pad_mask: torch.Tensor, chunk_size: int, anchor,
+                        num_left_chunks: int = -1) -> torch.Tensor:
+    """Chunk-causal mask on the anchored grid combined with a [B, T] (or
+    [B, 1, T]) key pad mask -> [B, T, T] bool.  `anchor` is [B] or a scalar;
+    num_left_chunks >= 0 bounds the visible left context."""
+    if pad_mask.ndim == 2:
+        pad_mask = pad_mask[:, None, :]
+    T = pad_mask.shape[-1]
+    pos = torch.arange(T, device=pad_mask.device)
+    anchor = torch.as_tensor(anchor, device=pad_mask.device).reshape(-1)
+    cid = anchored_chunk_ids(pos[None, :], anchor[:, None], chunk_size)
+    ok = cid[:, None, :] <= cid[:, :, None]
+    if num_left_chunks >= 0:
+        ok = ok & (cid[:, None, :] >= cid[:, :, None] - num_left_chunks)
+    return pad_mask & ok

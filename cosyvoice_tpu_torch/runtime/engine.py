@@ -12,7 +12,10 @@ sequences finish at different times:
     `fused_cache_update`; the head-major cache appends per row);
   * `ServingEngine` is the host scheduler: it admits pending requests into
     free slots between segments, streams each slot's new tokens to its
-    consumer and recycles slots as soon as a sequence finishes.
+    consumer and recycles slots as soon as a sequence finishes.  The segment
+    right after an admission runs `first_segment_extra` more steps, so a
+    streaming consumer that needs hop + lookahead tokens a chunk gets a
+    fresh request's first chunk after one segment.
 
 Decode math is lm_generate's (models/llm.py, `_sample_advance`), so greedy
 tokens equal lm_generate's per request under staggered admission and slot
@@ -20,8 +23,13 @@ reuse.  With stochastic sampling one torch.Generator serves every slot, so
 draws differ from lm_generate's but not their distribution.  The JAX
 package's `lax.while_loop` segment is a Python loop over decode steps here;
 eager PyTorch compiles nothing per shape, so a burst is admitted as it comes
-(the JAX package pads it to a power of two to bound its compiles).  Cache
-writes are in place.  Phoneme-LM requests are not ported yet.
+(the JAX package pads it to a power of two to bound its compiles).  The JAX
+scheduler dispatches the next segment before its consumer's `on_segment`
+work, which then overlaps the device's decode; a Python segment loop runs
+the segment on the host before returning, so here `on_segment` fires right
+after the segment's harvest and admissions, ahead of the next segment, and
+a streamed chunk waits for no extra segment.  Cache writes are in place.
+Phoneme-LM requests are not ported yet.
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ from cosyvoice_tpu_torch.models.qwen2 import KVCache, causal_prefill_bias
 from cosyvoice_tpu_torch.ops.masks import NEG_INF
 from cosyvoice_tpu_torch.runtime.model import round_up
 
-_PHONEME_LM = ("phoneme-LM requests are not ported yet (ROADMAP Queue 1 item 9, "
+_PHONEME_LM = ("phoneme-LM requests are not ported yet (ROADMAP Queue 1 item 8, "
                "models/llm_phoneme.py)")
 
 
@@ -217,6 +225,11 @@ class ServingEngine:
     cache_len: int = 1024
     max_out: int = 768
     segment_steps: int = 50
+    # extra steps for the segment right after an admission: a fresh slot holds
+    # one token (the admit sample), so a consumer that needs hop + lookahead
+    # tokens a chunk (50 + 3) would otherwise wait two segments for its first
+    # chunk; ContinuousSynthesizer passes lookahead - 1, and 1 + 50 + 2 = 53
+    first_segment_extra: int = 0
     text_bucket: int = 32
     speech_bucket: int = 64
     device: Optional[str] = None
@@ -232,8 +245,13 @@ class ServingEngine:
         queue only when no slot is live; a None item drains live work and
         returns.  on_tokens(new_tokens, done) is per request (bind the
         request identity into the callback).  on_segment() fires once per
-        segment after its on_tokens, after the next segment has run."""
+        segment after its on_tokens and the admissions they make room for,
+        before the next segment.  `gen`
+        drives the sampling (default: a generator seeded 0, as the JAX
+        engine defaults to PRNGKey(0))."""
         cfg, dev = self.model.cfg, self.device
+        if gen is None:
+            gen = torch.Generator().manual_seed(0)
         dtype = self.model.speech_embedding.weight.dtype
         state = engine_init(self.model, self.num_slots, self.cache_len, self.max_out, gen,
                             dtype, dev)
@@ -293,10 +311,10 @@ class ServingEngine:
                     slot_cb[slot] = cb
                     seen[slot] = 0
 
-        def pull(block_idle: bool) -> None:
-            """Admit into free slots.  Blocks for work only when idle
-            (block_idle and nothing live); all available submissions are
-            drained first, then admitted together."""
+        def pull(block_idle: bool) -> bool:
+            """Admit into free slots; True if anything was admitted.  Blocks
+            for work only when idle (block_idle and nothing live); all
+            available submissions are drained first, then admitted together."""
             nonlocal stopping
             pending: list = []
             while len(pending) < len(free) and not stopping:
@@ -310,6 +328,7 @@ class ServingEngine:
                 pending.append(item)
             if pending:
                 admit_all(pending)
+            return bool(pending)
 
         def harvest(packed: np.ndarray) -> None:
             """Stream new tokens from a fetched harvest array; free finished
@@ -325,26 +344,21 @@ class ServingEngine:
                     del slot_cb[slot], seen[slot]
                     free.append(slot)
 
-        def segment():
+        def segment(admitted: bool):
             nonlocal state
-            state = engine_decode_segment(self.model, state, self.segment_steps)
+            steps = self.segment_steps + (self.first_segment_extra if admitted else 0)
+            state = engine_decode_segment(self.model, state, steps)
             return _pack_harvest(state.count, state.done, state.out)
 
-        # The harvest of segment k is packed right after segment k and read
-        # one iteration later, after the next segment was started: the order
-        # the JAX package uses to keep its device queue busy.
         while True:
-            pull(block_idle=True)
+            admitted = pull(block_idle=True)
             if not slot_cb:
                 if stopping:
                     return
                 continue
-            pending = segment()
             while slot_cb:
-                harvest(pending.cpu().numpy())
-                pull(block_idle=False)
-                if slot_cb:
-                    pending = segment()
+                harvest(segment(admitted).cpu().numpy())
+                admitted = pull(block_idle=False)
                 if on_segment is not None:
                     on_segment()
             if stopping:

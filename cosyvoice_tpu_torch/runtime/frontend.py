@@ -1,13 +1,15 @@
 """Frontend: text -> tokens, prompt audio -> (speech tokens, mel, speaker vector).
 
-Port of cosyvoice_tpu/runtime/frontend.py (zero-shot mode).  The speech
-tokenizer and speaker embedder are injected callables; the 24 kHz prompt mel
-comes from ops/mel on `device` (the GPU unless the caller passes "cpu").
-Zero-shot keeps feat == 2 * token length at 24 kHz.
+Port of cosyvoice_tpu/runtime/frontend.py: the model inputs of the sft
+(a registered speaker's vector from `spk2info`), zero-shot, cross-lingual,
+instruct2 and voice-conversion modes.  The speech tokenizer and speaker
+embedder are injected callables; the 24 kHz prompt mel comes from ops/mel on
+`device` (the GPU unless the caller passes "cpu").  Zero-shot keeps feat ==
+2 * token length at 24 kHz.  The v1 instruct mode comes with the v1 slice.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from math import gcd
 from typing import Callable, Optional, Union
 
@@ -31,6 +33,7 @@ class CosyVoiceFrontEnd:
     tokenizer: object                              # .encode(text) -> ids
     speech_tokenizer: Optional[Callable] = None    # wav16k [S] -> token ids [T]
     spk_embedder: Optional[Callable] = None        # wav16k [S] -> vector [D]
+    spk2info: dict = field(default_factory=dict)   # spk_id -> {"embedding": vector}
     sample_rate: int = 24000
     n_mels: int = 80
     mel_n_fft: int = 1920
@@ -65,6 +68,11 @@ class CosyVoiceFrontEnd:
     def text_normalize(self, text: str, split: bool = True):
         return textnorm.basic_normalize(text, self.tokenizer.encode, split)
 
+    def frontend_sft(self, tts_text: str, spk_id: str) -> dict:
+        emb = np.asarray(self.spk2info[spk_id]["embedding"], np.float32)
+        return {"text": self._extract_text_token(tts_text), "llm_embedding": emb,
+                "flow_embedding": emb}
+
     def frontend_zero_shot(self, tts_text: str, prompt_text: str,
                            prompt_speech_16k: np.ndarray) -> dict:
         text = self._extract_text_token(tts_text)
@@ -79,3 +87,28 @@ class CosyVoiceFrontEnd:
         return {"text": text, "prompt_text": ptext,
                 "llm_prompt_speech_token": token, "flow_prompt_speech_token": token,
                 "prompt_speech_feat": feat, "llm_embedding": emb, "flow_embedding": emb}
+
+    def frontend_cross_lingual(self, tts_text: str, prompt_speech_16k: np.ndarray) -> dict:
+        """Zero-shot inputs without the prompt text and the LM's prompt speech."""
+        d = self.frontend_zero_shot(tts_text, "", prompt_speech_16k)
+        del d["prompt_text"], d["llm_prompt_speech_token"]
+        return d
+
+    def frontend_instruct2(self, tts_text: str, instruct_text: str,
+                           prompt_speech_16k: np.ndarray) -> dict:
+        """The instruction as the prompt text; the LM gets no prompt speech."""
+        d = self.frontend_zero_shot(tts_text, instruct_text + "<|endofprompt|>",
+                                    prompt_speech_16k)
+        del d["llm_prompt_speech_token"]
+        return d
+
+    def frontend_vc(self, source_speech_16k: np.ndarray,
+                    prompt_speech_16k: np.ndarray) -> dict:
+        """Voice conversion: the source's speech tokens, re-synthesized in the
+        prompt's voice (no LM stage)."""
+        feat = self._extract_speech_feat(
+            resample_poly(prompt_speech_16k, 16000, self.sample_rate))
+        return {"source_speech_token": self._extract_speech_token(source_speech_16k),
+                "flow_prompt_speech_token": self._extract_speech_token(prompt_speech_16k),
+                "prompt_speech_feat": feat,
+                "flow_embedding": self._extract_spk_embedding(prompt_speech_16k)}

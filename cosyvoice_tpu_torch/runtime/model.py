@@ -13,7 +13,11 @@ Port of cosyvoice_tpu/runtime/model.py::CosyVoice2Model.
   HiFT source of those frames is spliced in, the head of the new wav is
   cross-faded over a Hamming window with the previous chunk's held-back
   tail, and the last 8 * 480 samples are held back for the next chunk.  The
-  final chunk vocodes the rest.  With `flow_context_tokens` a chunk's flow
+  final chunk vocodes the rest.  `mel2wav_group`, `mel2wav_stream_group` and
+  `mel2wav_final_group` vocode a flush group of the continuous server
+  (runtime/serving.py) in batched HiFT calls, one a padded length, each row
+  with its own session's caches and noise generator, so every output equals
+  the session's own `mel2wav`.  With `flow_context_tokens` a chunk's flow
   context is the prompt plus a window of the latest generated tokens
   (`flow_window_drop`), the pinned noise re-indexed to match
   (`windowed_noise`).
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import logging
 import time
+from collections import defaultdict
 from dataclasses import dataclass
 from typing import Iterator, Optional
 
@@ -216,8 +221,12 @@ class CosyVoice2Model:
                 gen: torch.Generator, pad_to: int):
         """HiFT over mel [frames, 80] zero-padded to pad_to frames, with the
         cached source [Lc] spliced over the head of the new one -> (wav,
-        source) of the unpadded frames."""
+        source) of the unpadded frames; no frames (a decode that emitted no
+        token) give no samples."""
         n = mel.shape[0]
+        if n == 0:
+            empty = mel.new_zeros(0, dtype=torch.float32)
+            return empty, empty
         mel_pad = F.pad(mel.float(), (0, 0, 0, pad_to - n))
         cs = None if cache_source is None else cache_source[None, :, None]
         wav, source = self.hift.inference(mel_pad[None], cache_source=cs, gen=gen)
@@ -247,10 +256,8 @@ class CosyVoice2Model:
             mel = torch.cat([cache["mel"], mel.float()])
             cache_source = cache["source"]
         if not finalize:
-            # every steady-state chunk vocodes one static shape
-            pad_to = max(self.mel_cache_len + (self.token_hop_len + self.pre_lookahead_len)
-                         * self.ratio, mel.shape[0])
-            wav, source = self._vocode(mel, cache_source, session["gen"], pad_to)
+            wav, source = self._vocode(mel, cache_source, session["gen"],
+                                       self._stream_pad(mel.shape[0]))
             wav = wav.cpu().numpy()
             if cache is not None:
                 wav = self._fade(wav, cache["speech"])
@@ -266,6 +273,95 @@ class CosyVoice2Model:
         wav, _ = self._vocode(mel, cache_source, session["gen"], round_up(mel.shape[0], 32))
         wav = wav.cpu().numpy()
         return wav if cache is None else self._fade(wav, cache["speech"])
+
+    def _stream_pad(self, frames: int) -> int:
+        """The padded length of a non-final chunk: every steady-state chunk
+        vocodes one static shape, and a longer (progressive-hop) one its own."""
+        return max(self.mel_cache_len + (self.token_hop_len + self.pre_lookahead_len)
+                   * self.ratio, frames)
+
+    def mel2wav_group(self, gens: list, sessions: list, finals: list) -> list:
+        """`mel2wav` for a flush group: rows of one padded length and cache
+        state share one batched HiFT call; each row draws its source noise
+        from its own session's generator (a list of generators, one a row)
+        and keeps its own fade caches, so every output equals the session's
+        own `mel2wav` on the same mel.  gens[i] [frames, 80] is job i's
+        generated mel; a session's later jobs in the list run after its
+        earlier ones (they need the caches those leave)."""
+        order = defaultdict(int)
+        waves: dict = defaultdict(list)
+        for i, session in enumerate(sessions):
+            waves[order[id(session)]].append(i)
+            order[id(session)] += 1
+        if len(waves) > 1:
+            out: list = [None] * len(gens)
+            for idxs in waves.values():
+                for i, w in zip(idxs, self.mel2wav_group([gens[i] for i in idxs],
+                                                         [sessions[i] for i in idxs],
+                                                         [finals[i] for i in idxs])):
+                    out[i] = w
+            return out
+        prep = []
+        for mel, session, fin in zip(gens, sessions, finals):
+            cache = session["hift"]
+            mel = mel.float() if cache is None else torch.cat([cache["mel"], mel.float()])
+            prep.append((mel, cache, round_up(mel.shape[0], 32) if fin
+                         else self._stream_pad(mel.shape[0])))
+        groups: dict = defaultdict(list)
+        for i, (_, cache, pad_to) in enumerate(prep):
+            groups[(pad_to, cache is not None)].append(i)
+        results: list = [None] * len(gens)
+        n_cache = self.source_cache_len
+        for (pad_to, cached), idxs in groups.items():
+            if pad_to == 0:     # fresh sessions' final chunks of no frames
+                for i in idxs:
+                    results[i] = np.zeros(0, np.float32)
+                continue
+            mels = torch.stack([F.pad(prep[i][0], (0, 0, 0, pad_to - prep[i][0].shape[0]))
+                                for i in idxs])
+            cs = (torch.stack([prep[i][1]["source"] for i in idxs])[:, :, None] if cached
+                  else None)
+            wav, source = self.hift.inference(mels, cache_source=cs,
+                                              gen=[sessions[i]["gen"] for i in idxs])
+            wav_h = wav.cpu().numpy()
+            for row, i in enumerate(idxs):
+                mel, cache, _ = prep[i]
+                n = mel.shape[0] * self.hop_samples
+                w = wav_h[row, :n]
+                if cached:
+                    w = self._fade(w, cache["speech"])
+                if not finals[i]:
+                    sessions[i]["hift"] = {"mel": mel[-self.mel_cache_len:],
+                                           "source": source[row, :n, 0][-n_cache:],
+                                           "speech": w[-n_cache:]}
+                    w = w[:-n_cache]
+                results[i] = w
+        return results
+
+    @staticmethod
+    def _windows(mel: torch.Tensor, rows, starts, lengths) -> list:
+        """mel[rows[i], starts[i]:starts[i] + lengths[i]] for each job, cut at
+        the mel's end as the sequential path's slice is (a prompt mel longer
+        than 2 rows a prompt token, which only the 24 kHz frontend trims,
+        moves the generated region past the flow's rows)."""
+        return [mel[r, s:s + n] for r, s, n in zip(rows, starts, lengths)]
+
+    def mel2wav_stream_group(self, mel: torch.Tensor, rows, starts, sessions: list,
+                             win_rows: Optional[int] = None) -> list:
+        """Steady-state streaming vocode: every job is a non-final chunk, the
+        `win_rows` mel rows (default one hop plus its lookahead) of the flow
+        output mel [B, T, 80] at row rows[i] from starts[i]."""
+        if win_rows is None:
+            win_rows = (self.token_hop_len + self.pre_lookahead_len) * self.ratio
+        return self.mel2wav_group(self._windows(mel, rows, starts, [win_rows] * len(rows)),
+                                  sessions, [False] * len(sessions))
+
+    def mel2wav_final_group(self, mel: torch.Tensor, rows, starts, valids,
+                            sessions: list) -> list:
+        """Final-chunk vocode of a flush group: job i's generated mel is
+        valids[i] rows of mel [B, T, 80] at row rows[i] from starts[i]."""
+        return self.mel2wav_group(self._windows(mel, rows, starts, valids), sessions,
+                                  [True] * len(sessions))
 
     def _fade(self, wav: np.ndarray, prev_tail: np.ndarray) -> np.ndarray:
         """Hamming cross-fade of the chunk's head with the held-back tail."""

@@ -1,25 +1,40 @@
-"""Batched serving: collect requests, right-pad them to shared buckets, run one
-batched LM decode, one ragged-batched flow call and one batched vocoder call,
-and return each request's waveform.
+"""Batched and continuous serving over a CosyVoice2Model.
 
-Port of `TTSRequest`, `_noise_for` and `BatchedSynthesizer` of
-cosyvoice_tpu/runtime/serving.py.  All three stages share their weight reads
-across the batch.  The flow call carries each row's own prompt length
-(`prompt_feat_len`), so rows of different lengths go through one estimator
-call per Euler step (its DiT blocks through the dit_block_fused kernel when
-the estimator has `fused_block`).  The JAX package's multi-chip `mesh`, the
-streaming `ContinuousSynthesizer` and phoneme-LM requests are not ported yet.
+Port of cosyvoice_tpu/runtime/serving.py:
+- `BatchedSynthesizer` collects requests, right-pads them to shared buckets
+  and runs one batched LM decode, one ragged-batched flow call (each row
+  with its own prompt length, `prompt_feat_len`; its DiT blocks through the
+  dit_block_fused kernel when the estimator has `fused_block`) and one
+  batched vocoder call.
+- `ContinuousSynthesizer` is streaming TTS under continuous batching: the
+  LM runs in the slot engine (runtime/engine.py), and after every decode
+  segment each stream whose tokens passed its next hop gets its flow and
+  vocoder chunk.  Windowed mode (the default) runs the chunks ready at a
+  segment boundary as one ragged flow call a streaming group (or, without
+  `batch_chunks`, as the sequential token2wav calls) and vocodes them with
+  the grouped vocoders of runtime/model.py; incremental mode computes each
+  mel row once against per-slot cached state (runtime/flow_engine.py).
+The JAX package pads a flush group to a power of two to bound its compiles;
+eager PyTorch compiles nothing per shape, so the port runs the group as it
+comes (the outputs a row are the same either way).  Not ported: the
+multi-chip `mesh`, the second-card `flow_device` and phoneme-LM requests
+(each raises).
 """
 from __future__ import annotations
 
+import queue
+from collections import defaultdict
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cosyvoice_tpu_torch.models.flow import _DTYPES, reference_rand_noise
 from cosyvoice_tpu_torch.models.llm import lm_generate
+from cosyvoice_tpu_torch.runtime.engine import _PHONEME_LM, GenRequest, ServingEngine
+from cosyvoice_tpu_torch.runtime.flow_engine import FlowSlotEngine
 from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model, round_up
 
 
@@ -63,8 +78,7 @@ class BatchedSynthesizer:
         `gen` drives the LM's sampling (default: seed 0); the vocoder's
         source noise comes from a generator seeded from it."""
         if any(r.pho_token is not None for r in requests):
-            raise NotImplementedError("phoneme-LM requests are not ported yet (ROADMAP "
-                                      "Queue 1 item 9)")
+            raise NotImplementedError(_PHONEME_LM)
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
         tokens = self.generate(requests, gen)
         mel, tls, pfl = self.flow_batch(requests, tokens)
@@ -135,3 +149,322 @@ class BatchedSynthesizer:
         wav, _ = m.hift.inference(gen_mel, gen=gen)
         wav = wav.cpu().numpy()
         return [wav[i, :Ls[i] * m.hop_samples] for i in range(len(Ls))]
+
+
+class _Stream:
+    """One request's streaming state: its tokens so far, the emitted token
+    offset, the next hop, the vocoder session and the flow slot (claimed at
+    its first incremental flow chunk)."""
+
+    __slots__ = ("req", "on_chunk", "tokens", "offset", "session", "hop", "fslot")
+
+    def __init__(self, req: TTSRequest, on_chunk: Optional[Callable], session: dict,
+                 hop: int):
+        self.req, self.on_chunk, self.session, self.hop = req, on_chunk, session, hop
+        self.tokens: list[int] = []
+        self.offset = 0
+        self.fslot: Optional[int] = None
+
+
+@dataclass
+class ContinuousSynthesizer:
+    """Streaming TTS under continuous batching, on the model's device.
+
+    The LM runs in the slot engine, so sequences join and leave the decode
+    batch independently; after every decode segment each stream whose tokens
+    passed its next hop boundary gets its flow and vocoder chunk (hop 50
+    tokens, lookahead 3, the fade caches of runtime/model.py), and
+    `on_chunk(wav, final)` of its request receives it.  The engine's
+    `first_segment_extra` (lookahead - 1) gives a fresh stream its first
+    hop + lookahead tokens in one segment.
+
+    - batch_chunks: the chunks ready at a segment boundary run as one ragged
+      flow call a streaming group (exact_pad_mask keeps each row's mel that
+      of its own call) and are vocoded by the grouped vocoders; without it,
+      each chunk is the sequential token2wav call.
+    - hop_scale > 1 grows a stream's hop by that factor a chunk (a multiple
+      of the base hop, at most max_hop, default 4 hops); the first chunk
+      still comes after hop + lookahead tokens.
+    - incremental: the flow runs in FlowSlotEngine, each mel row computed
+      once against the slot's cached state.  Needs a stream-config flow
+      (estimator.stream, finite left_chunks); the audio follows the
+      stream-masked model, and flow_context_tokens is unused.
+    - flow_device (the flow and vocoder on a second card) waits until the port
+      targets more than one card, and raises.
+    """
+
+    model: CosyVoice2Model
+    num_slots: int = 8
+    cache_len: int = 1024
+    # per-request token cap; None: the model's max_decode_tokens
+    max_out: Optional[int] = None
+    text_bucket: int = 32
+    speech_bucket: int = 64
+    batch_chunks: bool = True
+    hop_scale: float = 1.0
+    max_hop: Optional[int] = None
+    flow_device: Optional[object] = None
+    incremental: bool = False
+    flow_tok_cap: Optional[int] = None     # default: 256 + max_out
+
+    def __post_init__(self):
+        if self.flow_device is not None:
+            raise NotImplementedError(
+                "flow_device (flow and vocoder on a second card) is not ported: it waits "
+                "until the port targets more than one card (ROADMAP Queue 1 item 11)")
+        m = self.model
+        self._fse: Optional[FlowSlotEngine] = None
+        if self.incremental:
+            cap = self.flow_tok_cap or 256 + (self.max_out or m.max_decode_tokens)
+            noise = (m.flow_noise if m.flow_noise is not None else
+                     reference_rand_noise(m.flow.cfg.cfm.noise_frames, m.flow.cfg.output_size))
+            self._fse = FlowSlotEngine(
+                m.flow, self.num_slots, cap, noise, m.flow.cfg.spk_embed_dim,
+                enc_dtype=_DTYPES[m.flow.cfg.encoder_dtype],
+                est_dtype=_DTYPES[m.flow.cfg.estimator.dtype], device=m.device)
+
+    def _flush_group(self, jobs: list, emit: Callable, streaming: bool) -> None:
+        """One ragged flow call over `jobs` (each (stream, tokens, offset,
+        final, hop)), then the grouped vocoders.  Each job's mel is sliced as
+        the sequential token2wav slices it: the generated region starts at
+        the prompt's mel rows, holds ratio * (tokens - prompt tokens) rows,
+        and the chunk begins at offset * ratio (less the window's drop)."""
+        m = self.model
+        ratio = m.ratio
+        B = len(jobs)
+        tls, toks, drops = [], [], []
+        for st, tok, off, _, _ in jobs:
+            d = m.flow_window_drop(len(tok), off)     # the sequential path's window
+            drops.append(d)
+            toks.append(np.concatenate([st.req.prompt_speech_tokens, tok[d:]]))
+            tls.append(len(toks[-1]))
+        bucket = max(round_up(max(tls), m.token_hop_len), m.token_hop_len)
+        tokm = np.zeros((B, bucket), np.int64)
+        pfl = np.asarray([j[0].req.prompt_feat.shape[0] for j in jobs], np.int64)
+        pf = np.zeros((B, int(pfl.max()), m.flow.cfg.output_size), np.float32)
+        for i, (st, *_) in enumerate(jobs):
+            tokm[i, :tls[i]] = toks[i]
+            pf[i, :pfl[i]] = st.req.prompt_feat
+        emb = np.stack([np.asarray(j[0].req.embedding, np.float32) for j in jobs])
+        if m.flow_noise is None:
+            noise = None
+        elif not any(drops):
+            noise = _noise_for(m, bucket)
+        else:
+            noise = torch.cat([m.windowed_noise(int(pfl[i]), drops[i], ratio * bucket)
+                               for i in range(B)])
+        mel = m.flow.inference(m._tensor(tokm, torch.long), m._tensor(tls, torch.long),
+                               m._tensor(pf, torch.float32), m._tensor(emb, torch.float32),
+                               noise=noise, prompt_feat_len=m._tensor(pfl, torch.long),
+                               streaming=streaming)
+        # the JAX package vocodes a steady-state group by hop size, a final
+        # group and a mixed one in three programs; mel2wav_group already
+        # batches rows of one padded length (one hop size, or one final
+        # length) and keeps each session's order, so one call covers all three
+        valid = [ratio * (tls[i] - len(jobs[i][0].req.prompt_speech_tokens)) for i in range(B)]
+        wavs = m.mel2wav_group(
+            [mel[i, pfl[i] + (jobs[i][2] - drops[i]) * ratio:pfl[i] + valid[i]]
+             for i in range(B)], [j[0].session for j in jobs], [j[3] for j in jobs])
+        for (st, _, _, fin, _), wav in zip(jobs, wavs):
+            emit(st, wav, fin)
+
+    def _flush_group_inc(self, jobs: list, emit: Callable) -> list:
+        """Incremental flush: one FlowSlotEngine.chunk call a (first, final,
+        bucket, hop) group over each stream's new tokens only.  Jobs of one
+        stream go in waves (a later chunk needs the earlier one's state).
+        A stream claims its flow slot at its first chunk and releases it at
+        its final one; finals run first in each wave so their releases serve
+        the wave's claims.  The LM engine frees its slot when the tokens end,
+        before the last flow chunk, so live flow streams can outnumber the
+        slots for a while: jobs that find no slot are returned, to run at the
+        next flush (the pending finals guarantee progress)."""
+        m, fse = self.model, self._fse
+        ratio, la, hop_base = m.ratio, m.pre_lookahead_len, m.token_hop_len
+        waves: list = []
+        seen: dict = defaultdict(int)
+        for j in jobs:
+            k = seen[id(j[0])]
+            seen[id(j[0])] += 1
+            if len(waves) <= k:
+                waves.append([])
+            waves[k].append(j)
+        deferred: list = []
+        deferred_streams: set = set()
+        for wave in waves:
+            groups: dict = defaultdict(list)
+            for j in wave:
+                st, tok, off, fin, hop = j
+                if id(st) in deferred_streams:
+                    deferred.append(j)          # keeps the stream's job order
+                    continue
+                first = off == 0
+                n = len(st.req.prompt_speech_tokens) if first else 0
+                n += (len(tok) - off) if fin else hop
+                groups[(first, fin, max(round_up(n, hop_base), hop_base),
+                        0 if fin else hop)].append(j)
+            for key in sorted(groups, key=lambda k: (not k[1], k[2], k[3])):
+                first, fin, M, hop = key
+                grp = groups[key]
+                if first:
+                    admitted = []
+                    for j in grp:
+                        st = j[0]
+                        if fse.free:
+                            st.fslot = fse.admit(len(st.req.prompt_speech_tokens),
+                                                 st.req.embedding)
+                            admitted.append(j)
+                        else:
+                            deferred.append(j)
+                            deferred_streams.add(id(st))
+                    grp = admitted
+                    if not grp:
+                        continue
+                K = len(grp)
+                toks, ctx = np.zeros((K, M), np.int64), np.zeros((K, la), np.int64)
+                cl, nv = np.zeros(K, np.int64), np.zeros(K, np.int64)
+                pf = np.zeros((K, max(j[0].req.prompt_feat.shape[0] for j in grp) if first
+                               else 1, m.flow.cfg.output_size), np.float32)
+                pfl = np.zeros(K, np.int64)
+                slots, starts, valids = [], [], []
+                for i, (st, tok, off, _, hop_) in enumerate(grp):
+                    ps = (np.asarray(st.req.prompt_speech_tokens, np.int64) if first
+                          else np.zeros(0, np.int64))
+                    if fin:
+                        g = np.asarray(tok[off:], np.int64)
+                    else:
+                        g = np.asarray(tok[off:off + hop_], np.int64)
+                        c = tok[off + hop_:off + hop_ + la]
+                        ctx[i, :len(c)], cl[i] = c, len(c)
+                    row = np.concatenate([ps, g])
+                    toks[i, :len(row)], nv[i] = row, len(row)
+                    slots.append(st.fslot)
+                    starts.append(ratio * len(ps))
+                    valids.append(ratio * len(g))
+                    if first:
+                        n_pf = st.req.prompt_feat.shape[0]
+                        pf[i, :n_pf], pfl[i] = st.req.prompt_feat, n_pf
+                # non-final later chunks are shape-exact (n_valid M): the
+                # cache rolls take the static slice
+                mel = fse.chunk(slots, toks, ctx, cl, nv, first, pf if first else None,
+                                pfl if first else None, ragged=first or fin)
+                sessions = [j[0].session for j in grp]
+                if fin:
+                    wavs = m.mel2wav_final_group(mel, slots, starts, valids, sessions)
+                else:
+                    wavs = m.mel2wav_stream_group(mel, slots, starts, sessions,
+                                                  win_rows=ratio * hop)
+                for (st, _, _, fin_, _), w in zip(grp, wavs):
+                    emit(st, w, fin_)
+                    if fin_:
+                        fse.release(st.fslot)
+        return deferred
+
+    def serve(self, submissions, gen: Optional[torch.Generator] = None) -> None:
+        """Online streaming TTS: pull (TTSRequest, on_chunk(wav, final)) pairs
+        from a thread-safe queue.Queue while synthesis runs; a None item
+        drains live work and returns.  `gen` drives the LM's sampling."""
+        m = self.model
+        hop, la = m.token_hop_len, m.pre_lookahead_len
+        max_hop = self.max_hop if self.max_hop is not None else 4 * hop
+        if (self.hop_scale > 1.0 and m.flow_context_tokens is not None
+                and m.flow_context_tokens < max_hop + la):
+            raise ValueError(f"flow_context_tokens ({m.flow_context_tokens}) must cover the "
+                             f"largest chunk and its lookahead ({max_hop} + {la}), so that "
+                             "the final chunk's region stays inside the window")
+
+        def next_hop(h: int) -> int:
+            if self.hop_scale <= 1.0:
+                return h
+            return min(max_hop, round_up(int(h * self.hop_scale), hop))
+
+        engine = ServingEngine(m.llm, num_slots=self.num_slots, cache_len=self.cache_len,
+                               max_out=self.max_out or m.max_decode_tokens, segment_steps=hop,
+                               first_segment_extra=max(0, la - 1),
+                               text_bucket=self.text_bucket, speech_bucket=self.speech_bucket,
+                               device=m.device)
+        jobs: list = []
+
+        def make_on_tokens(st: _Stream):
+            def on_tokens(new, fin):
+                st.tokens.extend(new.tolist())
+                tok = np.asarray(st.tokens, np.int64)
+                while len(tok) - st.offset >= st.hop + la:
+                    jobs.append((st, tok[:st.offset + st.hop + la], st.offset, False, st.hop))
+                    st.offset += st.hop
+                    st.hop = next_hop(st.hop)
+                if fin:
+                    jobs.append((st, tok, st.offset, True, 0))
+            return on_tokens
+
+        def emit(st: _Stream, wav, fin: bool) -> None:
+            if st.on_chunk is not None:
+                st.on_chunk(wav, fin)
+
+        def flush() -> None:
+            if self._fse is not None:
+                jobs[:] = self._flush_group_inc(jobs, emit)
+                return
+            if not self.batch_chunks:
+                for st, tok, off, fin, _ in jobs:
+                    r = st.req
+                    emit(st, m.token2wav(tok, r.prompt_speech_tokens, r.prompt_feat,
+                                         r.embedding, off, st.session, finalize=fin), fin)
+            else:
+                # a stream's chunks precede its final chunk in one segment
+                for streaming in (True, False):
+                    grp = [j for j in jobs if j[3] != streaming]
+                    if grp:
+                        self._flush_group(grp, emit, streaming=streaming)
+            jobs.clear()
+
+        def on_segment() -> None:
+            if jobs:
+                flush()
+
+        class _Adapter:
+            """TTS submissions as engine (GenRequest, on_tokens) pairs, with
+            queue.Queue's get(block) semantics."""
+
+            @staticmethod
+            def get(block=True):
+                item = submissions.get(block=block)
+                if item is None:
+                    return None
+                req, on_chunk = item
+                if req.pho_token is not None:
+                    raise NotImplementedError(_PHONEME_LM)
+                st = _Stream(req, on_chunk, m.new_session(), hop)
+                return (GenRequest(text=np.asarray(req.text_tokens, np.int64),
+                                   prompt_speech=np.asarray(req.prompt_speech_tokens, np.int64),
+                                   new_text_len=len(req.text_tokens) - req.prompt_text_len),
+                        make_on_tokens(st))
+
+        engine.serve(_Adapter(), gen=gen, on_segment=on_segment)
+        # the incremental mode may defer jobs past slot contention: each pass
+        # flushes finals (freeing slots) and admits the rest
+        while jobs:
+            n_before = len(jobs)
+            flush()
+            if len(jobs) >= n_before:
+                raise RuntimeError("incremental flush stalled")
+
+    def synthesize_batch(self, requests: Sequence[TTSRequest],
+                         gen: Optional[torch.Generator] = None,
+                         on_chunk: Optional[Callable] = None) -> list[np.ndarray]:
+        """Batch driver over serve(): each request's chunks, concatenated;
+        on_chunk(request_index, wav, final) as they come."""
+        subs: queue.Queue = queue.Queue()
+        chunks: list[list[np.ndarray]] = [[] for _ in requests]
+
+        def cb_for(i):
+            def cb(wav, fin):
+                chunks[i].append(wav)
+                if on_chunk is not None:
+                    on_chunk(i, wav, fin)
+            return cb
+
+        for i, r in enumerate(requests):
+            subs.put((r, cb_for(i)))
+        subs.put(None)
+        self.serve(subs, gen=gen)
+        return [np.concatenate(c) for c in chunks]

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 
 import torch_port_util as U
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from cosyvoice_tpu.config import build_from_yaml
 from cosyvoice_tpu.models import bigvgan as jb
 from cosyvoice_tpu.models.conformer import ConformerConfig as JConformerConfig

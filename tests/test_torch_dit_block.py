@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 
 import torch_port_util as U
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from cosyvoice_tpu.models import flow as jflow
 from cosyvoice_tpu.ops.pallas import dit_block as JDB
 from cosyvoice_tpu_torch import convert

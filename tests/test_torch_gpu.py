@@ -6,6 +6,7 @@ so they also run where JAX is absent:
 """
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -429,3 +430,55 @@ def test_snake_aa_refuses_what_the_kernel_does_not_take(cuda):
         K7.snake_aa(x[:, ::2], a)
     with pytest.raises(ValueError, match="contiguous"):
         K7.snake_aa(x.transpose(1, 2).contiguous().transpose(1, 2)[:, ::2], a)
+
+
+@pytest.mark.gpu
+def test_continuous_small_stack_gates(cuda):
+    """chip_smoke.py's small-stack continuous gates: the windowed
+    ContinuousSynthesizer on the card (batch_chunks on and off) against the
+    same stack's sequential stream on the CPU (tokens exact, chunks within
+    CONT_WAV_TOL) and the incremental one against the one-shot stream-masked
+    flow (INC_WAV_TOL)."""
+    import chip_smoke
+
+    res = chip_smoke.small_continuous_checks()
+    for key, g in res.items():
+        assert g["max_abs_err"] <= g["tol"], (key, g)
+        if key.startswith("windowed"):
+            assert g["tokens_equal"] and g["chunk_samples_equal"], (key, g)
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN's deterministic convolutions: its default ones may give one
+    call other last bits from run to run."""
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.gpu
+def test_grouped_vocoders_equal_per_session_loop(cuda, deterministic_cudnn):
+    """The grouped vocoders on the card, with HiFT source noise from each
+    session's generator, equal mel2wav called session by session: exactly,
+    with deterministic convolutions."""
+    import chip_smoke
+
+    model = chip_smoke.small_stack("cuda")
+    model.hift.m_source.deterministic = False
+    g = torch.Generator(device="cuda").manual_seed(3)
+    mel = torch.randn((3, 200, 80), generator=g, device="cuda") * 0.5
+    grouped = [model.new_session() for _ in range(3)]
+    single = [model.new_session() for _ in range(3)]
+    win = 2 * (model.token_hop_len + model.pre_lookahead_len)
+    errs = []
+    for step in range(2):
+        starts = [50 * step, 7, 31]
+        got = model.mel2wav_stream_group(mel, [0, 1, 2], starts, grouped, win_rows=win)
+        want = [model.mel2wav(mel[i, s:s + win], single[i], False) for i, s in enumerate(starts)]
+        errs += [float(np.abs(a - b).max()) for a, b in zip(got, want)]
+    got = model.mel2wav_final_group(mel, [0, 1, 2], [10, 20, 30], [64, 45, 100], grouped)
+    want = [model.mel2wav(mel[i, s:s + n], single[i], True)
+            for i, (s, n) in enumerate([(10, 64), (20, 45), (30, 100)])]
+    errs += [float(np.abs(a - b).max()) for a, b in zip(got, want)]
+    assert max(errs) == 0.0, errs

@@ -20,6 +20,8 @@ import cosyvoice_tpu_torch.runtime.serving, cosyvoice_tpu_torch.runtime.engine
 import cosyvoice_tpu_torch.ops.kernels.dit_block
 import cosyvoice_tpu_torch.models.bigvgan, cosyvoice_tpu_torch.ops.kernels.snake_aa
 import cosyvoice_tpu_torch.ops.resample
+import cosyvoice_tpu_torch.models.flow_chunk, cosyvoice_tpu_torch.runtime.flow_engine
+import cosyvoice_tpu_torch.bin.serve
 bad = [m for m in sys.modules
        if m in ("jax", "flax", "cosyvoice_tpu") or m.startswith(("jax.", "flax.", "cosyvoice_tpu."))]
 print(",".join(bad))

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 
 import torch_port_util as U
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from cosyvoice_tpu.models import llm as jllm
 from cosyvoice_tpu.models.qwen2 import Qwen2Config as JQwen2Config
 from cosyvoice_tpu.models.qwen2 import causal_prefill_bias as j_causal_bias

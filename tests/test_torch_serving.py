@@ -10,6 +10,7 @@ import torch
 import jax
 
 import torch_port_util as U
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from cosyvoice_tpu.runtime import engine as JE
 from cosyvoice_tpu.runtime import serving as JS
 from cosyvoice_tpu.runtime.model import CosyVoice2Model as JModel

@@ -9,6 +9,7 @@ import torch
 import jax
 
 import torch_port_util as U
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from cosyvoice_tpu.runtime.api import CosyVoice2 as JCosyVoice2
 from cosyvoice_tpu.runtime.frontend import CosyVoiceFrontEnd as JFrontEnd
 from cosyvoice_tpu.runtime.model import CosyVoice2Model as JModel

@@ -8,7 +8,9 @@ within 1e-2 of the JAX chunk (the end-to-end bar of PARITY.md), the same
 tokens, the chunk lengths of the JAX package's formula, and as many tokens
 as a non-streaming decode.  At 5 tokens/s of flow input the hop is 10
 tokens, so an 18-byte text (36 to 48 decode steps; 27 tokens emitted here)
-streams a first chunk, at least one middle chunk and a final chunk."""
+streams a first chunk, at least one middle chunk and a final chunk.  The
+other API modes (sft, cross-lingual, instruct2, voice conversion) are held
+to the JAX package's the same way, streamed and not."""
 import dataclasses
 from functools import lru_cache
 
@@ -20,6 +22,7 @@ import jax
 import jax.numpy as jnp
 
 import torch_port_util as U
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from cosyvoice_tpu.models import conformer as jconf
 from cosyvoice_tpu.models import flow as jflow
 from cosyvoice_tpu.models import hift as jhift
@@ -200,3 +203,44 @@ def test_flow_window_matches_jax():
                                               jm.windowed_noise(pfl, drop, need))
     with pytest.raises(ValueError, match="flow_context_tokens"):
         TModel(llm=tlm, flow=tm.flow, hift=th, device="cpu", flow_context_tokens=HOP)
+
+
+SPK2INFO = {"speaker": {"embedding": np.random.default_rng(4).standard_normal(24)
+                        .astype(np.float32)}}
+SOURCE = (np.sin(np.arange(16000) * 0.03) * 0.3).astype(np.float32)  # 1 s: 25 speech tokens
+MODES = {"sft": ("hello world again.", "speaker"),
+         "cross_lingual": ("hello world again.", ARGS[2]),
+         "instruct2": ("hello world again.", "speak slowly.", ARGS[2]),
+         "vc": (SOURCE, ARGS[2])}
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["oneshot", "stream"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_api_modes_match_jax(mode, stream, monkeypatch):
+    """inference_sft / _cross_lingual / _instruct2 / _vc of the port against
+    the JAX package's on the main family's weights: the tokens each chunk's
+    flow gets are equal, every chunk within 1e-2 of the JAX chunk."""
+    U.interpret_pallas(monkeypatch)
+    jm, tm = _models("main")
+    tokens_j, tokens_t = [], []
+    _recording(monkeypatch, jm, tokens_j)
+    _recording(monkeypatch, tm, tokens_t)
+    cv_j = JCosyVoice2(frontend=JFrontEnd(tokenizer=JByteTokenizer(), spk2info=SPK2INFO,
+                                          **FRONTEND), model=jm, sample_rate=2304)
+    cv_t = TCosyVoice2(frontend=TFrontEnd(tokenizer=TByteTokenizer(), device="cpu",
+                                          spk2info=SPK2INFO, **FRONTEND),
+                       model=tm, sample_rate=2304)
+    kw_j = {} if mode == "vc" else {"rng": jax.random.PRNGKey(0)}
+    kw_t = {} if mode == "vc" else {"gen": torch.Generator().manual_seed(0)}
+    wavs_j = [o["tts_speech"] for o in getattr(cv_j, f"inference_{mode}")(
+        *MODES[mode], stream=stream, **kw_j)]
+    wavs_t = [o["tts_speech"] for o in getattr(cv_t, f"inference_{mode}")(
+        *MODES[mode], stream=stream, **kw_t)]
+    assert cv_t.list_available_spks() == ["speaker"]
+    assert len(tokens_t) == len(tokens_j) == len(wavs_t) == len(wavs_j)
+    assert len(wavs_t) >= (2 if stream else 1) and len(tokens_t[-1]) > 0
+    for tt, tj in zip(tokens_t, tokens_j):
+        np.testing.assert_array_equal(tt, tj)
+    for wt, wj in zip(wavs_t, wavs_j):
+        assert wt.shape == wj.shape and np.isfinite(wt).all()
+        np.testing.assert_allclose(wt, wj, atol=1e-2)

@@ -8,6 +8,8 @@ from functools import lru_cache
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from cosyvoice_tpu.models import conformer as jconf
 from cosyvoice_tpu.models import flow as jflow
@@ -35,6 +37,20 @@ HIFT = dict(in_channels=N_MEL, base_channels=32, nb_harmonics=2, upsample_rates=
             resblock_dilation_sizes=((1, 3),), source_resblock_kernel_sizes=(5, 7),
             source_resblock_dilation_sizes=((1, 3), (1, 3)), f0_cond_channels=24,
             sampling_rate=2304)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread while a module that imports this fixture
+    runs: the suite runs in several worker processes at once, and tiny eager
+    ops with a thread a core each spin against the other workers' threads
+    (six parallel runs of tests/test_torch_continuous.py's port-only cases
+    did not finish in 900 s on 8 cores with the default, and took 30 s with
+    one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def est_kwargs(fused: bool) -> dict:
