@@ -84,7 +84,20 @@ Phases, each printing JSON lines:
      well-formed 24 kHz WAV and no exception on a worker's queue; then over
      the small fp32 stack (sequential flush, deterministic cuDNN) the PCM
      equal to pcm16 of a direct ContinuousSynthesizer run;
- 14. timing  - at the main path's shapes: each kernel against its plain
+ 14. checkpoint - a model directory in the released format, written with the
+     port alone: (a) a small fp32 one loaded by from_pretrained on the card
+     and on the CPU (text ids and S3 speech tokens exact, CAMPPlus speaker
+     vector within 5e-4, greedy tokens exact, waveform within 1e-2); (b) a
+     full-width one (LMConfig, FlowConfig, HiFTConfig, CAMPPlusConfig,
+     S3Config; fp32 .pt and .onnx files, ~3 GB) loaded with fp16=True,
+     quant="int8": seconds a file, the frontend's milliseconds for a 3 s and
+     a 10 s prompt (CAMPPlus, S3 tokenizer, prompt mel), and 3 zero-shot
+     requests from raw 16 kHz prompt audio (200-token cap): latency, RTF,
+     launches (K2 must be > 0), then one request loaded with quant="int4"
+     (K5 must be > 0); (c) `python -m cosyvoice_tpu_torch.bin.serve` over
+     (b) in a subprocess: cold start (launch to /health 200) and one
+     streamed zero-shot request, a well-formed chunked WAV;
+ 15. timing  - at the main path's shapes: each kernel against its plain
      version on the same inputs, then the kernel, the plain version and the
      one PyTorch call that computes the same function, timed (CUDA events);
      K1 also at the engine's shape (B = 8, cache 384, per-row frontiers)
@@ -113,7 +126,8 @@ grid barriers alone) and hbm_share (bytes / device time / 3.35 TB/s); the K4
 row its launches' device times by kernel (phase_ms: LN1 + qkv, K2's
 attention kernel, out-proj + LN3 + FFN) and K2 alone at the block's qkv
 shape (k2_dev_ms); every row adds launches_continuous, its launches in the
-continuous phase's windowed and incremental runs.
+continuous phase's windowed and incremental runs, and launches_checkpoint,
+its launches in the checkpoint phase's int8 and int4 requests.
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero.
 """
 from __future__ import annotations
@@ -1626,6 +1640,373 @@ def serve_phase(res_main: dict, smi: str) -> dict:
     return res
 
 
+# ---- checkpoint: a released-format model directory -------------------------
+
+# the merges of the hand-built byte-level tokenizer (GPT-2 byte alphabet,
+# "Ġ" is a space): enough to merge a few common English pieces
+CKPT_MERGES = (("Ġ", "t"), ("h", "e"), ("Ġt", "he"), ("i", "n"), ("e", "r"), ("Ġ", "a"),
+               ("o", "n"), ("r", "e"), ("Ġ", "s"), ("e", "n"), ("Ġ", "p"), ("o", "r"))
+
+
+def write_tokenizer_json(path: str) -> None:
+    """A byte-level BPE tokenizer.json in the GPT-2 form (ByteLevel with its
+    regex): the 256 byte symbols, CKPT_MERGES and <|endoftext|>; and the
+    tokenizer_config.json that lets `transformers` load the directory."""
+    import os
+
+    from cosyvoice_tpu_torch.tokenizer.text import bytes_to_unicode
+
+    vocab = {c: b for b, c in bytes_to_unicode().items()}
+    for a, b in CKPT_MERGES:
+        vocab[a + b] = len(vocab)
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                  "use_regex": True}
+    spec = {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [{"id": len(vocab), "content": "<|endoftext|>",
+                              "single_word": False, "lstrip": False, "rstrip": False,
+                              "normalized": False, "special": True}],
+            "normalizer": None, "pre_tokenizer": byte_level, "post_processor": None,
+            "decoder": byte_level,
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                      "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": [list(m) for m in CKPT_MERGES]}}
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "model_max_length": 32768}, f)
+
+
+def write_model_dir(d: str, llm, flow, hift, camp, s3, spk_dim: int, seed: int) -> None:
+    """A model directory in the released format, with the port alone:
+    llm.pt (plus the tied lm_head a released file carries), flow.pt, hift.pt
+    under `generator.`, campplus.onnx (BatchNorm's counters left out, as in
+    an export), speech_tokenizer_v2.onnx (whisper names), spk2info.pt and
+    CosyVoice-BlankEN/tokenizer.json; fp32 throughout."""
+    import os
+
+    from cosyvoice_tpu_torch.models.s3tokenizer import s3tokenizer_state_dict
+    from cosyvoice_tpu_torch.utils.onnx_io import write_onnx_tensors
+
+    cpu = lambda m: {k: v.detach().float().cpu() if v.is_floating_point() else  # noqa: E731
+                     v.detach().cpu() for k, v in m.state_dict().items()}
+    os.makedirs(d, exist_ok=True)
+    sd = cpu(llm)
+    sd["llm.model.lm_head.weight"] = sd["llm.model.model.embed_tokens.weight"]
+    torch.save(sd, os.path.join(d, "llm.pt"))
+    del sd
+    torch.save(cpu(flow), os.path.join(d, "flow.pt"))
+    torch.save({f"generator.{k}": v for k, v in cpu(hift).items()}, os.path.join(d, "hift.pt"))
+    write_onnx_tensors(os.path.join(d, "campplus.onnx"),
+                       {k: v.numpy() for k, v in cpu(camp).items()
+                        if not k.endswith("num_batches_tracked")})
+    write_onnx_tensors(os.path.join(d, "speech_tokenizer_v2.onnx"), s3tokenizer_state_dict(s3))
+    g = torch.Generator().manual_seed(seed)
+    torch.save({"speaker": {"embedding": torch.randn(spk_dim, generator=g)}},
+               os.path.join(d, "spk2info.pt"))
+    write_tokenizer_json(os.path.join(d, "CosyVoice-BlankEN"))
+
+
+def seeded_frontend_models(camp_cfg, s3_cfg, seed: int):
+    """A CAMPPlus (perturbed BatchNorm statistics) and an S3 tokenizer on the
+    card with seeded random weights."""
+    from cosyvoice_tpu_torch.models.campplus import CAMPPlus
+    from cosyvoice_tpu_torch.models.s3tokenizer import S3TokenizerV2
+
+    with torch.device("cuda"):
+        camp, s3 = CAMPPlus(camp_cfg), S3TokenizerV2(s3_cfg)
+    rand_init_(camp, seed)
+    rand_init_(s3, seed + 1)
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    with torch.no_grad():
+        for m in camp.modules():
+            if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                m.running_mean += 0.1 * torch.randn(m.running_mean.shape, generator=g,
+                                                    device="cuda")
+                m.running_var *= 0.75 + 0.5 * torch.rand(m.running_var.shape, generator=g,
+                                                         device="cuda")
+    return camp, s3
+
+
+def recording_generate(cv) -> list:
+    """Record the tokens of every LM decode of cv (a list it appends to)."""
+    got, generate = [], cv.model.llm_generate
+
+    def run(*a):
+        tokens = generate(*a)
+        got.append(np.asarray(tokens).copy())
+        return tokens
+    cv.model.llm_generate = run
+    return got
+
+
+def prompt_16k(seconds: float, seed: int) -> np.ndarray:
+    t = np.arange(int(16000 * seconds)) / 16000.0
+    return (0.3 * np.sin(2 * np.pi * 220 * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
+            + 0.01 * np.random.default_rng(seed).standard_normal(len(t))).astype(np.float32)
+
+
+def small_checkpoint_checks(d: str) -> dict:
+    """(a) A small fp32 directory loaded with device="cuda" and "cpu": text
+    ids and speech tokens exact, the speaker vector within 5e-4, greedy
+    tokens exact, the waveform within 1e-2."""
+    from cosyvoice_tpu_torch.models.campplus import CAMPPlusConfig
+    from cosyvoice_tpu_torch.models.conformer import ConformerConfig
+    from cosyvoice_tpu_torch.models.flow import (CausalMaskedDiffWithXvec, EstimatorConfig,
+                                                 FlowConfig)
+    from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
+    from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LM, SamplingConfig
+    from cosyvoice_tpu_torch.models.qwen2 import Qwen2Config
+    from cosyvoice_tpu_torch.models.s3tokenizer import S3Config
+    from cosyvoice_tpu_torch.runtime.api import from_pretrained
+
+    cfgs = dict(
+        lm_cfg=LMConfig(128, 128, 64, sampling=SamplingConfig(method="greedy"),
+                        qwen=Qwen2Config(vocab_size=300, hidden_size=128, num_layers=2,
+                                         num_heads=4, num_kv_heads=2, head_dim=64,
+                                         intermediate_size=256, rope_theta=10000.0)),
+        flow_cfg=FlowConfig(64, 80, 24, 67, encoder=ConformerConfig(64, 4, 128, 1, 64,
+                                                                    static_chunk_size=50),
+                            estimator=EstimatorConfig(in_channels=320, channels=64, n_blocks=1,
+                                                      num_mid_blocks=1, num_heads=2,
+                                                      attention_head_dim=64,
+                                                      fused_attention=True)),
+        hift_cfg=HiFTConfig(base_channels=64, nb_harmonics=2, f0_cond_channels=32,
+                            resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3),)),
+        campplus_cfg=CAMPPlusConfig(embedding_size=24, growth_rate=8, bn_size=2,
+                                    init_channels=32, blocks=((2, 3, 1), (2, 3, 2), (2, 3, 2))),
+        s3_cfg=S3Config(dim=128, heads=2, layers=2, fsq_dim=3))      # 27 ids
+    with torch.device("cuda"):
+        llm, flow = Qwen2LM(cfgs["lm_cfg"]), CausalMaskedDiffWithXvec(cfgs["flow_cfg"])
+        hift = HiFTGenerator(cfgs["hift_cfg"])
+    for i, m in enumerate((llm, flow, hift)):
+        rand_init_(m, 500 + i)
+    with torch.no_grad():           # no stop id: every decode runs to the 60-token cap
+        llm.llm_decoder.bias[64:] = -30.0
+    camp, s3 = seeded_frontend_models(cfgs["campplus_cfg"], cfgs["s3_cfg"], 510)
+    write_model_dir(d, llm, flow, hift, camp, s3, 24, 520)
+    prompt, text, ptext = prompt_16k(2.3, 7), "The quick brown fox.", "A short prompt."
+    out = {}
+    for device in ("cuda", "cpu"):
+        cv = from_pretrained(d, max_decode_tokens=60, device=device, **cfgs)
+        tokens = recording_generate(cv)
+        fe = cv.frontend.frontend_zero_shot(text, cv.frontend.text_normalize(ptext, False),
+                                            prompt)
+        wav = np.concatenate([o["tts_speech"] for o in cv.inference_zero_shot(
+            text, ptext, prompt)])
+        out[device] = (fe, tokens[0], wav)
+    (fe_g, tok_g, wav_g), (fe_c, tok_c, wav_c) = out["cuda"], out["cpu"]
+    ids_equal = all(np.array_equal(fe_g[k], fe_c[k]) for k in (
+        "text", "prompt_text", "llm_prompt_speech_token"))
+    spk_err = float(np.abs(fe_g["flow_embedding"] - fe_c["flow_embedding"]).max())
+    wav_err = (float(np.abs(wav_g - wav_c).max()) if wav_g.shape == wav_c.shape
+               else float("inf"))
+    res = {"text_ids": len(fe_g["text"]), "prompt_speech_tokens":
+           len(fe_g["llm_prompt_speech_token"]), "ids_and_speech_tokens_equal": ids_equal,
+           "speaker_vector_max_abs_err": spk_err, "speaker_tol": 5e-4,
+           "greedy_tokens": len(tok_g), "greedy_tokens_equal": bool(np.array_equal(tok_g, tok_c)),
+           "wav_samples": len(wav_g), "wav_max_abs_err": wav_err, "wav_tol": 1e-2}
+    res["ok"] = bool(ids_equal and spk_err <= 5e-4 and res["greedy_tokens_equal"]
+                     and len(tok_g) > 0 and wav_err <= 1e-2 and np.isfinite(wav_g).all())
+    return res
+
+
+def frontend_ms(cv, prompts: dict, reps: int = 5) -> dict:
+    """Milliseconds of each prompt's CAMPPlus vector, S3 tokens and 24 kHz
+    mel: every part warmed up on every prompt first, then the median of
+    `reps` calls a part and prompt."""
+    from cosyvoice_tpu_torch.runtime.frontend import resample_poly
+
+    fe = cv.frontend
+    parts = {"campplus_ms": fe.spk_embedder, "s3_tokenizer_ms": fe.speech_tokenizer,
+             "prompt_mel_ms": lambda w: fe._extract_speech_feat(
+                 resample_poly(w, 16000, fe.sample_rate))}
+    for fn in parts.values():
+        for wav in prompts.values():
+            fn(wav)
+    out = {}
+    for name, wav in prompts.items():
+        out[name] = {}
+        for key, fn in parts.items():
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(wav)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[name][key] = float(np.median(times))
+    return out
+
+
+def serve_cli_check(d: str, prompt: np.ndarray, timeout_s: float = 600.0) -> dict:
+    """(c) `python -m cosyvoice_tpu_torch.bin.serve --model_dir d --fp16 --quant
+    int8 --continuous` in a subprocess on a free port: seconds from launch to
+    /health 200 (load, warm-up and bind), one streamed zero-shot request
+    (a well-formed chunked WAV), then the server is terminated."""
+    import base64
+    import http.client
+    import os
+    import threading
+
+    cmd = [sys.executable, "-m", "cosyvoice_tpu_torch.bin.serve", "--model_dir", d, "--fp16",
+           "--quant", "int8", "--continuous", "--host", "127.0.0.1", "--port", "0",
+           "--max-decode-tokens", "200"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, ready = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("serving on"):
+                ready.set()
+        ready.set()
+    threading.Thread(target=read, daemon=True).start()
+    res = {"command": " ".join(cmd[1:])}
+    try:
+        ready.wait(timeout_s)
+        serving = [ln for ln in lines if ln.startswith("serving on")]
+        if not serving:
+            raise AssertionError(f"the server did not start (exit {proc.poll()}): "
+                                 f"{lines[-20:]}")
+        port = int(serving[0].rsplit(":", 1)[1])
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        c.request("GET", "/health")
+        r = c.getresponse()
+        health = (r.status, json.loads(r.read()))
+        res["cold_start_s"] = time.perf_counter() - t0
+        body = {"text": "The quick brown fox jumps over the lazy dog.",
+                "prompt_text": "A short prompt.",
+                "prompt_wav_b64": base64.b64encode(prompt.astype("<f4").tobytes()).decode()}
+        resp = _post(port, "/tts/zero_shot", body, stream=True)
+        res.update(health_ok=health == (200, {"status": "ok"}), stream_status=resp["status"],
+                   stream_bytes=len(resp["data"]), stream_wav_ok=_wav_ok(resp, 24000),
+                   first_data_s=resp["first_data_s"], stream_total_s=resp["total_s"],
+                   server_log=[ln for ln in lines if ln.startswith(("loaded", "continuous warmup",
+                                                                    "serving on"))])
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+    res["exit_code"] = proc.returncode
+    return res
+
+
+def checkpoint_phase(res_main: dict, K1, K2, K3, K5, smi: str) -> dict:
+    """Every user starts from a model directory: (a) a small fp32 directory
+    loaded on the card and on the CPU (small_checkpoint_checks); (b) a
+    full-width one (LMConfig, FlowConfig, HiFTConfig, CAMPPlusConfig,
+    S3Config; fp32 .pt and .onnx files as released, seeded random weights)
+    loaded with fp16=True, quant="int8": seconds a file, the frontend's
+    milliseconds for a 3 s and a 10 s prompt, and 3 zero-shot requests from
+    raw 16 kHz prompt audio (200-token cap): latency, RTF, K2 launches (must
+    be > 0: fp16 on the card takes the fused DiT attention); then one
+    request loaded with quant="int4" (K5 launches must be > 0); (c) the
+    command-line server over the same directory (serve_cli_check).  The
+    directories live under build/ and are deleted at the end."""
+    import os
+    import shutil
+    import tempfile
+
+    from cosyvoice_tpu_torch.models.campplus import CAMPPlusConfig
+    from cosyvoice_tpu_torch.models.flow import CausalMaskedDiffWithXvec, FlowConfig
+    from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
+    from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LM
+    from cosyvoice_tpu_torch.models.s3tokenizer import S3Config
+    from cosyvoice_tpu_torch.runtime.api import from_pretrained
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="checkpoint_", dir=root)
+    kernels = {"lm_decode_attention": K1, "dit_attention": K2, "fused_layer_norm": K3,
+               "int4_matmul": K5}
+    try:
+        small = small_checkpoint_checks(os.path.join(tmp, "small"))
+        full = os.path.join(tmp, "full")
+        t0 = time.perf_counter()
+        with torch.device("cuda"):
+            llm, flow, hift = Qwen2LM(LMConfig()), CausalMaskedDiffWithXvec(FlowConfig()), \
+                HiFTGenerator(HiFTConfig())
+        for i, m in enumerate((llm, flow, hift)):
+            rand_init_(m, 600 + i)
+        camp, s3 = seeded_frontend_models(CAMPPlusConfig(), S3Config(), 610)
+        write_model_dir(full, llm, flow, hift, camp, s3, 192, 620)
+        del llm, flow, hift, camp, s3
+        torch.cuda.empty_cache()
+        write_s = time.perf_counter() - t0
+        files_mb = {f: os.path.getsize(os.path.join(full, f)) / 2**20 for f in sorted(
+            os.listdir(full)) if os.path.isfile(os.path.join(full, f))}
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cv = from_pretrained(full, fp16=True, quant="int8", max_decode_tokens=200,
+                             device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        prompts = {"3s": res_main["prompt_wav"], "10s": prompt_16k(10.0, 11)}
+        frontend = frontend_ms(cv, prompts)
+        texts = ["Hello there.", "The quick brown fox jumps over the lazy dog.",
+                 "The port loads a released model directory and answers from raw audio."]
+        tokens = recording_generate(cv)
+        requests = []
+        for name in kernels:
+            kernels[name].launches = 0
+        for i, text in enumerate(texts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wav = np.concatenate([o["tts_speech"] for o in cv.inference_zero_shot(
+                text, "A short prompt.", prompts["3s"], gen=torch.Generator().manual_seed(i))])
+            torch.cuda.synchronize()
+            latency = time.perf_counter() - t0
+            requests.append({"text_bytes": len(text.encode()), "speech_tokens": len(tokens[-1]),
+                             "wav_samples": len(wav), "finite": bool(np.isfinite(wav).all()),
+                             "latency_s": latency,
+                             "rtf": latency / max(len(wav) / cv.sample_rate, 1e-9)})
+        launches = {k: m.launches for k, m in kernels.items()}
+        int8 = {"load_s": load_s, "load_seconds": cv.load_seconds, "frontend_ms": frontend,
+                "requests": requests, "launches": launches,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+        del cv
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        cv = from_pretrained(full, fp16=True, quant="int4", max_decode_tokens=200,
+                             device="cuda")
+        torch.cuda.synchronize()
+        load4_s = time.perf_counter() - t0
+        for name in kernels:
+            kernels[name].launches = 0
+        t0 = time.perf_counter()
+        wav4 = np.concatenate([o["tts_speech"] for o in cv.inference_zero_shot(
+            texts[1], "A short prompt.", prompts["3s"], gen=torch.Generator().manual_seed(1))])
+        torch.cuda.synchronize()
+        int4 = {"load_s": load4_s, "latency_s": time.perf_counter() - t0,
+                "wav_samples": len(wav4), "finite": bool(np.isfinite(wav4).all()),
+                "launches": {k: m.launches for k, m in kernels.items()}}
+        del cv
+        torch.cuda.empty_cache()
+        cli = serve_cli_check(full, prompts["3s"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"phase": "checkpoint", "card": smi, "small_fp32": small,
+           "full_width": {"files_mb": files_mb, "write_s": write_s, "int8": int8,
+                          "int4": int4},
+           "serve_cli": cli}
+    emit(res)
+    gates = [small["ok"], all(r["finite"] and r["wav_samples"] > 0 for r in requests),
+             launches["dit_attention"] > 0, int4["finite"],
+             int4["launches"]["int4_matmul"] > 0, cli["health_ok"], cli["stream_wav_ok"]]
+    if not all(gates):
+        raise AssertionError(f"checkpoint phase failed: {res}")
+    return res
+
+
 def profile_request(run) -> None:
     """One more request under torch.profiler: device kernel time by name and
     the device's busy share of the wall time."""
@@ -2080,6 +2461,7 @@ def main() -> int:
     b1 = stream_phase(res, K1, K2, K3, smi)["first_chunk_latency_s"]
     cont = continuous_phase(res, b1, K1, K2, K3, smi)
     serve_phase(res, smi)
+    ckpt = checkpoint_phase(res, K1, K2, K3, K5, smi)["full_width"]
     flow = res["stack"][1]
     del res["stack"]
     rows = timing(K1, K2, K3, K4, K5, K6, K7, res["last_decode"], flow, batched["block_shape"])
@@ -2097,6 +2479,8 @@ def main() -> int:
         row["launches_continuous"] = {
             mode: cont[mode]["launches"].get(row["name"], 0)
             for mode in ("windowed", "incremental")}
+        row["launches_checkpoint"] = {
+            quant: ckpt[quant]["launches"].get(row["name"], 0) for quant in ("int8", "int4")}
         row.update(edge_max_abs_err=errs[row["name"]],
                    tolerance=tolerance.get(row["name"], CHECK_TOL[torch.bfloat16]),
                    kernel_ms=row["ms"])

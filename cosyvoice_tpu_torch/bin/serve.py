@@ -20,17 +20,21 @@ rate); with "stream": true it is chunked WAV with an unbounded data-size
 header, one chunk a synthesis hop.  An unknown path is 404, a body that is
 not JSON 400, and a failed synthesis 500.
 
-Start it from Python over a CosyVoice2 (runtime/api.py) on the GPU:
+From the command line, over a released-format model directory on the GPU:
+
+    python -m cosyvoice_tpu_torch.bin.serve --model_dir DIR --fp16 --quant int8 \
+        --continuous [--port 8080] [--no-warmup] [--device cuda]
+
+loads it with `runtime/api.from_pretrained`, builds the worker, warms it up
+and prints `serving on HOST:PORT` (the bound port: `--port 0` takes a free
+one).  From Python, over a CosyVoice2 (runtime/api.py):
 
     httpd = serve(cv, host="0.0.0.0", port=8080, continuous=True)
     httpd.serve_forever()
-
-The command-line `main()` of the JAX package loads a checkpoint directory
-through `from_pretrained`, which the port does not have yet, so it waits
-for it.
 """
 from __future__ import annotations
 
+import argparse
 import base64
 import io
 import json
@@ -370,3 +374,59 @@ def serve(cosyvoice, host: str = "0.0.0.0", port: int = 8080, continuous: bool =
     httpd = ThreadingHTTPServer((host, port), make_handler(worker, cosyvoice.sample_rate))
     httpd.worker = worker
     return httpd
+
+
+def build_server(argv: Optional[list] = None) -> ThreadingHTTPServer:
+    """Parse the command line, load the model directory, build the worker
+    (so that the warm-up drives the serving backend itself), warm it up
+    unless --no-warmup, and bind the server; the caller runs
+    serve_forever()."""
+    ap = argparse.ArgumentParser(description="CosyVoice2 HTTP server over a model directory")
+    ap.add_argument("--model_dir", required=True)
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8080, help="0 takes a free port")
+    ap.add_argument("--fp16", action="store_true")
+    ap.add_argument("--quant", default="none", choices=["none", "int8", "int4"])
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching backend (requests share the slot engine "
+                         "instead of queueing one by one)")
+    ap.add_argument("--num_slots", type=int, default=8)
+    ap.add_argument("--max-decode-tokens", type=int, default=1600,
+                    help="hard per-segment speech-token ceiling (~tokens/25 s of audio)")
+    ap.add_argument("--no-warmup", action="store_true",
+                    help="skip the synthetic warm-up requests (the first real request "
+                         "then builds the kernels)")
+    ap.add_argument("--flow-context-tokens", type=int, default=None,
+                    help="streaming flow context window in generated tokens (>= 53)")
+    ap.add_argument("--device", default=None, help="default: the GPU; 'cpu' runs the "
+                                                   "plain PyTorch versions")
+    args = ap.parse_args(argv)
+    from cosyvoice_tpu_torch.runtime.api import from_pretrained
+
+    cv = from_pretrained(args.model_dir, fp16=args.fp16, quant=args.quant,
+                         max_decode_tokens=args.max_decode_tokens,
+                         flow_context_tokens=args.flow_context_tokens, device=args.device)
+    print("loaded " + ", ".join(f"{k} {v:.2f}s" for k, v in cv.load_seconds.items()),
+          flush=True)
+    worker = (ContinuousWorker(cv, num_slots=args.num_slots) if args.continuous
+              else SynthesisWorker(cv))
+    if not args.no_warmup:
+        if args.continuous:
+            warmup_continuous(worker, args.num_slots)
+        else:
+            warmup(cv)
+    return serve(cv, args.host, args.port, worker=worker)
+
+
+def main(argv: Optional[list] = None) -> None:
+    httpd = build_server(argv)
+    host, port = httpd.server_address[:2]
+    print(f"serving on {host}:{port}", flush=True)
+    try:
+        httpd.serve_forever()
+    finally:
+        httpd.worker.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -6,21 +6,37 @@ normalizes and splits the text, then runs `model.tts()` a segment, logging
 the RTF of each yielded chunk: one chunk a segment, or with `stream=True`
 the segment's streamed chunks as they are synthesized.  `inference_vc` has
 no LM stage: the source's speech tokens go through the flow and vocoder,
-streamed in hop-sized chunks with `stream=True`.  Loading released
-checkpoints (`from_pretrained`) comes with checkpoint support.
+streamed in hop-sized chunks with `stream=True`.  `from_pretrained` builds
+one from a released-format model directory.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
+import os
 import time
-from dataclasses import dataclass
-from typing import Iterator, Optional
+from dataclasses import dataclass, field
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 
+from cosyvoice_tpu_torch import convert
+from cosyvoice_tpu_torch.device import resolve_device
+from cosyvoice_tpu_torch.models.campplus import (CAMPPlusConfig, import_campplus_onnx,
+                                                 make_campplus_frontend_fn)
+from cosyvoice_tpu_torch.models.flow import (CausalMaskedDiffWithXvec, FlowConfig,
+                                             reference_rand_noise)
+from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
+from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LM
+from cosyvoice_tpu_torch.models.s3tokenizer import (S3Config, import_s3tokenizer_onnx,
+                                                    make_s3_frontend_fn)
 from cosyvoice_tpu_torch.runtime.frontend import CosyVoiceFrontEnd
 from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model
+from cosyvoice_tpu_torch.tokenizer.text import QwenTokenizer
+from cosyvoice_tpu_torch.utils.checkpoint import load_by_name
+from cosyvoice_tpu_torch.utils.npz_io import load_params_npz
+from cosyvoice_tpu_torch.utils.quant import quantize_qwen_int4, quantize_qwen_int8
 
 logger = logging.getLogger(__name__)
 
@@ -30,6 +46,8 @@ class CosyVoice2:
     frontend: CosyVoiceFrontEnd
     model: CosyVoice2Model
     sample_rate: int = 24000
+    # seconds `from_pretrained` took for each file it read (and the tokenizer)
+    load_seconds: dict = field(default_factory=dict)
 
     def list_available_spks(self) -> list[str]:
         return list(self.frontend.spk2info.keys())
@@ -113,3 +131,137 @@ class CosyVoice2:
                                              finalize=False)}
             off += hop
         yield {"tts_speech": m.token2wav(tokens, *args, off, session, finalize=True)}
+
+
+def _weights_file(model_dir: str, stem: str) -> str:
+    """`<stem>.npz` (a JAX parameter tree) when the directory has one, else
+    `<stem>.pt` (a reference state_dict)."""
+    npz = os.path.join(model_dir, f"{stem}.npz")
+    return npz if os.path.exists(npz) else os.path.join(model_dir, f"{stem}.pt")
+
+
+def _load_weights(module: torch.nn.Module, path: str, from_jax: Callable[[dict], dict],
+                  strip: str = "") -> None:
+    """A .npz through convert.py's `from_jax`, or a .pt with `strip` removed
+    from its keys, loaded by name into `module`."""
+    if path.endswith(".npz"):
+        tensors = from_jax(load_params_npz(path))
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        tensors = {k.removeprefix(strip): v for k, v in sd.items()}
+    load_by_name(module, tensors, path)
+
+
+def _load_spk2info(model_dir: str) -> dict:
+    """spk2info.npz (the JAX package's table) or spk2info.pt (the reference's
+    sft speakers; loaded with weights_only) -> {spk: {"embedding": [D]}}."""
+    npz = os.path.join(model_dir, "spk2info.npz")
+    pt = os.path.join(model_dir, "spk2info.pt")
+    if os.path.exists(npz):
+        raw = load_params_npz(npz)
+    elif os.path.exists(pt):
+        raw = torch.load(pt, map_location="cpu", weights_only=True)
+    else:
+        return {}
+    return {k: {"embedding": np.asarray(v["embedding"], np.float32).reshape(-1)}
+            for k, v in raw.items()}
+
+
+def from_pretrained(model_dir: str, tokenizer_path: Optional[str] = None,
+                    max_decode_tokens: int = 1600, fp16: bool = False, quant: str = "none",
+                    lm_cfg: Optional[LMConfig] = None, flow_cfg: Optional[FlowConfig] = None,
+                    hift_cfg: Optional[HiFTConfig] = None,
+                    campplus_cfg: Optional[CAMPPlusConfig] = None,
+                    s3_cfg: Optional[S3Config] = None, reference_noise: bool = True,
+                    flow_context_tokens: Optional[int] = None, device=None) -> CosyVoice2:
+    """CosyVoice2 on `device` (None: the GPU; raises without one) from a
+    released-format model directory:
+      llm / flow / hift: `<stem>.npz` (a JAX parameter tree) if present, else
+        `<stem>.pt` (hift.pt's `generator.` prefix stripped), loaded by name;
+        a weight the module needs and the file lacks raises KeyError, and
+        what the module does not read (a tied lm_head) is ignored;
+      spk2info.npz or spk2info.pt: the sft speakers (optional);
+      campplus.onnx, speech_tokenizer_v2.onnx: the speaker embedder and the
+        speech tokenizer, each optional (without one, the modes that need it
+        raise ValueError and sft still runs);
+      the Qwen tokenizer from `tokenizer_path` or <dir>/CosyVoice-BlankEN.
+    The knobs are the JAX package's (runtime/api.py::from_pretrained), the
+    JAX "on a TPU" read as "on the card":
+      fp16: a bf16 LM; a bf16 conformer encoder and estimator with
+        tanh-gelu and, on the card, the fused DiT attention (K2); a bf16
+        HiFT with the polynomial sine.  The LM's fused cache update (K1)
+        and the fused LayerNorm (K3) stay as the configs have them (off by
+        default), as in the JAX package;
+      quant: "int8" or "int4" LM projections (int4 through K5), quantized
+        after the bf16 cast, so the scales stay fp32;
+      reference_noise: pin the reference's seed-0 CFM noise when the flow
+        has 80 mel bins (the port's CFM slices the same buffer by default);
+      max_decode_tokens, flow_context_tokens: as in CosyVoice2Model.
+    The *_cfg keywords replace the full-size configurations (tests, smaller
+    deployments).  `load_seconds` on the result times each file read."""
+    device = resolve_device(device)
+    on_card = device.type == "cuda"
+    lm_cfg, flow_cfg = lm_cfg or LMConfig(), flow_cfg or FlowConfig()
+    hift_cfg = hift_cfg or HiFTConfig()
+    if quant not in ("none", "int8", "int4"):
+        raise ValueError(f"quant must be none, int8 or int4, got {quant!r}")
+    if fp16:
+        flow_cfg = dataclasses.replace(
+            flow_cfg, encoder_dtype="bfloat16", estimator=dataclasses.replace(
+                flow_cfg.estimator, dtype="bfloat16", approx_gelu=True,
+                fused_attention=on_card))
+        hift_cfg = dataclasses.replace(hift_cfg, dtype="bfloat16", approx_sin=True)
+    seconds: dict = {}
+
+    def timed(name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    with torch.device(device):          # build on the device: no host-side init
+        llm = Qwen2LM(lm_cfg)
+        flow = CausalMaskedDiffWithXvec(flow_cfg)
+        hift = HiFTGenerator(hift_cfg)
+    for module, stem, from_jax, strip in ((llm, "llm", convert.lm_state_from_jax, ""),
+                                          (flow, "flow", convert.flow_state_from_jax, ""),
+                                          (hift, "hift", convert.hift_state_from_jax,
+                                           "generator.")):
+        path = _weights_file(model_dir, stem)
+        timed(os.path.basename(path), _load_weights, module, path, from_jax, strip)
+    if fp16:
+        llm.to(torch.bfloat16)
+        flow.encoder.to(torch.bfloat16)
+        flow.decoder.estimator.to(torch.bfloat16)
+        hift.to(torch.bfloat16)
+    if quant != "none":
+        quantize = quantize_qwen_int8 if quant == "int8" else quantize_qwen_int4
+        state = quantize(llm.state_dict())
+        del llm
+        with torch.device(device):
+            llm = Qwen2LM(dataclasses.replace(lm_cfg, qwen=dataclasses.replace(
+                lm_cfg.qwen, quant=quant)))
+        llm.load_state_dict(state, strict=True, assign=True)  # int weights, fp32 scales
+    flow_noise = None
+    if reference_noise and flow_cfg.output_size == 80:
+        flow_noise = reference_rand_noise(flow_cfg.cfm.noise_frames)
+    model = CosyVoice2Model(llm=llm, flow=flow, hift=hift, max_decode_tokens=max_decode_tokens,
+                            flow_noise=flow_noise, device=device,
+                            flow_context_tokens=flow_context_tokens)
+    tok = timed("tokenizer", QwenTokenizer,
+                tokenizer_path or os.path.join(model_dir, "CosyVoice-BlankEN"))
+    spk_embedder = speech_tokenizer = None
+    path = os.path.join(model_dir, "campplus.onnx")
+    if os.path.exists(path):
+        spk_embedder = make_campplus_frontend_fn(timed(
+            "campplus.onnx", import_campplus_onnx, path, campplus_cfg or CAMPPlusConfig(),
+            device))
+    path = os.path.join(model_dir, "speech_tokenizer_v2.onnx")
+    if os.path.exists(path):
+        speech_tokenizer = make_s3_frontend_fn(timed(
+            "speech_tokenizer_v2.onnx", import_s3tokenizer_onnx, path, s3_cfg or S3Config(),
+            device))
+    frontend = CosyVoiceFrontEnd(tokenizer=tok, speech_tokenizer=speech_tokenizer,
+                                 spk_embedder=spk_embedder, spk2info=_load_spk2info(model_dir),
+                                 device=device)
+    return CosyVoice2(frontend=frontend, model=model, load_seconds=seconds)

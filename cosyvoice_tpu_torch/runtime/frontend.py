@@ -3,8 +3,10 @@
 Port of cosyvoice_tpu/runtime/frontend.py: the model inputs of the sft
 (a registered speaker's vector from `spk2info`), zero-shot, cross-lingual,
 instruct2 and voice-conversion modes.  The speech tokenizer and speaker
-embedder are injected callables; the 24 kHz prompt mel comes from ops/mel on
-`device` (the GPU unless the caller passes "cpu").  Zero-shot keeps feat ==
+embedder are injected callables (`runtime/api.from_pretrained` wires the
+port's S3 tokenizer and CAMPPlus); the 24 kHz prompt mel comes from ops/mel
+on `device` (the GPU unless the caller passes "cpu").  `text_normalizer`
+replaces the built-in text normalization.  Zero-shot keeps feat ==
 2 * token length at 24 kHz.  The v1 instruct mode comes with the v1 slice.
 """
 from __future__ import annotations
@@ -39,6 +41,7 @@ class CosyVoiceFrontEnd:
     mel_n_fft: int = 1920
     mel_hop: int = 480
     device: Union[str, torch.device, None] = None  # None: the GPU
+    text_normalizer: Optional[Callable] = None     # (text, split) -> list[str] | str
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -66,6 +69,10 @@ class CosyVoiceFrontEnd:
         return np.asarray(self.spk_embedder(speech_16k), np.float32)
 
     def text_normalize(self, text: str, split: bool = True):
+        """The segments of `text` (its normalized string with split=False),
+        by `text_normalizer` when one is given, else textnorm's rules."""
+        if self.text_normalizer is not None:
+            return self.text_normalizer(text, split)
         return textnorm.basic_normalize(text, self.tokenizer.encode, split)
 
     def frontend_sft(self, tts_text: str, spk_id: str) -> dict:

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and its
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+`transformers` / `tokenizers`: it reads tokenizer.json itself), and its
 entry points do not fall back to the CPU unless asked to."""
 import subprocess
 import sys
@@ -21,9 +22,14 @@ import cosyvoice_tpu_torch.ops.kernels.dit_block
 import cosyvoice_tpu_torch.models.bigvgan, cosyvoice_tpu_torch.ops.kernels.snake_aa
 import cosyvoice_tpu_torch.ops.resample
 import cosyvoice_tpu_torch.models.flow_chunk, cosyvoice_tpu_torch.runtime.flow_engine
-import cosyvoice_tpu_torch.bin.serve
+import cosyvoice_tpu_torch.bin.serve, cosyvoice_tpu_torch.bin.inference
+import cosyvoice_tpu_torch.utils.onnx_io, cosyvoice_tpu_torch.utils.npz_io
+import cosyvoice_tpu_torch.utils.audio, cosyvoice_tpu_torch.utils.checkpoint
+import cosyvoice_tpu_torch.ops.kaldi, cosyvoice_tpu_torch.models.campplus
+import cosyvoice_tpu_torch.models.s3tokenizer
 bad = [m for m in sys.modules
-       if m in ("jax", "flax", "cosyvoice_tpu") or m.startswith(("jax.", "flax.", "cosyvoice_tpu."))]
+       if m in ("jax", "flax", "cosyvoice_tpu", "transformers", "tokenizers")
+       or m.startswith(("jax.", "flax.", "cosyvoice_tpu.", "transformers.", "tokenizers."))]
 print(",".join(bad))
 """
 

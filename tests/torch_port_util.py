@@ -3,6 +3,7 @@ package's modules (the reference) and the PyTorch port's, with the JAX
 params carried over by cosyvoice_tpu_torch.convert.  Sizes follow
 tests/test_runtime.py::build_tiny_stack, with 2 x 64 estimator heads so the
 DiT attention kernel's path is taken."""
+import json
 from functools import lru_cache
 
 import jax
@@ -18,11 +19,13 @@ from cosyvoice_tpu.models import llm as jllm
 from cosyvoice_tpu.models.qwen2 import Qwen2Config as JQwen2Config
 from cosyvoice_tpu.utils.quant import quantize_qwen_int8
 from cosyvoice_tpu_torch import convert
+from cosyvoice_tpu_torch.models import campplus as tcamp
 from cosyvoice_tpu_torch.models import conformer as tconf
 from cosyvoice_tpu_torch.models import flow as tflow
 from cosyvoice_tpu_torch.models import hift as thift
 from cosyvoice_tpu_torch.models import llm as tllm
 from cosyvoice_tpu_torch.models.qwen2 import Qwen2Config as TQwen2Config
+from cosyvoice_tpu_torch.utils import onnx_io as tonnx
 
 SPEECH_VOCAB = 24
 N_MEL = 16
@@ -170,3 +173,80 @@ def build_hift():
     tm = thift.HiFTGenerator(thift.HiFTConfig(**HIFT), deterministic=True)
     tm.load_state_dict(convert.hift_state_from_jax(params), strict=True)
     return jm, params, tm.eval()
+
+
+# ---- model-directory pieces (tests/test_torch_frontend_models.py,
+# tests/test_torch_checkpoint.py) ----------
+
+# a CAMPPlus with the released layout but few, narrow dense layers; an S3
+# tokenizer of two 64-wide layers with 9 ids (fsq_dim 2)
+CAMP = dict(feat_dim=80, embedding_size=24, growth_rate=4, bn_size=2, init_channels=8,
+            blocks=((3, 3, 1), (4, 3, 2), (3, 3, 2)))
+S3 = dict(dim=64, heads=4, layers=2, fsq_dim=2)
+
+
+def prompt_wav(seconds: float, seed: int = 0) -> np.ndarray:
+    """Two tones with a slow tremolo and a little noise, at 16 kHz."""
+    t = np.arange(int(16000 * seconds)) / 16000.0
+    noise = np.random.default_rng(seed).standard_normal(len(t))
+    return (0.3 * np.sin(2 * np.pi * 220 * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
+            + 0.1 * np.sin(2 * np.pi * 443 * t) + 0.01 * noise).astype(np.float32)
+
+
+def seeded_campplus(seed: int = 0) -> tcamp.CAMPPlus:
+    """A port CAMPPlus with torch's default init and perturbed BatchNorm
+    affines and running statistics (so eval-mode BN is not an identity)."""
+    torch.manual_seed(seed)
+    model = tcamp.CAMPPlus(tcamp.CAMPPlusConfig(**CAMP))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                m.running_mean += torch.randn_like(m.running_mean) * 0.1
+                m.running_var *= torch.rand_like(m.running_var) * 0.5 + 0.75
+                if m.affine:
+                    m.weight += torch.randn_like(m.weight) * 0.1
+                    m.bias += torch.randn_like(m.bias) * 0.1
+    return model
+
+
+def write_campplus_onnx(path: str, model: tcamp.CAMPPlus) -> None:
+    """The export's initializers: every state_dict entry but BN's counter."""
+    tonnx.write_onnx_tensors(path, {k: v.numpy() for k, v in model.state_dict().items()
+                                    if not k.endswith("num_batches_tracked")})
+
+
+CORPUS = ["hello world this is a test", "the quick brown fox", "Héllo café naïve résumé",
+          "你好世界，今天天气很好。", "数字 12345 和 3.14", "I'm you're they've we'll it's don't",
+          "  multiple   spaces\n\nand\tnewlines\r\n", "ÀÉÎÕÜ ñ ç ß"]
+
+def tokenizer_dir(path, form: str) -> str:
+    """A tokenizer.json trained with `tokenizers`: the GPT-2 form (ByteLevel
+    with its regex, "<|endoftext|>" in the vocab) or Qwen2's (NFC, Split on
+    Qwen2's regex, then ByteLevel without one; its three specials added past
+    the vocab, as in Qwen2's file)."""
+    from tokenizers import Regex, Tokenizer, decoders, models, normalizers, pre_tokenizers, \
+        trainers
+
+    path.mkdir()
+    tok = Tokenizer(models.BPE(unk_token=None))
+    if form == "gpt2":
+        tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+        specials = ["<|endoftext|>"]
+    else:
+        from cosyvoice_tpu_torch.tokenizer.text import QWEN2_PATTERN
+
+        tok.normalizer = normalizers.NFC()
+        tok.pre_tokenizer = pre_tokenizers.Sequence([
+            pre_tokenizers.Split(Regex(QWEN2_PATTERN), behavior="isolated", invert=False),
+            pre_tokenizers.ByteLevel(add_prefix_space=False, use_regex=False)])
+        specials = []
+    tok.decoder = decoders.ByteLevel()
+    tok.train_from_iterator(CORPUS * 3, trainers.BpeTrainer(
+        vocab_size=400, special_tokens=specials,
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    if form == "qwen2":
+        tok.add_special_tokens(["<|endoftext|>", "<|im_start|>", "<|im_end|>"])
+    tok.save(str(path / "tokenizer.json"))
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "PreTrainedTokenizerFast", "model_max_length": 512}))
+    return str(path)
