@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of CosyVoice2 on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of CosyVoice2 (and CosyVoice v1) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repo root; needs one CUDA GPU
     python3 chip_smoke.py --profile  # also profile one more request
@@ -97,7 +97,20 @@ Phases, each printing JSON lines:
      (K5 must be > 0); (c) `python -m cosyvoice_tpu_torch.bin.serve` over
      (b) in a subprocess: cold start (launch to /health 200) and one
      streamed zero-shot request, a well-formed chunked WAV;
- 15. timing  - at the main path's shapes: each kernel against its plain
+ 15. v1      - CosyVoice-300M at full width on seeded random weights
+     (TransformerLMConfig() fp32 with non_random_ras, FlowV1Config() with its
+     two-level non-causal estimator in bf16 on the K2 + K3 route, unpadded,
+     the 22.05 kHz HiFT; frontend at 22.05 kHz with the port's CAMPPlus, a
+     seeded speech-token callable and WhisperTiktokenTokenizer): a small
+     fp32 v1 stack on the card against the CPU (greedy tokens exact,
+     waveform within 1e-2); two zero-shot requests (3 s prompt, cap 200), one
+     streamed (its tokens equal to a one-shot decode on the same generator,
+     chunk lengths the v1 formula's: hop 50, overlap 20, 68-frame mel fade,
+     20-frame HiFT caches), one instruct request: latency, RTF, LM ms/token,
+     flow and HiFT seconds, first chunk, peak memory; K2 / K3 launches equal
+     to 640 / 1280 a flow call; K2 and K3 against their plain versions at
+     the estimator's shapes (B = 2, an odd T and ceil(T / 2)) and timed there;
+ 16. timing  - at the main path's shapes: each kernel against its plain
      version on the same inputs, then the kernel, the plain version and the
      one PyTorch call that computes the same function, timed (CUDA events);
      K1 also at the engine's shape (B = 8, cache 384, per-row frontiers)
@@ -126,8 +139,10 @@ grid barriers alone) and hbm_share (bytes / device time / 3.35 TB/s); the K4
 row its launches' device times by kernel (phase_ms: LN1 + qkv, K2's
 attention kernel, out-proj + LN3 + FFN) and K2 alone at the block's qkv
 shape (k2_dev_ms); every row adds launches_continuous, its launches in the
-continuous phase's windowed and incremental runs, and launches_checkpoint,
-its launches in the checkpoint phase's int8 and int4 requests.
+continuous phase's windowed and incremental runs, launches_checkpoint, its
+launches in the checkpoint phase's int8 and int4 requests, and launches_v1,
+its launches in the v1 phase's four requests; the K2 and K3 rows add
+v1_shapes, their times at the v1 estimator's two levels.
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero.
 """
 from __future__ import annotations
@@ -607,7 +622,7 @@ def small_stack(device: str, max_decode_tokens: int = 60, stream: bool = False):
                                             fused_cache_update=True)))
     flow = CausalMaskedDiffWithXvec(FlowConfig(
         64, 80, 24, 67, encoder=ConformerConfig(64, 4, 128, 1, 64, static_chunk_size=50),
-        estimator=EstimatorConfig(in_channels=320, channels=64, n_blocks=1,
+        estimator=EstimatorConfig(in_channels=320, channels=(64,), n_blocks=1,
                                   num_mid_blocks=1, num_heads=2, attention_head_dim=64,
                                   fused_attention=True, fused_norm=True, approx_gelu=True,
                                   stream=stream, left_chunks=2 if stream else -1)))
@@ -1709,15 +1724,24 @@ def write_model_dir(d: str, llm, flow, hift, camp, s3, spk_dim: int, seed: int) 
 
 
 def seeded_frontend_models(camp_cfg, s3_cfg, seed: int):
-    """A CAMPPlus (perturbed BatchNorm statistics) and an S3 tokenizer on the
-    card with seeded random weights."""
-    from cosyvoice_tpu_torch.models.campplus import CAMPPlus
+    """A CAMPPlus (seeded_campplus) and an S3 tokenizer on the card with
+    seeded random weights."""
     from cosyvoice_tpu_torch.models.s3tokenizer import S3TokenizerV2
 
     with torch.device("cuda"):
-        camp, s3 = CAMPPlus(camp_cfg), S3TokenizerV2(s3_cfg)
-    rand_init_(camp, seed)
+        s3 = S3TokenizerV2(s3_cfg)
     rand_init_(s3, seed + 1)
+    return seeded_campplus(camp_cfg, seed), s3
+
+
+def seeded_campplus(camp_cfg, seed: int):
+    """A CAMPPlus on the card with seeded random weights and perturbed
+    BatchNorm statistics (so eval-mode BN is not an identity)."""
+    from cosyvoice_tpu_torch.models.campplus import CAMPPlus
+
+    with torch.device("cuda"):
+        camp = CAMPPlus(camp_cfg)
+    rand_init_(camp, seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
     with torch.no_grad():
         for m in camp.modules():
@@ -1726,7 +1750,7 @@ def seeded_frontend_models(camp_cfg, s3_cfg, seed: int):
                                                     device="cuda")
                 m.running_var *= 0.75 + 0.5 * torch.rand(m.running_var.shape, generator=g,
                                                          device="cuda")
-    return camp, s3
+    return camp
 
 
 def recording_generate(cv) -> list:
@@ -1768,7 +1792,7 @@ def small_checkpoint_checks(d: str) -> dict:
                                          intermediate_size=256, rope_theta=10000.0)),
         flow_cfg=FlowConfig(64, 80, 24, 67, encoder=ConformerConfig(64, 4, 128, 1, 64,
                                                                     static_chunk_size=50),
-                            estimator=EstimatorConfig(in_channels=320, channels=64, n_blocks=1,
+                            estimator=EstimatorConfig(in_channels=320, channels=(64,), n_blocks=1,
                                                       num_mid_blocks=1, num_heads=2,
                                                       attention_head_dim=64,
                                                       fused_attention=True)),
@@ -2004,6 +2028,328 @@ def checkpoint_phase(res_main: dict, K1, K2, K3, K5, smi: str) -> dict:
              int4["launches"]["int4_matmul"] > 0, cli["health_ok"], cli["stream_wav_ok"]]
     if not all(gates):
         raise AssertionError(f"checkpoint phase failed: {res}")
+    return res
+
+
+# the v1 phase's HiFT: CosyVoice-300M's at 22.05 kHz (8 x 8 x 4 = 256 samples a
+# mel frame, the hop CosyVoiceV1Model's mel counts assume)
+V1_HIFT = dict(sampling_rate=22050, upsample_rates=(8, 8), upsample_kernel_sizes=(16, 16),
+               source_resblock_kernel_sizes=(7, 11),
+               source_resblock_dilation_sizes=((1, 3, 5), (1, 3, 5)))
+V1_TEXTS = ("Hello there, this is the first voice.",
+            "The quick brown fox jumps over the lazy dog.")
+# a few merges of the v1 phase's ranks file (after the 256 bytes)
+V1_MERGES = (b"th", b"he", b" t", b"the", b"in", b"er", b" a", b"re", b"on", b" the",
+             b"ou", b"is", b"ll", b"o ", b"ing", b" w")
+
+
+def v1_tokenizer(d: str):
+    """The ported WhisperTiktokenTokenizer over a small ranks file written
+    into d: the 256 bytes, then V1_MERGES."""
+    import base64
+    import os
+
+    from cosyvoice_tpu_torch.tokenizer.text import WhisperTiktokenTokenizer
+
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "v1.tiktoken")
+    ranks = [bytes([b]) for b in range(256)] + list(V1_MERGES)
+    with open(path, "w") as f:
+        f.writelines(f"{base64.b64encode(t).decode()} {r}\n" for r, t in enumerate(ranks))
+    return WhisperTiktokenTokenizer(path)
+
+
+def v1_small_stack(device: str):
+    """A small fp32 CosyVoice v1 stack whose widths the kernels take (head_dim
+    64, C % 32 == 0): the two-level non-causal estimator on the K2 + K3 route,
+    greedy LM, deterministic 22.05 kHz HiFT."""
+    from cosyvoice_tpu_torch.models.conformer import ConformerConfig
+    from cosyvoice_tpu_torch.models.flow import EstimatorConfig, FlowV1Config, MaskedDiffWithXvec
+    from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
+    from cosyvoice_tpu_torch.models.llm import SamplingConfig, TransformerLM, TransformerLMConfig
+    from cosyvoice_tpu_torch.runtime.model import CosyVoiceV1Model
+
+    torch.manual_seed(0)
+    llm = TransformerLM(TransformerLMConfig(
+        64, 128, 128, 300, 64, 24, sampling=SamplingConfig(method="greedy"),
+        text_encoder=ConformerConfig(128, 4, 256, 1, 64, static_chunk_size=1),
+        llm=ConformerConfig(128, 4, 256, 2, 128, static_chunk_size=1,
+                            input_layer="linear_legacy", activation="relu")))
+    flow = MaskedDiffWithXvec(FlowV1Config(
+        64, 80, 24, 64, encoder=ConformerConfig(64, 4, 128, 1, 64),
+        estimator=EstimatorConfig(in_channels=320, causal=False, channels=(64, 64), n_blocks=1,
+                                  num_mid_blocks=1, num_heads=2, attention_head_dim=64,
+                                  fused_attention=True, fused_norm=True),
+        regulator_stages=2))
+    hift = HiFTGenerator(HiFTConfig(base_channels=64, nb_harmonics=2, f0_cond_channels=32,
+                                    resblock_kernel_sizes=(3,),
+                                    resblock_dilation_sizes=((1, 3),), **V1_HIFT),
+                         deterministic=True)
+    return CosyVoiceV1Model(llm=llm, flow=flow, hift=hift, max_decode_tokens=60, device=device)
+
+
+def v1_reference_check() -> dict:
+    """The small v1 stack on the card (kernels) and on the CPU (plain
+    versions), same inputs: greedy tokens exact, waveform within 1e-2."""
+    rng = np.random.default_rng(13)
+    inputs = dict(text_tokens=rng.integers(0, 256, 20), prompt_text_len=5,
+                  llm_prompt_speech_token=rng.integers(0, 64, 25),
+                  flow_prompt_speech_token=rng.integers(0, 64, 25),
+                  prompt_speech_feat=rng.standard_normal((86, 80)).astype(np.float32),
+                  flow_embedding=rng.standard_normal(24).astype(np.float32),
+                  llm_embedding=rng.standard_normal(24).astype(np.float32))
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = v1_small_stack(device)
+        tokens = model.llm_generate(inputs["text_tokens"], 5, inputs["llm_prompt_speech_token"],
+                                    inputs["llm_embedding"], None)
+        wav = next(model.tts(**inputs))["tts_speech"]
+        out[device] = (tokens, wav)
+    (tok_g, wav_g), (tok_c, wav_c) = out["cuda"], out["cpu"]
+    err = float(np.abs(wav_g - wav_c).max()) if wav_g.shape == wav_c.shape else float("inf")
+    res = {"phase": "v1", "check": "reference", "tokens": len(tok_g),
+           "tokens_equal": bool(np.array_equal(tok_g, tok_c)), "wav_samples": len(wav_g),
+           "wav_max_abs_err": err, "tol": 1e-2, "finite": bool(np.isfinite(wav_g).all())}
+    emit(res)
+    if not (res["tokens_equal"] and err <= 1e-2 and res["finite"] and len(tok_g)):
+        raise AssertionError(f"the small v1 stack disagrees on the card and the CPU: {res}")
+    return res
+
+
+def v1_kernel_checks(K2, K3, T: int) -> dict:
+    """K2 and K3 against their plain versions at the v1 estimator's full-width
+    shapes for a flow call of T mel rows (the CFG pair, B = 2): K2 at T and
+    at the mid level's ceil(T / 2) rows (every key valid), K3 over both
+    levels' rows at C = 256, fp32 and bf16.  -> the largest bf16 error each."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    errs = {"dit_attention": 0.0, "fused_layer_norm": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows in (T, -(-T // 2)):
+            qkv = torch.randn(2, rows, 1536, generator=g, device=dev).to(dtype)
+            lens = torch.full((2,), rows, dtype=torch.int32, device=dev)
+            q3, k3, v3 = (qkv[..., i * 512:(i + 1) * 512].reshape(2, rows, 8, 64)
+                          for i in range(3))
+            e2 = check_attention(f"v1_dit_attention_T{rows}", dtype,
+                                 K2.dit_attention_packed(qkv, lens, 0.125, 64).reshape(
+                                     2, rows, 8, 64),
+                                 K2.dit_attention_plain(q3, k3, v3, lens, 0.125), lens,
+                                 phase="v1")
+            x = (torch.randn(2 * rows, 256, generator=g, device=dev) * 3).to(dtype)
+            w, b = (torch.randn(256, generator=g, device=dev).to(dtype) for _ in range(2))
+            e3 = max(check(f"v1_fused_layer_norm_{2 * rows}x256_{act}", dtype,
+                           K3.fused_layer_norm(x, w, b, 1e-5, act),
+                           K3.layer_norm_plain(x, w, b, 1e-5, act), phase="v1")
+                     for act in ("none", "mish"))
+            if dtype == torch.bfloat16:
+                errs["dit_attention"] = max(errs["dit_attention"], e2)
+                errs["fused_layer_norm"] = max(errs["fused_layer_norm"], e3)
+    return errs
+
+
+def v1_kernel_times(K2, K3, T: int) -> dict:
+    """bf16 device times of K2 and K3 at the v1 estimator's shapes for a flow
+    call of T mel rows (top level T, mid level ceil(T / 2); B = 2, every key
+    valid), beside their plain versions and one PyTorch call (SDPA,
+    F.layer_norm), with each shape's bound."""
+    dev, bf, isz = torch.device("cuda"), torch.bfloat16, 2
+    g = torch.Generator(device=dev).manual_seed(15)
+    out = {"dit_attention": [], "fused_layer_norm": []}
+    for rows in (T, -(-T // 2)):
+        qkv = torch.randn(2, rows, 1536, generator=g, device=dev).to(bf)
+        lens = torch.full((2,), rows, dtype=torch.int32, device=dev)
+        q3, k3, v3 = (qkv[..., i * 512:(i + 1) * 512].reshape(2, rows, 8, 64) for i in range(3))
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q3, k3, v3))
+        k2 = lambda: K2.dit_attention_packed(qkv, lens, 0.125, 64)
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+        t_bytes = 4 * 2 * rows * 512 * isz / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * 4 * 8 * rows * rows * 64 / BF16_FLOPS * 1e3
+        out["dit_attention"].append(dict(
+            shape=[2, rows, 1536, rows], ms=time_ms(k2), **dev_time(k2),
+            plain_ms=time_ms(lambda: K2.dit_attention_plain(q3, k3, v3, lens, 0.125), iters=10),
+            library_ms=time_ms(sdpa), **dev_time(sdpa, "library_dev"),
+            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations"))
+        x = torch.randn(2 * rows, 256, generator=g, device=dev).to(bf)
+        w, b = torch.randn(256, generator=g, device=dev).to(bf), torch.zeros(256, device=dev,
+                                                                               dtype=bf)
+        k3 = lambda: K3.fused_layer_norm(x, w, b, 1e-5, "none")
+        ln = lambda: F.layer_norm(x, (256,), w, b, 1e-5)
+        t_bytes = (2 * 2 * rows * 256 + 2 * 256) * isz / HBM_BYTES_PER_S * 1e3
+        t_ops = 10 * 2 * rows * 256 / BF16_FLOPS * 1e3
+        out["fused_layer_norm"].append(dict(
+            shape=[2 * rows, 256], ms=time_ms(k3), **dev_time(k3),
+            plain_ms=time_ms(lambda: K3.layer_norm_plain(x, w, b, 1e-5, "none")),
+            library_ms=time_ms(ln), **dev_time(ln, "library_dev"),
+            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations"))
+    return out
+
+
+def v1_phase(kernels: dict, smi: str) -> dict:
+    """CosyVoice-300M (CosyVoice v1) at full width on seeded random weights:
+    TransformerLMConfig() in fp32 (non_random_ras), FlowV1Config() with its
+    two-level non-causal estimator in bf16 on the K2 + K3 route (no pad,
+    fused_block off), the 22.05 kHz HiFT in fp32; the frontend at 22.05 kHz
+    (mel n_fft 1024, hop 256) with the port's CAMPPlus (192-d), a seeded 25
+    Hz speech-token callable and the ported WhisperTiktokenTokenizer.
+    Gates: the small stack's card-vs-CPU check; K2 and K3 against their plain
+    versions at the full-width shapes; then two zero-shot requests from a
+    3 s prompt (cap 200), one streamed (its tokens equal to a one-shot
+    decode's with the same generator, its chunk lengths the v1 formula's)
+    and one instruct request: finite waveforms of the expected length, and
+    K2 / K3 launches equal to 640 / 1280 a flow call (10 Euler steps x 64
+    DiT blocks, one attention and two LayerNorms each)."""
+    import os
+
+    from cosyvoice_tpu_torch.models.campplus import CAMPPlusConfig, make_campplus_frontend_fn
+    from cosyvoice_tpu_torch.models.flow import FlowV1Config, MaskedDiffWithXvec
+    from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
+    from cosyvoice_tpu_torch.models.llm import TransformerLM, TransformerLMConfig
+    from cosyvoice_tpu_torch.runtime import model as runtime_model
+    from cosyvoice_tpu_torch.runtime.api import CosyVoice
+    from cosyvoice_tpu_torch.runtime.frontend import CosyVoiceFrontEnd
+    from cosyvoice_tpu_torch.runtime.model import CosyVoiceV1Model
+
+    K2, K3 = kernels["dit_attention"], kernels["fused_layer_norm"]
+    t_phase = time.perf_counter()
+    small = v1_reference_check()
+    t0 = time.perf_counter()
+    fcfg = FlowV1Config()
+    fcfg = dataclasses.replace(fcfg, estimator=dataclasses.replace(
+        fcfg.estimator, dtype="bfloat16", fused_attention=True, fused_norm=True))
+    with torch.device("cuda"):
+        llm, flow = TransformerLM(TransformerLMConfig()), MaskedDiffWithXvec(fcfg)
+        hift = HiFTGenerator(dataclasses.replace(HiFTConfig(), **V1_HIFT))
+    for i, m in enumerate((llm, flow, hift)):
+        rand_init_(m, 700 + i)
+    flow.decoder.estimator.to(torch.bfloat16)
+    camp = seeded_campplus(CAMPPlusConfig(), 710)
+    model = CosyVoiceV1Model(llm=llm, flow=flow, hift=hift, max_decode_tokens=200,
+                             device="cuda")
+
+    def speech_tokens(wav):
+        seed = int(np.abs(wav).sum() * 1e3) % (1 << 32)
+        return np.random.default_rng(seed).integers(0, 4096, len(wav) * 25 // 16000)
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "v1_tokenizer")
+    frontend = CosyVoiceFrontEnd(tokenizer=v1_tokenizer(build), speech_tokenizer=speech_tokens,
+                                 spk_embedder=make_campplus_frontend_fn(camp),
+                                 sample_rate=22050, mel_n_fft=1024, mel_hop=256, device="cuda")
+    prompt = prompt_16k(3.0, 16)
+    frontend.spk2info["speaker"] = {"embedding": frontend._extract_spk_embedding(prompt)}
+    cv = CosyVoice(frontend=frontend, model=model)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    est = fcfg.estimator
+    per_call = fcfg.cfm.n_timesteps * est.n_blocks * (2 * len(est.channels) + est.num_mid_blocks)
+    stage = {"lm_s": 0.0, "flow_s": 0.0, "hift_s": 0.0}
+    flow_rows, states, decodes = [], [], []
+    inference = flow.inference
+
+    def counted_flow(*a, **kw):
+        flow_rows.append(int(a[4].shape[1]))       # the noise's rows: prompt + generated mel
+        return inference(*a, **kw)
+
+    generate, prefill = model.llm_generate, model._prefill
+
+    def recording_generate(*a):
+        tokens = generate(*a)
+        decodes.append(len(tokens))
+        return tokens
+
+    def recording_prefill(*a):
+        out = prefill(*a)
+        states.append((out[0], a[:4]))
+        return out
+
+    # the LM's seconds: each prefill and each decode chunk, one-shot or streamed
+    decode_chunk = runtime_model.lm_decode_chunk_v1
+    runtime_model.lm_decode_chunk_v1 = timed(stage, "lm_s", decode_chunk)
+    flow.inference = timed(stage, "flow_s", counted_flow)
+    model.llm_generate = recording_generate
+    model._prefill = timed(stage, "lm_s", recording_prefill)
+    model._vocode = timed(stage, "hift_s", model._vocode)
+
+    def mel_frames(n_tok):
+        return int(n_tok / model.fr * model.sample_rate / 256)
+
+    def request(kind, text, seed, stream=False):
+        for key in stage:
+            stage[key] = 0.0
+        gen = torch.Generator().manual_seed(seed)
+        calls = (cv.inference_instruct(text, "speaker", "A calm and slow voice.", gen=gen)
+                 if kind == "instruct" else
+                 cv.inference_zero_shot(text, "A short prompt.", prompt, stream=stream, gen=gen))
+        rows0 = len(flow_rows)
+        torch.cuda.synchronize()
+        t0 = last = time.perf_counter()
+        wavs, chunk_s = [], []
+        for out in calls:
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            wavs.append(out["tts_speech"])
+            chunk_s.append(now - last)
+            last = now
+        latency = last - t0
+        wav = np.concatenate(wavs)
+        if stream:
+            st, inputs = states[-1]
+            n_tok = int(st.gen.count[0])
+            tokens = (st.gen.out[0, :n_tok].cpu().numpy(), inputs)
+            k = max((n_tok - model.token_overlap_len) // model.token_min_hop_len, 0)
+            M, lap, cache = mel_frames(model.token_min_hop_len + model.token_overlap_len), \
+                model.mel_overlap_len, model.mel_cache_len
+            tail = mel_frames(n_tok - k * model.token_min_hop_len)
+            want = ([M - lap - cache] * min(k, 1) + [M - lap] * max(k - 1, 0)
+                    + [(cache if k else 0) + tail])
+            want = [f * model.hop_samples for f in want]
+        else:
+            n_tok, tokens, want = decodes[-1], None, [mel_frames(decodes[-1]) * model.hop_samples]
+        r = {"kind": kind, "stream": stream, "text_bytes": len(text.encode()),
+             "speech_tokens": n_tok, "chunks": len(wavs), "chunk_samples": [len(w) for w in wavs],
+             "chunk_samples_expected": want, "finite": bool(np.isfinite(wav).all()),
+             "flow_calls": len(flow_rows) - rows0, "flow_rows": flow_rows[rows0:],
+             "latency_s": latency, "first_chunk_s": chunk_s[0],
+             "rtf": latency / max(len(wav) / model.sample_rate, 1e-9), **stage,
+             "lm_ms_per_token": stage["lm_s"] * 1e3 / max(n_tok, 1)}
+        return r, tokens
+
+    for mod in kernels.values():
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    requests = [request("zero_shot", V1_TEXTS[0], 0)[0], request("zero_shot", V1_TEXTS[1], 1)[0]]
+    streamed, (stream_tokens, stream_inputs) = request("zero_shot", V1_TEXTS[0], 2, stream=True)
+    requests += [streamed, request("instruct", V1_TEXTS[1], 3)[0]]
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the streamed request's tokens against a one-shot decode of its inputs on
+    # a generator seeded as its own was
+    one_shot = generate(*stream_inputs, torch.Generator().manual_seed(2))
+    flow_calls = sum(r["flow_calls"] for r in requests)
+    T = max(flow_rows)
+    T_odd = T if T % 2 else T + 1
+    errs = v1_kernel_checks(K2, K3, T_odd)
+    times = v1_kernel_times(K2, K3, T_odd)
+    runtime_model.lm_decode_chunk_v1 = decode_chunk
+    for m in ("inference", "llm_generate", "_prefill", "_vocode"):
+        for obj in (flow, model):
+            obj.__dict__.pop(m, None)
+    res = {"phase": "v1", "card": smi, "setup_s": setup_s, "small_stack": small,
+           "requests": requests, "peak_mem_gb": peak, "launches": launches,
+           "flow_calls": flow_calls, "k2_per_flow_call": per_call,
+           "k3_per_flow_call": 2 * per_call, "flow_rows_max": T, "kernel_check_T": T_odd,
+           "stream_tokens_equal_one_shot": bool(np.array_equal(stream_tokens, one_shot)),
+           "kernel_max_abs_err_bf16": errs, "kernel_times": times,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    gates = [all(r["finite"] and r["chunk_samples"] == r["chunk_samples_expected"]
+                 and r["speech_tokens"] > 0 for r in requests),
+             res["stream_tokens_equal_one_shot"],
+             launches["dit_attention"] == per_call * flow_calls > 0,
+             launches["fused_layer_norm"] == 2 * per_call * flow_calls,
+             streamed["chunks"] >= 2]
+    if not all(gates):
+        raise AssertionError(f"v1 phase failed: {gates} {res}")
     return res
 
 
@@ -2462,6 +2808,8 @@ def main() -> int:
     cont = continuous_phase(res, b1, K1, K2, K3, smi)
     serve_phase(res, smi)
     ckpt = checkpoint_phase(res, K1, K2, K3, K5, smi)["full_width"]
+    v1 = v1_phase({"lm_decode_attention": K1, "dit_attention": K2, "fused_layer_norm": K3,
+                   "dit_block": K4, "int4_matmul": K5, "lm_step": K6, "snake_aa": K7}, smi)
     flow = res["stack"][1]
     del res["stack"]
     rows = timing(K1, K2, K3, K4, K5, K6, K7, res["last_decode"], flow, batched["block_shape"])
@@ -2481,6 +2829,10 @@ def main() -> int:
             for mode in ("windowed", "incremental")}
         row["launches_checkpoint"] = {
             quant: ckpt[quant]["launches"].get(row["name"], 0) for quant in ("int8", "int4")}
+        # the v1 phase's four requests; K2 and K3 also at its estimator's shapes
+        row["launches_v1"] = v1["launches"][row["name"]]
+        if row["name"] in v1["kernel_times"]:
+            row["v1_shapes"] = v1["kernel_times"][row["name"]]
         row.update(edge_max_abs_err=errs[row["name"]],
                    tolerance=tolerance.get(row["name"], CHECK_TOL[torch.bfloat16]),
                    kernel_ms=row["ms"])

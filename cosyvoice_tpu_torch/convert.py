@@ -1,4 +1,5 @@
-"""JAX parameter trees -> the port's state_dicts.
+"""JAX parameter trees -> the port's state_dicts (CosyVoice2's modules and
+CosyVoice v1's TransformerLM and MaskedDiffWithXvec).
 
 Each function takes a flax param tree (nested dicts of numpy or JAX arrays,
 with or without the top-level "params" key) and returns a state_dict that the
@@ -8,7 +9,8 @@ kernel (transposed) and fp32 scale [out]; packed-int4 QDense leaves (kernel
 [in/2, out], scale [in/g, out]) keep the JAX layout unchanged; conv kernels
 [K, Cin, Cout] become [Cout, Cin, K]; weight-norm (g, v) pairs become
 weight_g / weight_v, and a weight-normed transposed conv (stored k-flipped,
-in forward-correlation form) becomes torch's [Cin, Cout, K].
+in forward-correlation form) becomes torch's [Cin, Cout, K], as does a
+plain transposed conv's kernel.
 """
 from __future__ import annotations
 
@@ -63,6 +65,11 @@ def _wn_conv(sd, name, p):
         sd[f"{name}.bias"] = _t(p["bias"])
 
 
+def _convT(sd, name, p):
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"])[::-1].transpose(1, 2, 0))
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
 def _wn_convT(sd, name, p):
     sd[f"{name}.weight_g"] = _t(np.asarray(p["g"]).reshape(-1, 1, 1))
     sd[f"{name}.weight_v"] = _t(np.asarray(p["v"])[::-1].transpose(1, 2, 0))
@@ -89,9 +96,9 @@ def lm_state_from_jax(params: dict) -> dict:
     return sd
 
 
-def _conformer_layer(sd, name, p):
-    _ln(sd, f"{name}.norm_mha", p["norm_mha"])
-    _ln(sd, f"{name}.norm_ff", p["norm_ff"])
+def _conformer_layer(sd, name, p, norms=("norm_mha", "norm_ff")):
+    _ln(sd, f"{name}.{norms[0]}", p["norm_mha"])
+    _ln(sd, f"{name}.{norms[1]}", p["norm_ff"])
     att = p["self_attn"]
     for lin in ("linear_q", "linear_k", "linear_v", "linear_out", "linear_pos"):
         _dense(sd, f"{name}.self_attn.{lin}", att[lin])
@@ -114,10 +121,21 @@ def _encoder(sd, pre, p):
             _conformer_layer(sd, f"{pre}{group}.{i}", p[f"{group}_{i}"])
 
 
-def _estimator(sd, pre, p):
-    def block1d(name, q):   # CausalBlock1D: conv at block.0, LayerNorm at block.2
+def _conformer_encoder(sd, pre, p, transformer_layer: bool = False):
+    """models/conformer.py ConformerEncoder (JAX `layers_{i}`) -> the
+    reference's `encoders.{i}` (a TransformerEncoder's norms are norm1/norm2)."""
+    _dense(sd, f"{pre}embed.out.0", p["embed"]["linear"])
+    _ln(sd, f"{pre}embed.out.1", p["embed"]["norm"])
+    _ln(sd, f"{pre}after_norm", p["after_norm"])
+    norms = ("norm1", "norm2") if transformer_layer else ("norm_mha", "norm_ff")
+    for i in _indices(p, "layers_"):
+        _conformer_layer(sd, f"{pre}encoders.{i}", p[f"layers_{i}"], norms)
+
+
+def _estimator(sd, pre, p, causal: bool = True):
+    def block1d(name, q):   # CausalBlock1D: LayerNorm at block.2; Block1D: GroupNorm at block.1
         _conv(sd, f"{name}.block.0", q["conv"])
-        _ln(sd, f"{name}.block.2", q["norm"])
+        _ln(sd, f"{name}.block.{2 if causal else 1}", q["norm"])
 
     def resnet(name, q):
         block1d(f"{name}.block1", q["block1"])
@@ -143,9 +161,14 @@ def _estimator(sd, pre, p):
             resnet(f"{name}.0", p[f"{kind}_{i}_resnet"])
             for j in _indices(p, f"{kind}_{i}_tb_"):
                 tb(f"{name}.1.{j}", p[f"{kind}_{i}_tb_{j}"])
-            if kind != "mid":   # the level's closing causal conv
-                suffix = "downsample" if kind == "down" else "upsample"
-                _conv(sd, f"{name}.2", p[f"{kind}_{i}_{suffix}"])
+            if kind != "mid":   # a Downsample1D / Upsample1DT, or the closing conv
+                q = p[f"{kind}_{i}_{'downsample' if kind == 'down' else 'upsample'}"]
+                if "conv" not in q:
+                    _conv(sd, f"{name}.2", q)
+                elif kind == "down":
+                    _conv(sd, f"{name}.2.conv", q["conv"])
+                else:
+                    _convT(sd, f"{name}.2.conv", q["conv"])
     block1d(pre + "final_block", p["final_block"])
     _conv(sd, pre + "final_proj", p["final_proj"])
 
@@ -161,10 +184,50 @@ def flow_state_from_jax(params: dict) -> dict:
     return sd
 
 
-def estimator_state_from_jax(params: dict) -> dict:
-    """models/flow.py ConditionalDecoder params -> port state_dict."""
+def estimator_state_from_jax(params: dict, causal: bool = True) -> dict:
+    """models/flow.py ConditionalDecoder params -> port state_dict (`causal`
+    as the estimator's config has it: it places Block1D's norm)."""
     sd: dict = {}
-    _estimator(sd, "", _root(params))
+    _estimator(sd, "", _root(params), causal)
+    return sd
+
+
+def conformer_encoder_state_from_jax(params: dict, transformer_layer: bool = False) -> dict:
+    """models/conformer.py ConformerEncoder params -> port state_dict."""
+    sd: dict = {}
+    _conformer_encoder(sd, "", _root(params), transformer_layer)
+    return sd
+
+
+def transformer_lm_state_from_jax(params: dict) -> dict:
+    """models/llm.py TransformerLM (CosyVoice v1) params -> port state_dict."""
+    p = _root(params)
+    sd = {}
+    for emb in ("text_embedding", "llm_embedding", "speech_embedding"):
+        sd[f"{emb}.weight"] = _t(p[emb]["embedding"])
+    for lin in ("text_encoder_affine_layer", "llm_decoder", "spk_embed_affine_layer"):
+        _dense(sd, lin, p[lin])
+    _conformer_encoder(sd, "text_encoder.", p["text_encoder"])
+    _conformer_encoder(sd, "llm.", p["llm"], transformer_layer=True)
+    return sd
+
+
+def flow_v1_state_from_jax(params: dict) -> dict:
+    """models/flow.py MaskedDiffWithXvec (CosyVoice v1) params -> port
+    state_dict: the non-causal estimator (GroupNorm Block1D, Downsample1D /
+    Upsample1DT between levels) and the length regulator's `model.{k}`."""
+    p = _root(params)
+    sd = {"input_embedding.weight": _t(p["input_embedding"]["embedding"])}
+    _dense(sd, "spk_embed_affine_layer", p["spk_embed_affine_layer"])
+    _dense(sd, "encoder_proj", p["encoder_proj"])
+    _conformer_encoder(sd, "encoder.", p["encoder"])
+    reg = p["length_regulator"]
+    n = len(_indices(reg, "conv_"))
+    for i in range(n):
+        _conv(sd, f"length_regulator.model.{3 * i}", reg[f"conv_{i}"])
+        _ln(sd, f"length_regulator.model.{3 * i + 1}", reg[f"norm_{i}"])
+    _conv(sd, f"length_regulator.model.{3 * n}", reg["out_conv"])
+    _estimator(sd, "decoder.estimator.", p["decoder"]["estimator"], causal=False)
     return sd
 
 

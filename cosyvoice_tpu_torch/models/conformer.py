@@ -1,14 +1,23 @@
-"""The CosyVoice2 flow encoder: UpsampleConformerEncoder with espnet
-relative-position attention.
+"""Conformer encoders with espnet relative-position attention: the
+CosyVoice2 flow encoder (UpsampleConformerEncoder) and the generic
+ConformerEncoder of the CosyVoice v1 family (its text encoder, its LM body
+and its flow encoder).
 
-Port of the parts of cosyvoice_tpu/models/conformer.py that the v2 flow
-encoder and BigVGAN's token upsamplers use (no macaron FFN, no conv module),
-with the incremental `.chunk` steps that models/flow_chunk.py drives: new
-rows against cached K/V (the espnet rel-pos skew at a per-row offset) and
-2-row conv histories.  `chunk_anchor` anchors the encoder's chunk grid at
-the prompt/generation boundary (ops/masks.anchored_chunk_mask).
+Port of the parts of cosyvoice_tpu/models/conformer.py that these use (no
+macaron FFN, no conv module, no MoE FFN, no speaker adaptation, no conv
+subsampling front ends), with two kinds of incremental step:
+  * `.chunk`, which models/flow_chunk.py drives: new rows against cached
+    K/V (the espnet rel-pos skew at a per-row offset) and 2-row conv
+    histories; `chunk_anchor` anchors the encoder's chunk grid at the
+    prompt/generation boundary (ops/masks.anchored_chunk_mask);
+  * ConformerEncoder's `prefill` / `decode_step` over a ConformerKVCache,
+    the v1 LM's decode.  Prefill is one causal pass that writes the cache
+    (the JAX package scans one-token decodes: the same function); each
+    decode step reads its layer's projected rel-pos table, computed once a
+    decode, where the JAX package projects the whole table every step.
 Parameter names follow the reference checkpoint (`encoders.{i}.self_attn.linear_q`,
-`encoders.{i}.feed_forward.w_1`, `embed.out.0`, ...).
+`encoders.{i}.feed_forward.w_1`, `embed.out.0`, ...; wenet's
+TransformerEncoderLayer, the v1 LM body's, names its norms `norm1` / `norm2`).
 """
 from __future__ import annotations
 
@@ -39,6 +48,8 @@ class ConformerConfig:
     input_size: int = 512
     key_bias: bool = True
     static_chunk_size: int = 0
+    activation: str = "swish"     # swish | relu: the FFN's
+    input_layer: str = "linear"   # linear | linear_legacy (a ReLU after the norm)
 
 
 @lru_cache(maxsize=None)
@@ -94,6 +105,36 @@ class RelPositionAttention(nn.Module):
         out = torch.einsum("bhij,bjhd->bihd", attn, v).reshape(B, T, self.dim)
         return self.linear_out(out)
 
+    def pos_table(self, T: int, dtype, device) -> torch.Tensor:
+        """linear_pos of the [2T-1]-row espnet table -> [2T-1, H, D]."""
+        p = self.linear_pos(espnet_rel_pos_emb(T, self.dim, dtype, device))
+        return p.reshape(2 * T - 1, self.heads, self.dim // self.heads)
+
+    def decode(self, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tensor,
+               pos: int, valid: torch.Tensor,
+               table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One new row x [B, 1, dim] at slot `pos` of the cache layer_k/v
+        [B, Tmax, H, D] (its K/V written there in place first), attending
+        over the keys that `valid` [B, Tmax] keeps.  Slot j reads the rel-pos
+        table at (Tmax - 1) - pos + j; `table` is pos_table(Tmax), built here
+        when not given.  -> out [B, 1, dim]."""
+        H, D = self.heads, self.dim // self.heads
+        B = x.shape[0]
+        Tmax = layer_k.shape[1]
+        q = self.linear_q(x).reshape(B, 1, H, D)
+        layer_k[:, pos] = self.linear_k(x)[:, 0].reshape(B, H, D).to(layer_k.dtype)
+        layer_v[:, pos] = self.linear_v(x)[:, 0].reshape(B, H, D).to(layer_v.dtype)
+        if table is None:
+            table = self.pos_table(Tmax, x.dtype, x.device)
+        p = table[Tmax - 1 - pos: 2 * Tmax - 1 - pos]
+        ac = torch.einsum("bihd,bjhd->bhij", q + self.pos_bias_u.to(q.dtype),
+                          layer_k.to(q.dtype))
+        bd = torch.einsum("bihd,jhd->bhij", q + self.pos_bias_v.to(q.dtype), p)
+        scores = ((ac + bd) / math.sqrt(D)).masked_fill(~valid[:, None, None, :], NEG_INF)
+        out = torch.einsum("bhij,bjhd->bihd", torch.softmax(scores, dim=-1),
+                           layer_v.to(q.dtype))
+        return self.linear_out(out.reshape(B, 1, self.dim))
+
     def chunk_decode(self, x: torch.Tensor, layer_k: torch.Tensor, layer_v: torch.Tensor,
                      pos: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         """M new rows at absolute positions pos_b + i (pos [B]) against the
@@ -128,46 +169,75 @@ class RelPositionAttention(nn.Module):
         return self.linear_out(out.reshape(B, M, self.dim))
 
 
+_ACTIVATIONS = {"swish": swish, "relu": F.relu}
+
+
 class PositionwiseFeedForward(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, activation: str = "swish"):
         super().__init__()
         self.w_1 = Dense(dim, hidden)
         self.w_2 = Dense(hidden, dim)
+        self.act = _ACTIVATIONS[activation]
 
     def forward(self, x):
-        return self.w_2(swish(self.w_1(x)))
+        return self.w_2(self.act(self.w_1(x)))
 
 
 class ConformerEncoderLayer(nn.Module):
     """Pre-norm self-attention + FFN (eps 1e-12 norms)."""
 
+    NORMS = ("norm_mha", "norm_ff")     # the checkpoint's names of the two norms
+
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
-        self.norm_mha = LayerNorm(cfg.dim, 1e-12)
-        self.norm_ff = LayerNorm(cfg.dim, 1e-12)
+        for name in self.NORMS:
+            self.add_module(name, LayerNorm(cfg.dim, 1e-12))
         self.self_attn = RelPositionAttention(cfg.heads, cfg.dim, cfg.key_bias)
-        self.feed_forward = PositionwiseFeedForward(cfg.dim, cfg.linear_units)
+        self.feed_forward = PositionwiseFeedForward(cfg.dim, cfg.linear_units,
+                                                    cfg.activation)
+
+    def _norms(self):
+        return self._modules[self.NORMS[0]], self._modules[self.NORMS[1]]
 
     def forward(self, x, pos_emb, attn_mask):
-        x = x + self.self_attn(self.norm_mha(x), pos_emb, attn_mask)
-        return x + self.feed_forward(self.norm_ff(x))
+        norm_mha, norm_ff = self._norms()
+        x = x + self.self_attn(norm_mha(x), pos_emb, attn_mask)
+        return x + self.feed_forward(norm_ff(x))
 
     def chunk(self, x, layer_k, layer_v, pos, bias):
         """M-row incremental step over a static K/V cache (written in place)."""
-        x = x + self.self_attn.chunk_decode(self.norm_mha(x), layer_k, layer_v, pos, bias)
-        return x + self.feed_forward(self.norm_ff(x))
+        norm_mha, norm_ff = self._norms()
+        x = x + self.self_attn.chunk_decode(norm_mha(x), layer_k, layer_v, pos, bias)
+        return x + self.feed_forward(norm_ff(x))
+
+    def decode(self, x, layer_k, layer_v, pos: int, valid, table=None):
+        """One-row step at cache slot `pos` (RelPositionAttention.decode)."""
+        norm_mha, norm_ff = self._norms()
+        x = x + self.self_attn.decode(norm_mha(x), layer_k, layer_v, pos, valid, table)
+        return x + self.feed_forward(norm_ff(x))
+
+
+class TransformerEncoderLayer(ConformerEncoderLayer):
+    """wenet's TransformerEncoderLayer as the v1 LM body configures it: the
+    same computation, its norms named norm1 / norm2."""
+
+    NORMS = ("norm1", "norm2")
 
 
 class LinearEmbed(nn.Module):
-    """LinearNoSubsampling: Linear -> LayerNorm(1e-5) -> x sqrt(dim)."""
+    """LinearNoSubsampling: Linear -> LayerNorm(1e-5) -> x sqrt(dim); with
+    `legacy`, LegacyLinearNoSubsampling's ReLU after the norm (the v1 LM
+    body's input layer)."""
 
-    def __init__(self, in_dim: int, dim: int):
+    def __init__(self, in_dim: int, dim: int, legacy: bool = False):
         super().__init__()
         self.out = nn.ModuleList([Dense(in_dim, dim), LayerNorm(dim, 1e-5)])
         self.scale = float(np.sqrt(dim))
+        self.legacy = legacy
 
     def forward(self, x):
-        return self.out[1](self.out[0](x)) * self.scale
+        h = self.out[1](self.out[0](x))
+        return (F.relu(h) if self.legacy else h) * self.scale
 
 
 class PreLookaheadLayer(nn.Module):
@@ -271,3 +341,80 @@ class UpsampleConformerEncoder(nn.Module):
         for layer in self.up_encoders:
             xs = layer(xs, pos_emb2, attn_mask2)
         return self.after_norm(xs), pad2
+
+
+@dataclass
+class ConformerKVCache:
+    """Per-layer K/V [L, B, Tmax, H, D], written in place; `pos` is the
+    filled length (one frontier for the batch); `tables` holds each layer's
+    projected rel-pos table once a decode step has built it."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: int = 0
+    tables: Optional[list] = None
+
+    @staticmethod
+    def create(cfg: ConformerConfig, batch: int, max_len: int, dtype=torch.float32,
+               device=None) -> "ConformerKVCache":
+        shape = (cfg.num_blocks, batch, max_len, cfg.heads, cfg.dim // cfg.heads)
+        return ConformerKVCache(torch.zeros(shape, dtype=dtype, device=device),
+                                torch.zeros(shape, dtype=dtype, device=device))
+
+
+class ConformerEncoder(nn.Module):
+    """The generic conformer (wenet's ConformerEncoder, or with
+    `transformer_layer` its TransformerEncoder): linear embed -> layers ->
+    after_norm, masked by key padding and, with static_chunk_size > 0, a
+    static chunk mask (1: causal).  `prefill` / `decode_step` are its
+    streaming twins over a ConformerKVCache (B=1 exact, as in the JAX
+    package: one frontier for the batch)."""
+
+    def __init__(self, cfg: ConformerConfig, transformer_layer: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        layer = TransformerEncoderLayer if transformer_layer else ConformerEncoderLayer
+        self.embed = LinearEmbed(cfg.input_size, cfg.dim,
+                                 legacy=cfg.input_layer == "linear_legacy")
+        self.encoders = nn.ModuleList(layer(cfg) for _ in range(cfg.num_blocks))
+        self.after_norm = LayerNorm(cfg.dim, 1e-5)
+
+    def forward(self, xs: torch.Tensor, lens: torch.Tensor):
+        """xs [B, T, input_size], lens [B] -> (h [B, T, dim], valid [B, T])."""
+        T = xs.shape[1]
+        pad = make_non_pad_mask(lens, T)
+        xs = self.embed(xs)
+        pos_emb = espnet_rel_pos_emb(T, self.cfg.dim, xs.dtype, xs.device)
+        attn_mask = add_chunk_mask(pad, self.cfg.static_chunk_size)
+        for layer in self.encoders:
+            xs = layer(xs, pos_emb, attn_mask)
+        return self.after_norm(xs), pad
+
+    def prefill(self, xs: torch.Tensor, cache: ConformerKVCache):
+        """Causal pass over xs [B, T, input_size] at cache slots pos..pos+T-1,
+        writing the cache -> (h [B, T, dim], the cache advanced by T)."""
+        B, T = xs.shape[:2]
+        x = self.embed(xs)
+        Tmax = cache.k.shape[2]
+        rows = cache.pos + torch.arange(T, device=x.device)
+        keep = torch.arange(Tmax, device=x.device)[None, :] <= rows[:, None]
+        bias = torch.where(keep, 0.0, NEG_INF).to(x.dtype)[None].expand(B, T, Tmax)
+        pos = torch.full((B,), cache.pos, dtype=torch.long, device=x.device)
+        for i, layer in enumerate(self.encoders):
+            x = layer.chunk(x, cache.k[i], cache.v[i], pos, bias)
+        cache.pos += T
+        return self.after_norm(x), cache
+
+    def decode_step(self, x: torch.Tensor, cache: ConformerKVCache):
+        """x [B, 1, input_size] -> (h [B, 1, dim], the cache advanced by 1)."""
+        x = self.embed(x)
+        Tmax = cache.k.shape[2]
+        if cache.tables is None:
+            cache.tables = [layer.self_attn.pos_table(Tmax, x.dtype, x.device)
+                            for layer in self.encoders]
+        valid = (torch.arange(Tmax, device=x.device) <= cache.pos)[None].expand(x.shape[0],
+                                                                                  Tmax)
+        for i, layer in enumerate(self.encoders):
+            x = layer.decode(x, cache.k[i], cache.v[i], cache.pos, valid, cache.tables[i])
+        cache.pos += 1
+        return self.after_norm(x), cache

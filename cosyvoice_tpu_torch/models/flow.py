@@ -6,14 +6,24 @@ classifier-free guidance, and CausalMaskedDiffWithXvec (token embed ->
 UpsampleConformerEncoder -> proj 80; L2-normalized speaker vector -> Linear
 80; prompt mel as conditioning).  Channels-last [B, T, C] throughout.
 Parameter names follow the reference checkpoint (`down_blocks.0.1.0.attn1.to_q`,
-`mid_blocks.3.0.block1.block.0`, ...).  The estimator is CosyVoice2's causal
-one-level topology (`channels=(256,)` in the JAX config); the non-causal
-multi-level v1 estimator comes with the v1 slice.
+`mid_blocks.3.0.block1.block.0`, ...).  The estimator takes both topologies
+of the JAX config: CosyVoice2's causal one level (`channels=(256,)`: causal
+convs, LayerNorm + mish in Block1D) and CosyVoice v1's non-causal levels
+(`channels=(256, 256)`: centred convs, GroupNorm(8) + mish in Block1D,
+stride-2 conv down and k4 s2 transposed conv up between levels, each level
+at its own mask `mask[:, ::2]`, skips saved before the downsample).
 
 The serving estimator (`fused_attention` + `fused_norm` + `approx_gelu`, bf16)
-runs its DiT attention through the `dit_attention_packed` kernel and its
-LayerNorms (+mish) through the `fused_layer_norm` kernel; with `fused_block`
-as well, each whole DiT block is one `dit_block_fused` call.  Without
+runs its DiT attention through the `dit_attention_packed` kernel (each
+level's own key lengths) and its LayerNorms (+mish) through the
+`fused_layer_norm` kernel; with `fused_block` as well, each whole DiT block
+is one `dit_block_fused` call where T is a multiple of 128.  The causal
+estimator pads T to a multiple of 128 on that route, as the JAX package
+does (exact: every row is normalized on its own and the convs look left);
+the non-causal one does not, since its GroupNorm statistics span the pad
+rows (the JAX package's fused route would move them; its v1 runtime keeps
+that route off), so K4 does not take it and its attention and norms go
+through K2 and K3 unpadded.  Without
 `fused_attention` the DiT attention is plain PyTorch with an additive bias:
 true -inf key masking under `exact_pad_mask`, else the reference's 0/1 float
 mask used verbatim as a bias.
@@ -30,22 +40,31 @@ left context.  The flow encoder applies its chunk mask always for
 prompt/generation boundary (ops/masks.anchored_chunk_mask): the one-shot
 twin of the incremental flow (models/flow_chunk.py), which drives the
 `.chunk` steps of Block1D, ResnetBlock1D and DiTBlock below.
+
+CosyVoice v1's flow is MaskedDiffWithXvec: token embed -> ConformerEncoder
+-> proj 80 -> InterpolateRegulator to the mel rate (the prompt and the
+generated part interpolated apart, the generated part's first and last 20
+tokens on their own) -> ConditionalCFM, whose noise is fresh each call (the
+caller's draw: runtime/model.py's CosyVoiceV1Model takes it from the
+session's generator) and whose `flow_cache` pins the prompt's and the last
+34 frames' noise and mu across streamed chunks.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
 from functools import lru_cache
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from cosyvoice_tpu_torch.models.conformer import ConformerConfig, UpsampleConformerEncoder
-from cosyvoice_tpu_torch.nn.conv import CausalConv1d, Conv1d
+from cosyvoice_tpu_torch.models.conformer import (ConformerConfig, ConformerEncoder,
+                                                  UpsampleConformerEncoder)
+from cosyvoice_tpu_torch.nn.conv import CausalConv1d, Conv1d, ConvTranspose1d
 from cosyvoice_tpu_torch.nn.dense import Dense
-from cosyvoice_tpu_torch.nn.norm import LayerNorm
+from cosyvoice_tpu_torch.nn.norm import GroupNorm, LayerNorm
 from cosyvoice_tpu_torch.ops.activations import mish
 from cosyvoice_tpu_torch.ops.kernels import dit_block
 from cosyvoice_tpu_torch.ops.kernels.dit_attention import dit_attention_packed
@@ -75,22 +94,33 @@ class TimestepEmbedding(nn.Module):
 
 
 class Block1D(nn.Module):
-    """Causal conv3 -> LayerNorm + mish, masked (reference CausalBlock1D)."""
+    """conv3 -> norm + mish, masked: causal, the reference CausalBlock1D
+    (LayerNorm, fused with the mish on the serving route); non-causal, the
+    Matcha Block1D (GroupNorm(8))."""
 
-    def __init__(self, dim_in: int, dim_out: int, fused_norm: bool = False):
+    def __init__(self, dim_in: int, dim_out: int, fused_norm: bool = False,
+                 causal: bool = True, groups: int = 8):
         super().__init__()
-        self.block = nn.ModuleList([CausalConv1d(dim_in, dim_out, 3), nn.Identity(),
-                                    LayerNorm(dim_out, fused=fused_norm, act="mish")])
+        self.causal = causal
+        if causal:
+            self.block = nn.ModuleList([CausalConv1d(dim_in, dim_out, 3), nn.Identity(),
+                                        LayerNorm(dim_out, fused=fused_norm, act="mish")])
+        else:
+            self.block = nn.ModuleList([Conv1d(dim_in, dim_out, 3, padding=1),
+                                        GroupNorm(groups, dim_out)])
 
     def forward(self, x, mask):
         m = mask[..., None]
-        return self.block[2](self.block[0](x * m)) * m
+        h = self.block[0](x * m)
+        return (self.block[2](h) if self.causal else mish(self.block[1](h))) * m
 
     def chunk(self, x, mask, hist):
         """Causal step over N new rows x [B, N, C] with hist [B, 2, C] the
         stream's last two valid conv inputs (x * mask): the conv's own left
         pad is replaced by the history and its two outputs are dropped.
         -> (out [B, N, C], conv inputs [B, 2 + N, C] for the history roll)."""
+        if not self.causal:
+            raise ValueError("Block1D.chunk takes the causal block only")
         m = mask[..., None]
         xin = torch.cat([hist, x * m], dim=1)
         return self.block[2](self.block[0](xin)[:, 2:]) * m, xin
@@ -98,10 +128,10 @@ class Block1D(nn.Module):
 
 class ResnetBlock1D(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, time_emb_dim: int,
-                 fused_norm: bool = False):
+                 fused_norm: bool = False, causal: bool = True):
         super().__init__()
-        self.block1 = Block1D(dim_in, dim_out, fused_norm)
-        self.block2 = Block1D(dim_out, dim_out, fused_norm)
+        self.block1 = Block1D(dim_in, dim_out, fused_norm, causal)
+        self.block2 = Block1D(dim_out, dim_out, fused_norm, causal)
         self.mlp = nn.ModuleList([nn.Identity(), Dense(time_emb_dim, dim_out)])
         self.res_conv = Conv1d(dim_in, dim_out, 1)
 
@@ -223,13 +253,15 @@ class DiTBlock(nn.Module):
 class EstimatorConfig:
     in_channels: int = 320  # x(80) + mu(80) + spks(80) + cond(80)
     out_channels: int = 80
-    channels: int = 256
+    causal: bool = True
+    channels: Sequence[int] = (256,)  # one width a level
     n_blocks: int = 4
     num_mid_blocks: int = 12
     num_heads: int = 8
     attention_head_dim: int = 64
     # serving: DiT attention through the dit_attention kernel (true pad-key
-    # masking; T padded to a multiple of 128 as in the JAX package)
+    # masking; the causal estimator pads T to a multiple of 128 as the JAX
+    # package does, the non-causal one does not)
     fused_attention: bool = False
     dtype: str = "float32"          # compute dtype: "float32" | "bfloat16"
     approx_gelu: bool = False       # tanh-approximate gelu in the DiT FFN
@@ -245,36 +277,92 @@ class EstimatorConfig:
     left_chunks: int = -1
 
 
+class Downsample1D(nn.Module):
+    """conv k3 s2 p1 between two non-causal levels."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = Conv1d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample1DT(nn.Module):
+    """Matcha's Upsample1D(use_conv_transpose=True): convT k4 s2 p1."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = ConvTranspose1d(channels, channels, 4, 2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
 class ConditionalDecoder(nn.Module):
-    """The CFM estimator v(x, mu, t, spk, cond) on [B, T, C]: resnet + DiT
-    blocks, then num_mid_blocks more, then an up level fed the first
-    level's output as a skip, each level closed by a causal conv."""
+    """The CFM estimator v(x, mu, t, spk, cond) on [B, T, C]: one down level a
+    width (resnet + DiT blocks, then a stride-2 conv, or a closing conv after
+    the last), num_mid_blocks more at the last level's rate, then the up
+    levels in reverse (each fed the matching down level's output as a skip,
+    then a transposed conv, or a closing conv after the last)."""
 
     def __init__(self, cfg: EstimatorConfig):
         super().__init__()
         self.cfg = cfg
-        ch = cfg.channels
-        self.time_mlp = TimestepEmbedding(cfg.in_channels, 4 * ch)
+        chans = tuple(cfg.channels)
+        self.time_mlp = TimestepEmbedding(cfg.in_channels, 4 * chans[0])
 
-        def level(dim_in, closing_conv):
-            blocks = [ResnetBlock1D(dim_in, ch, 4 * ch, cfg.fused_norm),
+        def closing_conv(ch):
+            return CausalConv1d(ch, ch, 3) if cfg.causal else Conv1d(ch, ch, 3, padding=1)
+
+        def level(dim_in, ch, resample=None):
+            blocks = [ResnetBlock1D(dim_in, ch, 4 * chans[0], cfg.fused_norm, cfg.causal),
                       nn.ModuleList(DiTBlock(ch, cfg.num_heads, cfg.attention_head_dim,
                                              approx_gelu=cfg.approx_gelu,
                                              fused_norm=cfg.fused_norm,
                                              fused_block=cfg.fused_block)
                                     for _ in range(cfg.n_blocks))]
-            return nn.ModuleList(blocks + ([CausalConv1d(ch, ch, 3)] if closing_conv else []))
+            return nn.ModuleList(blocks + ([resample] if resample is not None else []))
 
-        self.down_blocks = nn.ModuleList([level(cfg.in_channels, True)])
-        self.mid_blocks = nn.ModuleList(level(ch, False) for _ in range(cfg.num_mid_blocks))
-        self.up_blocks = nn.ModuleList([level(2 * ch, True)])
-        self.final_block = Block1D(ch, ch, cfg.fused_norm)
-        self.final_proj = Conv1d(ch, cfg.out_channels, 1)
+        n = len(chans)
+        self.down_blocks = nn.ModuleList(
+            level(cfg.in_channels if i == 0 else chans[i - 1], ch,
+                  closing_conv(ch) if i == n - 1 else Downsample1D(ch))
+            for i, ch in enumerate(chans))
+        self.mid_blocks = nn.ModuleList(level(chans[-1], chans[-1])
+                                        for _ in range(cfg.num_mid_blocks))
+        up = chans[::-1] + (chans[0],)
+        self.up_blocks = nn.ModuleList(
+            level(2 * up[i], up[i + 1],
+                  closing_conv(up[i + 1]) if i == n - 1 else Upsample1DT(up[i + 1]))
+            for i in range(n))
+        self.final_block = Block1D(chans[0], chans[0], cfg.fused_norm, cfg.causal)
+        self.final_proj = Conv1d(chans[0], cfg.out_channels, 1)
 
     def time_embed(self, t: torch.Tensor, cdt) -> torch.Tensor:
         """[B] t -> [B, time_dim]; the angles reach `scale` rad, so they stay
         fp32 and only the embedding is cast."""
         return self.time_mlp(sinusoidal_time_emb(t.float(), self.cfg.in_channels).to(cdt))
+
+    def _attention_mask(self, m, cdt, serving_fast: bool, streaming: bool, exact_pad_mask: bool,
+                        chunk_anchor):
+        """A level's (additive bias [B, T|1, T], kernel key lengths [B]) for
+        its mask m [B, T]: one of them is None."""
+        cfg = self.cfg
+        if serving_fast:
+            return None, (m > 0).sum(dim=1).to(torch.int32)
+        if cfg.stream and streaming and chunk_anchor is not None:
+            keep = anchored_chunk_mask(m > 0, cfg.static_chunk_size, chunk_anchor,
+                                       cfg.left_chunks)
+        elif cfg.stream:
+            keep = add_chunk_mask(m > 0, cfg.static_chunk_size if streaming else 0,
+                                  cfg.left_chunks)
+        elif exact_pad_mask:
+            keep = m[:, None, :] > 0
+        else:
+            # the reference's 0/1 float mask, added to the scores verbatim
+            return (m[:, :, None] * m[:, None, :]).to(cdt), None
+        return torch.where(keep, 0.0, NEG_INF).to(cdt), None
 
     def forward(self, x, mask, mu, t, spks, cond, streaming: bool = False,
                 exact_pad_mask: bool = False, chunk_anchor: Optional[torch.Tensor] = None):
@@ -287,42 +375,38 @@ class ConditionalDecoder(nn.Module):
         t_emb = self.time_embed(t, cdt)
         T_in = x.shape[1]
         serving_fast = cfg.fused_attention and not (cfg.stream and streaming)
-        if serving_fast and T_in % 128:
+        if serving_fast and cfg.causal and T_in % 128:
             grow = (0, 0, 0, -T_in % 128)
             x, mu, cond = (F.pad(v, grow) for v in (x, mu, cond))
             mask = F.pad(mask, (0, -T_in % 128))
         T = x.shape[1]
-        m = mask[..., None]
-        if serving_fast:
-            bias, lengths = None, (mask > 0).sum(dim=1).to(torch.int32)
-        elif cfg.stream and streaming and chunk_anchor is not None:
-            keep = anchored_chunk_mask(mask > 0, cfg.static_chunk_size, chunk_anchor,
-                                       cfg.left_chunks)
-            bias, lengths = torch.where(keep, 0.0, NEG_INF).to(cdt), None
-        elif cfg.stream:
-            keep = add_chunk_mask(mask > 0, cfg.static_chunk_size if streaming else 0,
-                                  cfg.left_chunks)
-            bias, lengths = torch.where(keep, 0.0, NEG_INF).to(cdt), None
-        elif exact_pad_mask:
-            bias, lengths = torch.where(mask[:, None, :] > 0, 0.0, NEG_INF).to(cdt), None
-        else:
-            # the reference's 0/1 float mask, added to the scores verbatim
-            bias, lengths = (mask[:, :, None] * mask[:, None, :]).to(cdt), None
+        masks = [mask]                          # one a level: mask[:, ::2] below
+        for _ in range(len(self.down_blocks) - 1):
+            masks.append(masks[-1][:, ::2])
+        attn = [self._attention_mask(m, cdt, serving_fast, streaming, exact_pad_mask,
+                                     chunk_anchor) for m in masks]
 
-        def blocks(h, resnet, tbs):
-            h = resnet(h, mask, t_emb)
+        def blocks(h, lvl, i):
+            resnet, tbs = lvl[0], lvl[1]
+            h = resnet(h, masks[i], t_emb)
             for tb in tbs:
-                h = tb(h, bias, lengths)
+                h = tb(h, *attn[i])
             return h
 
         h = torch.cat([x, mu, spks[:, None, :].expand(-1, T, -1), cond], dim=-1)
-        resnet, tbs, down = self.down_blocks[0]
-        skip = blocks(h, resnet, tbs)
-        h = down(skip * m)
-        for resnet, tbs in self.mid_blocks:
-            h = blocks(h, resnet, tbs)
-        resnet, tbs, up = self.up_blocks[0]
-        h = up(blocks(torch.cat([h, skip], dim=-1), resnet, tbs) * m)
+        skips = []
+        for i, lvl in enumerate(self.down_blocks):
+            h = blocks(h, lvl, i)
+            skips.append(h)                     # saved before the downsample
+            h = lvl[2](h * masks[i][..., None])
+        last = len(masks) - 1
+        for lvl in self.mid_blocks:
+            h = blocks(h, lvl, last)
+        for i, lvl in enumerate(self.up_blocks):
+            skip = skips.pop()
+            h = blocks(torch.cat([h[:, :skip.shape[1]], skip], dim=-1), lvl, last - i)
+            h = lvl[2](h * masks[last - i][..., None])
+        m = mask[..., None]
         out = self.final_proj(self.final_block(h, mask) * m)
         return (out * m).float()[:, :T_in]
 
@@ -368,6 +452,14 @@ class CausalConditionalCFM(nn.Module):
         if noise is None:
             noise = reference_rand_noise(self.cfg.noise_frames, C)[:, :T]
         z = (noise.to(device=mu.device, dtype=mu.dtype) * temperature).expand(B, T, C)
+        return self.solve_euler(z, n_timesteps, mu, mask, spks, cond, streaming,
+                                exact_pad_mask, chunk_anchor)
+
+    def solve_euler(self, z, n_timesteps: int, mu, mask, spks, cond, streaming: bool = False,
+                    exact_pad_mask: bool = False, chunk_anchor=None):
+        """Fixed-step Euler over the cosine t schedule from z, each step one
+        estimator call on the CFG pair [cond; uncond]."""
+        B = z.shape[0]
         t_span = cosine_t_span(n_timesteps, mu.dtype, mu.device)
         r = self.cfg.inference_cfg_rate
         mask2 = torch.cat([mask, mask])
@@ -460,3 +552,137 @@ class CausalMaskedDiffWithXvec(nn.Module):
                             chunk_anchor=None if chunk_anchor is None
                             else chunk_anchor * self.cfg.token_mel_ratio)
         return feat if prompt_feat_len is not None else feat[:, P:]
+
+
+# --------------------------------------------------------------------------
+# CosyVoice v1: MaskedDiffWithXvec (length-regulated, non-causal CFM with a
+# flow cache)
+# --------------------------------------------------------------------------
+
+def interp_linear(x: torch.Tensor, new_len: int) -> torch.Tensor:
+    """F.interpolate(mode='linear', align_corners=False) along T of [B, T, C]."""
+    T = x.shape[1]
+    pos = (torch.arange(new_len, device=x.device, dtype=torch.float32) + 0.5) * T / new_len - 0.5
+    lo = pos.floor().long().clamp(0, T - 1)
+    hi = (lo + 1).clamp(0, T - 1)
+    w = (pos - lo).clamp(0.0, 1.0)[None, :, None].to(x.dtype)
+    return x[:, lo] * (1 - w) + x[:, hi] * w
+
+
+class InterpolateRegulator(nn.Module):
+    """Linear interpolation to the mel rate, then n_stages x (conv3 ->
+    GroupNorm -> mish) and a 1x1 conv (reference flow/length_regulator.py;
+    its `model.{3i}` conv / `model.{3i+1}` norm / `model.{3n}` head)."""
+
+    def __init__(self, channels: int, n_stages: int = 4, groups: int = 1):
+        super().__init__()
+        layers = []
+        for _ in range(n_stages):
+            layers += [Conv1d(channels, channels, 3, padding=1), GroupNorm(groups, channels),
+                       nn.Identity()]
+        self.model = nn.ModuleList(layers + [Conv1d(channels, channels, 1)])
+        self.n_stages = n_stages
+
+    def _model(self, x):
+        for i in range(self.n_stages):
+            x = mish(self.model[3 * i + 1](self.model[3 * i](x)))
+        return self.model[3 * self.n_stages](x)
+
+    def forward(self, x, ylens, out_len: int):
+        """x [B, T, C] -> [B, out_len, C], zero past ylens [B]."""
+        mask = make_non_pad_mask(ylens, out_len).to(x.dtype)[..., None]
+        return self._model(interp_linear(x, out_len)) * mask
+
+    def inference(self, x1, x2, mel_len1: int, mel_len2: int, input_frame_rate: int = 50,
+                  sample_rate: int = 22050):
+        """The prompt part x1 and the generated part x2 interpolated apart;
+        past 40 tokens, x2's first and last 20 tokens each become a fixed
+        `edge` of frames and the middle the rest, to keep the edges clean."""
+        if x2.shape[1] > 40:
+            edge = int(20 / input_frame_rate * sample_rate / 256)
+            x2 = torch.cat([interp_linear(x2[:, :20], edge),
+                            interp_linear(x2[:, 20:-20], mel_len2 - 2 * edge),
+                            interp_linear(x2[:, -20:], edge)], dim=1)
+        else:
+            x2 = interp_linear(x2, mel_len2)
+        x = torch.cat([interp_linear(x1, mel_len1), x2], dim=1) if x1.shape[1] else x2
+        return self._model(x)
+
+
+class ConditionalCFM(CausalConditionalCFM):
+    """The v1 CFM: fresh gaussian noise each call, and a flow cache that pins
+    the noise and mu of the prompt's frames and of the last 34 frames across
+    the chunks of a stream."""
+
+    def forward(self, mu, mask, spks, cond, noise: torch.Tensor, n_timesteps: int = 10,
+                temperature: float = 1.0, prompt_len: int = 0, flow_cache=None):
+        """mu [B, T, 80], mask [B, T] float, noise [B, T, 80] (the call's
+        fresh draw); flow_cache None or (z, mu) [B, Lc, 80] -> (mel [B, T,
+        80], the new flow cache)."""
+        z = noise.to(device=mu.device, dtype=mu.dtype) * temperature
+        if flow_cache is not None:
+            n = min(flow_cache[0].shape[1], mu.shape[1])
+            z, mu = z.clone(), mu.clone()
+            z[:, :n] = flow_cache[0][:, :n]
+            mu[:, :n] = flow_cache[1][:, :n]
+        cache = (torch.cat([z[:, :prompt_len], z[:, -34:]], dim=1),
+                 torch.cat([mu[:, :prompt_len], mu[:, -34:]], dim=1))
+        return self.solve_euler(z, n_timesteps, mu, mask, spks, cond), cache
+
+
+@dataclass(frozen=True)
+class FlowV1Config:
+    """The CosyVoice-300M flow (the reference's cosyvoice.yaml)."""
+
+    input_size: int = 512
+    output_size: int = 80
+    spk_embed_dim: int = 192
+    vocab_size: int = 4096
+    input_frame_rate: int = 25
+    encoder: ConformerConfig = field(default_factory=lambda: ConformerConfig(
+        dim=512, heads=8, linear_units=2048, num_blocks=6, input_size=512))
+    cfm: CFMConfig = field(default_factory=CFMConfig)
+    estimator: EstimatorConfig = field(default_factory=lambda: EstimatorConfig(
+        in_channels=320, out_channels=80, causal=False, channels=(256, 256),
+        n_blocks=4, num_mid_blocks=12, num_heads=8, attention_head_dim=64))
+    regulator_stages: int = 4
+
+
+class MaskedDiffWithXvec(nn.Module):
+    """The CosyVoice v1 flow model: tokens -> mel at 22.05 kHz / 256 hop."""
+
+    def __init__(self, cfg: FlowV1Config = FlowV1Config()):
+        super().__init__()
+        self.cfg = cfg
+        self.input_embedding = nn.Embedding(cfg.vocab_size, cfg.input_size)
+        self.spk_embed_affine_layer = Dense(cfg.spk_embed_dim, cfg.output_size)
+        self.encoder = ConformerEncoder(cfg.encoder)
+        self.encoder_proj = Dense(cfg.encoder.dim, cfg.output_size)
+        self.length_regulator = InterpolateRegulator(cfg.output_size, cfg.regulator_stages)
+        self.decoder = ConditionalCFM(cfg.cfm, cfg.estimator)
+
+    @torch.no_grad()
+    def inference(self, token, token_len, prompt_feat, embedding, noise: torch.Tensor,
+                  prompt_token_len: int = 0, mel_len2: int = 0, n_timesteps: int = 10,
+                  flow_cache=None, sample_rate: int = 22050):
+        """token [1, T] (prompt ++ generated), prompt_feat [1, P, 80],
+        embedding [1, spk_embed_dim], noise [1, P + mel_len2, 80] (the CFM's
+        fresh draw); mel_len2 generated mel frames (the caller's token count
+        / fr * sr / 256) -> (mel [1, mel_len2, 80], the new flow cache)."""
+        cfg = self.cfg
+        spks = embedding / embedding.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        spks = self.spk_embed_affine_layer(spks)
+        mask = make_non_pad_mask(token_len, token.shape[1])
+        emb = self.input_embedding(token.clamp_min(0)) * mask[..., None]
+        h, _ = self.encoder(emb, token_len)
+        h = self.encoder_proj(h)
+        P = prompt_feat.shape[1]
+        h = self.length_regulator.inference(h[:, :prompt_token_len], h[:, prompt_token_len:],
+                                            P, mel_len2, cfg.input_frame_rate, sample_rate)
+        conds = torch.zeros((h.shape[0], P + mel_len2, cfg.output_size), dtype=h.dtype,
+                            device=h.device)
+        conds[:, :P] = prompt_feat.to(h.dtype)
+        mel_mask = torch.ones(h.shape[:2], dtype=h.dtype, device=h.device)
+        mel, cache = self.decoder(h, mel_mask, spks, conds, noise, n_timesteps=n_timesteps,
+                                  prompt_len=P, flow_cache=flow_cache)
+        return mel[:, P:], cache

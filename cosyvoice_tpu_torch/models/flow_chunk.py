@@ -97,8 +97,11 @@ def est_block_count(cfg) -> int:
 
 
 def est_conv_shapes(cfg) -> dict:
-    """name -> input width of every causal conv of the estimator."""
-    ch = cfg.channels
+    """name -> input width of every causal conv of the estimator (the causal
+    one-level topology, the only one the incremental flow takes)."""
+    if not cfg.causal or len(cfg.channels) != 1:
+        raise ValueError("the incremental flow takes the causal one-level estimator")
+    ch = cfg.channels[0]
     shapes = {"d0b1": cfg.in_channels, "d0b2": ch, "ds0": ch, "u0b1": 2 * ch, "u0b2": ch,
               "us0": ch, "fb": ch}
     for i in range(cfg.num_mid_blocks):

@@ -1,17 +1,25 @@
-"""CosyVoice2 speech-token LM: Qwen2 body + speech head + AR decode loop.
+"""Speech-token LMs: CosyVoice2's Qwen2 body + speech head, CosyVoice v1's
+TransformerLM, and their AR decode loops.
 
 Port of cosyvoice_tpu/models/llm.py (Qwen2LM, lm_generate, the chunked
 decode of streaming synthesis (lm_prefill_stream, lm_decode_chunk) and the
-B=1 whole-step decode lm_generate_fused_step).  Inputs are
-[sos, text_emb(prompt_text ++ text), task, speech_emb(prompt_speech)]; decode
-is causal and KV-cached, one token per step; EOS is masked while step <
-min_len; decoding stops at EOS or max_len; sampled ids above EOS are not
-emitted and the previous input embedding is fed again.  The JAX package's
-`lax.while_loop` is a Python loop here over a preallocated cache, and
-its PRNG keys are one explicit torch.Generator.
+B=1 whole-step decode lm_generate_fused_step; TransformerLM with
+lm_generate_v1 and its streaming pair lm_prefill_stream_v1 /
+lm_decode_chunk_v1, over a conformer KV cache, B=1 as in the JAX package).
+Inputs are [sos, text_emb(prompt_text ++ text), task,
+speech_emb(prompt_speech)]; decode is causal and KV-cached, one token per
+step; EOS is masked while step < min_len; decoding stops at EOS or max_len;
+sampled ids above EOS are not emitted and the previous input embedding is
+fed again.  v1 inputs are [sos, speaker, text_encoder(text), task,
+speech_emb(prompt_speech)] (no speaker slot without a vector), and v1 masks
+EOS at the first step only.  The JAX package's `lax.while_loop` is a Python
+loop here over a preallocated cache, and its PRNG keys are one explicit
+torch.Generator.
 
-Parameter names follow the reference checkpoint (`llm.model.model.*` for
-the Qwen2 body, `llm_embedding`, `speech_embedding`, `llm_decoder`).
+Parameter names follow the reference checkpoints (`llm.model.model.*` for
+the Qwen2 body, `llm_embedding`, `speech_embedding`, `llm_decoder`; v1's
+`text_embedding`, `text_encoder.*`, `text_encoder_affine_layer`, `llm.*`,
+`spk_embed_affine_layer`).
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from cosyvoice_tpu_torch.models.conformer import (ConformerConfig, ConformerEncoder,
+                                                  ConformerKVCache)
 from cosyvoice_tpu_torch.models.qwen2 import (KVCache, Qwen2Config, Qwen2Model,
                                               causal_prefill_bias, rms_norm, rope_cos_sin)
 from cosyvoice_tpu_torch.nn.dense import Dense
@@ -32,11 +42,12 @@ from cosyvoice_tpu_torch.ops.masks import NEG_INF
 
 @dataclass(frozen=True)
 class SamplingConfig:
-    method: str = "ras"  # ras | nucleus | greedy
+    method: str = "ras"  # ras | non_random_ras | nucleus | greedy
     top_p: float = 0.8
     top_k: int = 25
     win_size: int = 10
     tau_r: float = 0.1
+    expand_scale: int = 2  # non_random_ras: the fallback nucleus's top_k factor
 
 
 @dataclass(frozen=True)
@@ -144,7 +155,11 @@ def _sample(cfg: SamplingConfig, gen, logp, recent, recent_valid):
     if cfg.method == "ras":
         return samp.ras_sample(gen, logp, recent, recent_valid, cfg.top_p, cfg.top_k,
                                cfg.win_size, cfg.tau_r)
-    raise ValueError(f"sampling method {cfg.method!r} is not ported yet")
+    if cfg.method == "non_random_ras":
+        return samp.non_random_ras_sample(gen, logp, recent, recent_valid, cfg.top_p,
+                                          cfg.top_k, cfg.win_size, cfg.tau_r,
+                                          cfg.expand_scale)
+    raise ValueError(f"unknown sampling method {cfg.method!r}")
 
 
 def _sample_from(model: Qwen2LM, hidden_last, state: GenState, min_len, gen):
@@ -168,7 +183,11 @@ def _sample_advance(model: Qwen2LM, state, hidden_last, min_len, max_len, gen) -
     _advance(model, state, _sample_from(model, hidden_last, state, min_len, gen), max_len)
 
 
-def _advance(model: Qwen2LM, state: GenState, tok, max_len) -> None:
+def _advance(model, state: GenState, tok, max_len) -> None:
+    """Emit tok where it is a speech token and the row is live; stop a row at
+    EOS or max_len; feed the emitted token's embedding next (v1's table has
+    no EOS row, so the id looked up is clamped to it: that embedding is
+    never used)."""
     eos = model.cfg.eos_token
     B = tok.shape[0]
     rows = torch.arange(B, device=tok.device)
@@ -179,7 +198,7 @@ def _advance(model: Qwen2LM, state: GenState, tok, max_len) -> None:
     rolled = torch.cat([state.recent[:, 1:], tok[:, None].to(state.recent.dtype)], dim=1)
     state.recent = torch.where(emitted[:, None], rolled, state.recent)
     state.recent_n = torch.clamp(state.recent_n + emitted.int(), max=state.recent.shape[1])
-    new_emb = model.speech_emb(tok[:, None])
+    new_emb = model.speech_emb(tok.clamp_max(model.speech_embedding.num_embeddings - 1)[:, None])
     state.prev_emb = torch.where(emitted[:, None, None], new_emb, state.prev_emb)
     state.count = state.count + emitted.int()
     state.step += 1
@@ -335,4 +354,177 @@ def lm_generate_fused_step(model: Qwen2LM, step_w: StepWeights, text, text_len,
                     eps=q.rms_norm_eps)
         hid = rms_norm(y, norm_w, q.rms_norm_eps)[None]
         _sample_advance(model, state, hid, min_len, max_len, gen)
+    return state.out, state.count
+
+
+# --------------------------------------------------------------------------
+# CosyVoice v1: TransformerLM over a conformer KV cache
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TransformerLMConfig:
+    """The CosyVoice-300M LM (the reference's cosyvoice.yaml)."""
+
+    text_encoder_input_size: int = 512
+    llm_input_size: int = 1024
+    llm_output_size: int = 1024
+    text_token_size: int = 60515
+    speech_token_size: int = 4096
+    spk_embed_dim: int = 192
+    sampling: SamplingConfig = field(default_factory=lambda: SamplingConfig(
+        method="non_random_ras", top_p=0.8, top_k=10, win_size=50, tau_r=0.1))
+    text_encoder: ConformerConfig = field(default_factory=lambda: ConformerConfig(
+        dim=1024, heads=16, linear_units=4096, num_blocks=6, input_size=512,
+        static_chunk_size=1))
+    llm: ConformerConfig = field(default_factory=lambda: ConformerConfig(
+        dim=1024, heads=16, linear_units=4096, num_blocks=14, input_size=1024,
+        static_chunk_size=1, input_layer="linear_legacy", activation="relu"))
+    min_token_text_ratio: float = 2.0
+    max_token_text_ratio: float = 20.0
+
+    @property
+    def eos_token(self) -> int:
+        return self.speech_token_size
+
+
+class TransformerLM(nn.Module):
+    """The v1 speech-token LM: a causal conformer text encoder, then a
+    causal transformer body over [sos, speaker, text, task, speech]."""
+
+    def __init__(self, cfg: TransformerLMConfig = TransformerLMConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.text_embedding = nn.Embedding(cfg.text_token_size, cfg.text_encoder_input_size)
+        self.text_encoder = ConformerEncoder(cfg.text_encoder)
+        self.text_encoder_affine_layer = Dense(cfg.text_encoder.dim, cfg.llm_input_size)
+        self.llm_embedding = nn.Embedding(2, cfg.llm_input_size)
+        self.llm = ConformerEncoder(cfg.llm, transformer_layer=True)
+        self.llm_decoder = Dense(cfg.llm_output_size, cfg.speech_token_size + 1)
+        self.speech_embedding = nn.Embedding(cfg.speech_token_size, cfg.llm_input_size)
+        self.spk_embed_affine_layer = Dense(cfg.spk_embed_dim, cfg.llm_input_size)
+
+    def encode_text(self, text, text_len):
+        """text ids [B, Tt] -> [B, Tt, llm_input_size] through the causal
+        (static chunk 1) conformer."""
+        h, _ = self.text_encoder(self.text_embedding(text), text_len)
+        return self.text_encoder_affine_layer(h)
+
+    def prefill_embeds(self, text, text_len, prompt_speech, prompt_speech_len,
+                       embedding: Optional[torch.Tensor]):
+        """Pack [sos, spk, text_enc, task, speech_emb] per row (right-padded);
+        with embedding None (or empty) the speaker slot is left out.
+        -> (embeds [B, N, D], seq_len [B])."""
+        B, Tt = text.shape
+        Ts = prompt_speech.shape[1]
+        dev = text.device
+        text_h = self.encode_text(text, text_len)
+        D = text_h.shape[-1]
+        has_spk = embedding is not None and embedding.shape[-1] > 0
+        n_fixed = 2 if has_spk else 1
+        N = n_fixed + Tt + 1 + Ts
+        pos = torch.arange(N, device=dev)[None, :]
+        tl = text_len[:, None]
+        in_text = (pos >= n_fixed) & (pos < n_fixed + tl)
+        is_task = pos == n_fixed + tl
+        in_speech = (pos > n_fixed + tl) & (pos < n_fixed + 1 + tl + prompt_speech_len[:, None])
+        gt = torch.gather(text_h, 1, (pos - n_fixed).clamp(0, Tt - 1).expand(B, N)[..., None]
+                          .expand(B, N, D))
+        if Ts > 0:
+            gs = torch.gather(self.speech_embedding(prompt_speech), 1,
+                              (pos - n_fixed - 1 - tl).clamp(0, Ts - 1)[..., None]
+                              .expand(B, N, D))
+        else:
+            gs = torch.zeros_like(gt)
+        zero = torch.zeros((), dtype=text_h.dtype, device=dev)
+        emb = torch.where(pos[..., None] == 0, self.llm_embedding.weight[0],
+              torch.where(in_text[..., None], gt,
+              torch.where(is_task[..., None], self.llm_embedding.weight[1],
+              torch.where(in_speech[..., None], gs, zero))))
+        if has_spk:
+            spk = embedding / embedding.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+            spk = self.spk_embed_affine_layer(spk.to(text_h.dtype))[:, None, :]
+            emb = torch.where(pos[..., None] == 1, spk, emb)
+        return emb, n_fixed + 1 + text_len + prompt_speech_len
+
+    def llm_prefill(self, embeds, cache: ConformerKVCache):
+        return self.llm.prefill(embeds, cache)
+
+    def llm_decode_step(self, x, cache: ConformerKVCache):
+        return self.llm.decode_step(x, cache)
+
+    def decode_logits(self, hidden):
+        return self.llm_decoder(hidden)
+
+    def speech_emb(self, tokens):
+        return self.speech_embedding(tokens)
+
+
+@dataclass
+class StreamStateV1:
+    """Carry of a chunked v1 decode: the GenState (over a ConformerKVCache),
+    the EOS mask's bound (1: the first step only), the stopping bound and the
+    sampling generator."""
+
+    gen: GenState
+    min_len: torch.Tensor
+    max_len: torch.Tensor
+    rng: Optional[torch.Generator]
+
+
+@torch.no_grad()
+def lm_prefill_stream_v1(model: TransformerLM, text, text_len, prompt_speech,
+                         prompt_speech_len, embedding: Optional[torch.Tensor], max_len,
+                         gen: Optional[torch.Generator], max_steps: int,
+                         cache_len: int) -> StreamStateV1:
+    """Prefill the conformer cache over the packed prefix and take the first
+    sample (EOS masked).  B=1: the prefill writes a padded row's pad slots."""
+    if text.shape[0] != 1:
+        raise ValueError("the v1 decode is exact for B=1 only (the prefill writes "
+                         "unmasked K/V for rows shorter than the padded prefix)")
+    cfg = model.cfg
+    embeds, seq_len = model.prefill_embeds(text, text_len, prompt_speech, prompt_speech_len,
+                                           embedding)
+    B, _, D = embeds.shape
+    dev = embeds.device
+    cache = ConformerKVCache.create(cfg.llm, B, cache_len, embeds.dtype, dev)
+    hidden, cache = model.llm_prefill(embeds, cache)
+    last = hidden[torch.arange(B, device=dev), seq_len - 1][:, None]
+    win = cfg.sampling.win_size
+    state = GenState(cache=cache, prev_emb=torch.zeros((B, 1, D), dtype=embeds.dtype,
+                                                       device=dev),
+                     step=0, count=torch.zeros(B, dtype=torch.int32, device=dev),
+                     done=torch.zeros(B, dtype=torch.bool, device=dev),
+                     out=torch.zeros((B, max_steps), dtype=torch.int32, device=dev),
+                     recent=torch.zeros((B, win), dtype=torch.int32, device=dev),
+                     recent_n=torch.zeros(B, dtype=torch.int32, device=dev))
+    stream = StreamStateV1(state, torch.ones(B, dtype=torch.long, device=dev), max_len, gen)
+    _sample_advance(model, state, last, stream.min_len, max_len, gen)
+    return stream
+
+
+@torch.no_grad()
+def lm_decode_chunk_v1(model: TransformerLM, stream: StreamStateV1,
+                       n_steps: int) -> StreamStateV1:
+    """Advance the v1 decode by up to n_steps steps, in place; stops early
+    at EOS, max_len or a full out buffer."""
+    state = stream.gen
+    max_steps = state.out.shape[1]
+    start = state.step
+    while (state.step < max_steps and state.step - start < n_steps
+           and not bool(state.done.all())):
+        hidden, state.cache = model.llm_decode_step(state.prev_emb, state.cache)
+        _sample_advance(model, state, hidden, stream.min_len, stream.max_len, stream.rng)
+    return stream
+
+
+def lm_generate_v1(model: TransformerLM, text, text_len, prompt_speech, prompt_speech_len,
+                   embedding: Optional[torch.Tensor], max_len,
+                   gen: Optional[torch.Generator], max_steps: int, cache_len: int):
+    """v1 generation (B=1): the streaming prefill and one chunk that runs to
+    the end.  Only the first step masks EOS (the JAX package's min_len
+    argument is unused there, and is not taken here).
+    Returns (tokens [1, max_steps], count [1])."""
+    stream = lm_prefill_stream_v1(model, text, text_len, prompt_speech, prompt_speech_len,
+                                  embedding, max_len, gen, max_steps, cache_len)
+    state = lm_decode_chunk_v1(model, stream, max_steps).gen
     return state.out, state.count

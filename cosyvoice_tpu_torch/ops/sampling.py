@@ -1,7 +1,8 @@
-"""Token sampling: nucleus / repetition-aware (RAS) / greedy with explicit
-torch.Generators.  Port of cosyvoice_tpu/ops/sampling.py; the keep-set rule
-is the reference's (sort descending, keep i iff the probability mass before
-i is < top_p and i < top_k, so the arg-max is always kept)."""
+"""Token sampling: nucleus / repetition-aware (RAS and its non-random
+variant) / greedy with explicit torch.Generators.  Port of
+cosyvoice_tpu/ops/sampling.py; the keep-set rule is the reference's (sort
+descending, keep i iff the probability mass before i is < top_p and
+i < top_k, so the arg-max is always kept)."""
 from __future__ import annotations
 
 import torch
@@ -46,6 +47,18 @@ def ras_sample(gen: torch.Generator, logits: torch.Tensor, recent: torch.Tensor,
     cand = nucleus_sample(gen, logits, top_p, top_k)
     reps = ((recent == cand[:, None]) & recent_valid).sum(dim=-1)
     fallback = random_sample(gen, logits)
+    return torch.where(reps >= win_size * tau_r, fallback, cand)
+
+
+def non_random_ras_sample(gen: torch.Generator, logits: torch.Tensor, recent: torch.Tensor,
+                          recent_valid: torch.Tensor, top_p: float = 0.8, top_k: int = 25,
+                          win_size: int = 10, tau_r: float = 0.1,
+                          expand_scale: int = 2) -> torch.Tensor:
+    """RAS whose fallback is a draw from an expanded nucleus (top_p + 0.15,
+    top_k * expand_scale) instead of the full softmax (CosyVoice v1)."""
+    cand = nucleus_sample(gen, logits, top_p, top_k)
+    reps = ((recent == cand[:, None]) & recent_valid).sum(dim=-1)
+    fallback = nucleus_sample(gen, logits, top_p + 0.15, top_k * expand_scale)
     return torch.where(reps >= win_size * tau_r, fallback, cand)
 
 

@@ -1,13 +1,15 @@
-"""User-facing CosyVoice2 API: the sft, zero-shot, cross-lingual, instruct2
-and voice-conversion modes.
+"""User-facing APIs: CosyVoice2 (sft, zero-shot, cross-lingual, instruct2
+and voice conversion) and CosyVoice v1 (sft, zero-shot, cross-lingual,
+instruct and voice conversion).
 
-Port of cosyvoice_tpu/runtime/api.py::CosyVoice2: each `inference_*`
+Port of cosyvoice_tpu/runtime/api.py::CosyVoice2 and ::CosyVoice: each `inference_*`
 normalizes and splits the text, then runs `model.tts()` a segment, logging
 the RTF of each yielded chunk: one chunk a segment, or with `stream=True`
 the segment's streamed chunks as they are synthesized.  `inference_vc` has
 no LM stage: the source's speech tokens go through the flow and vocoder,
-streamed in hop-sized chunks with `stream=True`.  `from_pretrained` builds
-one from a released-format model directory.
+streamed in hop-sized chunks with `stream=True` (v1: hop-sized windows
+with 20 tokens of overlap).  `from_pretrained` builds a CosyVoice2 from a
+released-format model directory; like the JAX package, v1 has no loader.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LM
 from cosyvoice_tpu_torch.models.s3tokenizer import (S3Config, import_s3tokenizer_onnx,
                                                     make_s3_frontend_fn)
 from cosyvoice_tpu_torch.runtime.frontend import CosyVoiceFrontEnd
-from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model
+from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model, CosyVoiceV1Model
 from cosyvoice_tpu_torch.tokenizer.text import QwenTokenizer
 from cosyvoice_tpu_torch.utils.checkpoint import load_by_name
 from cosyvoice_tpu_torch.utils.npz_io import load_params_npz
@@ -131,6 +133,96 @@ class CosyVoice2:
                                              finalize=False)}
             off += hop
         yield {"tts_speech": m.token2wav(tokens, *args, off, session, finalize=True)}
+
+
+@dataclass
+class CosyVoice:
+    """The CosyVoice v1 API over CosyVoiceV1Model: the LM gets the speaker
+    vector as its own input (none in the instruct mode)."""
+
+    frontend: CosyVoiceFrontEnd
+    model: CosyVoiceV1Model
+    sample_rate: int = 22050
+
+    def list_available_spks(self) -> list[str]:
+        return list(self.frontend.spk2info.keys())
+
+    def _segments(self, tts_text: str, text_frontend: bool) -> list:
+        return self.frontend.text_normalize(tts_text) if text_frontend else [tts_text]
+
+    def _run(self, model_input: dict, stream: bool, speed: float,
+             gen: Optional[torch.Generator]) -> Iterator[dict]:
+        ptext = model_input.get("prompt_text", np.zeros(0, np.int32))
+        start = time.time()
+        for out in self.model.tts(
+                text_tokens=np.concatenate([ptext, model_input["text"]]).astype(np.int32),
+                prompt_text_len=len(ptext),
+                llm_prompt_speech_token=model_input.get(
+                    "llm_prompt_speech_token", np.zeros(0, np.int32)),
+                flow_prompt_speech_token=model_input.get(
+                    "flow_prompt_speech_token", np.zeros(0, np.int32)),
+                prompt_speech_feat=model_input.get(
+                    "prompt_speech_feat",
+                    np.zeros((0, self.model.flow.cfg.output_size), np.float32)),
+                flow_embedding=model_input["flow_embedding"],
+                llm_embedding=model_input.get("llm_embedding"),
+                stream=stream, speed=speed, gen=gen):
+            audio_dur = len(out["tts_speech"]) / self.sample_rate
+            logger.info("yield speech len %.2f, rtf %f", audio_dur,
+                        (time.time() - start) / max(audio_dur, 1e-6))
+            yield out
+            start = time.time()
+
+    def inference_sft(self, tts_text: str, spk_id: str, stream: bool = False,
+                      speed: float = 1.0, text_frontend: bool = True,
+                      gen: Optional[torch.Generator] = None) -> Iterator[dict]:
+        for seg in self._segments(tts_text, text_frontend):
+            yield from self._run(self.frontend.frontend_sft(seg, spk_id), stream, speed, gen)
+
+    def inference_zero_shot(self, tts_text: str, prompt_text: str,
+                            prompt_speech_16k: np.ndarray, stream: bool = False,
+                            speed: float = 1.0, text_frontend: bool = True,
+                            gen: Optional[torch.Generator] = None) -> Iterator[dict]:
+        prompt_text_n = (self.frontend.text_normalize(prompt_text, split=False)
+                         if text_frontend else prompt_text)
+        for seg in self._segments(tts_text, text_frontend):
+            yield from self._run(self.frontend.frontend_zero_shot(
+                seg, prompt_text_n, prompt_speech_16k), stream, speed, gen)
+
+    def inference_cross_lingual(self, tts_text: str, prompt_speech_16k: np.ndarray,
+                                stream: bool = False, speed: float = 1.0,
+                                text_frontend: bool = True,
+                                gen: Optional[torch.Generator] = None) -> Iterator[dict]:
+        for seg in self._segments(tts_text, text_frontend):
+            yield from self._run(self.frontend.frontend_cross_lingual(seg, prompt_speech_16k),
+                                 stream, speed, gen)
+
+    def inference_instruct(self, tts_text: str, spk_id: str, instruct_text: str,
+                           stream: bool = False, speed: float = 1.0,
+                           text_frontend: bool = True,
+                           gen: Optional[torch.Generator] = None) -> Iterator[dict]:
+        for seg in self._segments(tts_text, text_frontend):
+            yield from self._run(self.frontend.frontend_instruct(seg, spk_id, instruct_text),
+                                 stream, speed, gen)
+
+    def inference_vc(self, source_speech_16k: np.ndarray, prompt_speech_16k: np.ndarray,
+                     stream: bool = False, speed: float = 1.0) -> Iterator[dict]:
+        mi = self.frontend.frontend_vc(source_speech_16k, prompt_speech_16k)
+        m = self.model
+        session = m.new_session()
+        tokens = mi["source_speech_token"]
+        args = (mi["flow_prompt_speech_token"], mi["prompt_speech_feat"], mi["flow_embedding"])
+        if not stream:
+            yield {"tts_speech": m.token2wav(tokens, *args, session, finalize=True,
+                                             speed=speed)}
+            return
+        hop, lap = m.token_min_hop_len, m.token_overlap_len
+        while len(tokens) >= hop + lap:
+            yield {"tts_speech": m.token2wav(tokens[:hop + lap], *args, session,
+                                             finalize=False)}
+            tokens = tokens[hop:]
+            hop = min(m.token_max_hop_len, int(hop * m.stream_scale_factor))
+        yield {"tts_speech": m.token2wav(tokens, *args, session, finalize=True)}
 
 
 def _weights_file(model_dir: str, stem: str) -> str:

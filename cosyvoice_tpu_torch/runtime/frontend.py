@@ -2,12 +2,13 @@
 
 Port of cosyvoice_tpu/runtime/frontend.py: the model inputs of the sft
 (a registered speaker's vector from `spk2info`), zero-shot, cross-lingual,
-instruct2 and voice-conversion modes.  The speech tokenizer and speaker
-embedder are injected callables (`runtime/api.from_pretrained` wires the
-port's S3 tokenizer and CAMPPlus); the 24 kHz prompt mel comes from ops/mel
-on `device` (the GPU unless the caller passes "cpu").  `text_normalizer`
+instruct2 (CosyVoice2), instruct (CosyVoice v1) and voice-conversion
+modes.  The speech tokenizer and speaker embedder are injected callables
+(`runtime/api.from_pretrained` wires the port's S3 tokenizer and CAMPPlus);
+the 24 kHz prompt mel comes from ops/mel on `device` (the GPU unless the caller passes "cpu"); CosyVoice v1 uses
+sample_rate 22050, mel_n_fft 1024, mel_hop 256.  `text_normalizer`
 replaces the built-in text normalization.  Zero-shot keeps feat ==
-2 * token length at 24 kHz.  The v1 instruct mode comes with the v1 slice.
+2 * token length at 24 kHz.
 """
 from __future__ import annotations
 
@@ -107,6 +108,15 @@ class CosyVoiceFrontEnd:
         d = self.frontend_zero_shot(tts_text, instruct_text + "<|endofprompt|>",
                                     prompt_speech_16k)
         del d["llm_prompt_speech_token"]
+        return d
+
+    def frontend_instruct(self, tts_text: str, spk_id: str, instruct_text: str) -> dict:
+        """CosyVoice v1's instruct mode: the sft inputs without the LM's
+        speaker vector (the instruction carries the style), the instruction
+        (ended by "<endofprompt>") as the prompt text."""
+        d = self.frontend_sft(tts_text, spk_id)
+        del d["llm_embedding"]
+        d["prompt_text"] = self._extract_text_token(instruct_text + "<endofprompt>")
         return d
 
     def frontend_vc(self, source_speech_16k: np.ndarray,

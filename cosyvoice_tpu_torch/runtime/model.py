@@ -1,6 +1,7 @@
-"""CosyVoice2 inference pipeline: LM -> flow -> vocoder, one-shot or streaming.
+"""Inference pipelines: LM -> flow -> vocoder, one-shot or streaming, for
+CosyVoice2 (CosyVoice2Model) and CosyVoice v1 (CosyVoiceV1Model).
 
-Port of cosyvoice_tpu/runtime/model.py::CosyVoice2Model.
+Port of cosyvoice_tpu/runtime/model.py::CosyVoice2Model and ::CosyVoiceV1Model.
 - `tts(stream=False)`: one LM decode over the whole text, one flow call over
   prompt ++ generated tokens (padded to a multiple of the 50-token hop), one
   HiFT call over the generated mel (padded to a multiple of 32 frames).
@@ -28,6 +29,19 @@ batches the non-streaming stages.  Where the JAX package folds a counter
 into a PRNG key for each vocoder call, a session here draws its HiFT source
 noise from one torch.Generator seeded 0, so a request's waveform does not
 depend on what was synthesized before it.
+
+CosyVoiceV1Model (22.05 kHz, 256-sample hop): the one-shot `tts` decodes,
+then runs the flow over prompt ++ tokens and HiFT over the mel.  The
+streamed `tts` decodes in hop-sized chunks (hop 2 * fr tokens) interleaved
+with synthesis: whenever hop + 20 overlap tokens past the consumed offset
+exist, the flow runs over the prompt and just that window, with the
+session's flow cache pinning the prompt's and the last 34 frames' noise and
+mu; the window's last 20 tokens' mel (mel_overlap_len frames) is held back
+and Hamming-faded into the next chunk's head; HiFT keeps 20 mel frames, their
+source and the held-back tail of the wav, as CosyVoice2Model does.  Each
+session draws its CFM noise and its HiFT source noise from one
+torch.Generator seeded 0 (the JAX package folds a session counter into a
+fixed key).
 """
 from __future__ import annotations
 
@@ -42,9 +56,12 @@ import torch
 import torch.nn.functional as F
 
 from cosyvoice_tpu_torch.device import resolve_device
-from cosyvoice_tpu_torch.models.flow import CausalMaskedDiffWithXvec, reference_rand_noise
+from cosyvoice_tpu_torch.models.flow import (CausalMaskedDiffWithXvec, MaskedDiffWithXvec,
+                                             reference_rand_noise)
 from cosyvoice_tpu_torch.models.hift import HiFTGenerator
-from cosyvoice_tpu_torch.models.llm import Qwen2LM, lm_decode_chunk, lm_prefill_stream
+from cosyvoice_tpu_torch.models.llm import (Qwen2LM, TransformerLM, lm_decode_chunk,
+                                            lm_decode_chunk_v1, lm_prefill_stream,
+                                            lm_prefill_stream_v1)
 
 
 def round_up(n: int, m: int) -> int:
@@ -65,6 +82,13 @@ def _pick_bucket(buckets: tuple, cap: int, allowed: int) -> int:
         if allowed <= b:
             return b
     return cap
+
+
+def _warn_if_capped(count: int, allowed: int, cap: int, fr: int) -> None:
+    if count >= cap and allowed > cap:
+        logging.warning("LM decode TRUNCATED at the static cap: emitted %d tokens "
+                        "(~%.1f s audio) but the 20x-text bound allows %d; raise "
+                        "max_decode_tokens", count, count / fr, allowed)
 
 
 def _interp_linear(mel: np.ndarray, new_len: int) -> np.ndarray:
@@ -155,11 +179,7 @@ class CosyVoice2Model:
         return decoded.out[0, :n].cpu().numpy()
 
     def _warn_if_capped(self, count: int, allowed: int, cap: int) -> None:
-        if count >= cap and allowed > cap:
-            logging.warning("LM decode TRUNCATED at the static cap: emitted %d tokens "
-                            "(~%.1f s audio) but the 20x-text bound allows %d; raise "
-                            "max_decode_tokens", count,
-                            count / self.flow.cfg.input_frame_rate, allowed)
+        _warn_if_capped(count, allowed, cap, self.flow.cfg.input_frame_rate)
 
     def pinned_noise(self, frames: int) -> Optional[torch.Tensor]:
         """The first `frames` frames of the pinned CFM noise [1, N, 80] (None
@@ -407,3 +427,189 @@ class CosyVoice2Model:
         yield {"tts_speech": self.token2wav(state.gen.out[0], fpt, prompt_feat, emb,
                                             token_offset, session, finalize=True,
                                             n_tokens=count)}
+
+
+@dataclass
+class CosyVoiceV1Model:
+    """The CosyVoice v1 stages on `device` (default: the GPU)."""
+
+    llm: TransformerLM
+    flow: MaskedDiffWithXvec
+    hift: HiFTGenerator
+    sample_rate: int = 22050
+    # hard cap on generated speech tokens per segment (KV-cache ceiling)
+    max_decode_tokens: int = 800
+    decode_buckets: Optional[tuple] = None
+    device: Optional[str] = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        for m in (self.llm, self.flow, self.hift):
+            m.to(self.device).eval()
+        if self.decode_buckets is None:
+            self.decode_buckets = _derive_decode_buckets(self.max_decode_tokens)
+        self.fr = fr = self.flow.cfg.input_frame_rate                # 25
+        self.token_min_hop_len = 2 * fr
+        self.token_max_hop_len = 4 * fr
+        self.token_overlap_len = 20
+        self.mel_overlap_len = int(self.token_overlap_len / fr * self.sample_rate / 256)
+        self.mel_window = np.hamming(2 * self.mel_overlap_len)
+        self.mel_cache_len = 20
+        self.hop_samples = self.hift.cfg.upsample_scale              # 256 at 22.05 kHz
+        self.source_cache_len = self.mel_cache_len * self.hop_samples
+        self.speech_window = np.hamming(2 * self.source_cache_len)
+        self.stream_scale_factor = 1
+
+    def decode_cap(self, new_text_len: int) -> int:
+        allowed = int(new_text_len * self.llm.cfg.max_token_text_ratio)
+        return _pick_bucket(self.decode_buckets, self.max_decode_tokens, allowed)
+
+    def _tensor(self, x, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+    def _prefill(self, text_tokens, prompt_text_len: int, prompt_speech_tokens, embedding,
+                 gen: Optional[torch.Generator]):
+        """The decode's prefill and first sample -> (StreamStateV1, allowed, cap);
+        an absent or empty speaker vector leaves the LM's speaker slot out."""
+        text = self._tensor(text_tokens, torch.long)[None]
+        psp = self._tensor(prompt_speech_tokens, torch.long)[None]
+        new_text = text.shape[1] - prompt_text_len
+        allowed = int(new_text * self.llm.cfg.max_token_text_ratio)
+        cap = self.decode_cap(new_text)
+        has_spk = embedding is not None and np.asarray(embedding).size > 0
+        state = lm_prefill_stream_v1(
+            self.llm, text, self._tensor([text.shape[1]], torch.long), psp,
+            self._tensor([psp.shape[1]], torch.long),
+            self._tensor(embedding, torch.float32)[None] if has_spk else None,
+            self._tensor([min(allowed, cap)], torch.long), gen, max_steps=cap,
+            cache_len=round_up(3 + text.shape[1] + psp.shape[1] + cap, 128))
+        return state, allowed, cap
+
+    def llm_generate(self, text_tokens, prompt_text_len: int, prompt_speech_tokens,
+                     embedding, gen: Optional[torch.Generator]) -> np.ndarray:
+        """The full AR decode; returns the emitted token ids."""
+        state, allowed, cap = self._prefill(text_tokens, prompt_text_len,
+                                            prompt_speech_tokens, embedding, gen)
+        decoded = lm_decode_chunk_v1(self.llm, state, cap).gen
+        n = int(decoded.count[0])
+        _warn_if_capped(n, allowed, cap, self.fr)
+        return decoded.out[0, :n].cpu().numpy()
+
+    @staticmethod
+    def new_session() -> dict:
+        """A request's synthesis state: the flow cache, the held-back mel
+        overlap, the HiFT caches and the noise generator."""
+        return {"hift": None, "mel_overlap": None, "flow_cache": None,
+                "gen": torch.Generator().manual_seed(0)}
+
+    def flow_noise(self, session: dict, frames: int) -> torch.Tensor:
+        """The CFM's fresh noise [1, frames, 80] for one flow call, drawn
+        from the session's generator (on the CPU: the same numbers on any
+        device)."""
+        return torch.randn((1, frames, self.flow.cfg.output_size), generator=session["gen"])
+
+    def token2wav(self, tokens, prompt_tokens, prompt_feat, embedding,
+                  session: Optional[dict] = None, finalize: bool = True,
+                  speed: float = 1.0) -> np.ndarray:
+        """Flow over prompt ++ tokens (with the session's flow cache), then
+        the vocoder, for one chunk of a session (by default a fresh one: the
+        whole request at once)."""
+        session = self.new_session() if session is None else session
+        tokens = np.asarray(tokens)
+        tok = self._tensor(np.concatenate([np.asarray(prompt_tokens), tokens]), torch.long)
+        prompt_feat = self._tensor(prompt_feat, torch.float32)
+        mel_len2 = int(len(tokens) / self.fr * self.sample_rate / 256)
+        mel, session["flow_cache"] = self.flow.inference(
+            tok[None], self._tensor([len(tok)], torch.long), prompt_feat[None],
+            self._tensor(embedding, torch.float32)[None],
+            self.flow_noise(session, prompt_feat.shape[0] + mel_len2),
+            prompt_token_len=len(prompt_tokens), mel_len2=mel_len2,
+            flow_cache=session["flow_cache"], sample_rate=self.sample_rate)
+        mel = mel[0]
+        if session["mel_overlap"] is not None:
+            mel = self._fade_mel(mel, session["mel_overlap"])
+        cache = session["hift"]
+        cache_source = None
+        if cache is not None:
+            mel = torch.cat([cache["mel"], mel])
+            cache_source = cache["source"]
+        if not finalize:
+            session["mel_overlap"] = mel[-self.mel_overlap_len:]
+            mel = mel[:-self.mel_overlap_len]
+            wav, source = self._vocode(mel, cache_source, session["gen"])
+            if cache is not None:
+                wav = self._fade_speech(wav, cache["speech"])
+            n = self.source_cache_len
+            session["hift"] = {"mel": mel[-self.mel_cache_len:], "source": source[-n:],
+                               "speech": wav[-n:]}
+            return wav[:-n]
+        if speed != 1.0:
+            if cache is not None:
+                raise ValueError("a speed change needs non-streaming synthesis")
+            mel = self._tensor(_interp_linear(mel.cpu().numpy(), int(mel.shape[0] / speed)),
+                               torch.float32)
+        wav, _ = self._vocode(mel, cache_source, session["gen"])
+        return wav if cache is None else self._fade_speech(wav, cache["speech"])
+
+    def _vocode(self, mel: torch.Tensor, cache_source: Optional[torch.Tensor],
+                gen: torch.Generator):
+        """HiFT over mel [frames, 80], the cached source [Lc] spliced over the
+        head of the new one -> (wav on the host, source on the device) of
+        frames * hop_samples samples; no frames give no samples."""
+        n = mel.shape[0] * self.hop_samples
+        if n == 0:
+            return np.zeros(0, np.float32), mel.new_zeros(0, dtype=torch.float32)
+        cs = None if cache_source is None else cache_source[None, :, None]
+        wav, source = self.hift.inference(mel.float()[None], cache_source=cs, gen=gen)
+        return wav[0, :n].cpu().numpy(), source[0, :n, 0]
+
+    def _fade_mel(self, mel: torch.Tensor, prev_tail: torch.Tensor) -> torch.Tensor:
+        """Hamming cross-fade of the chunk's first mel frames with the
+        previous chunk's held-back overlap."""
+        n = prev_tail.shape[0]
+        w = torch.as_tensor(self.mel_window, dtype=mel.dtype, device=mel.device)
+        return torch.cat([mel[:n] * w[:n, None] + prev_tail * w[n:, None], mel[n:]])
+
+    def _fade_speech(self, wav: np.ndarray, prev_tail: np.ndarray) -> np.ndarray:
+        """Hamming cross-fade of the chunk's head with the held-back tail."""
+        n, w = self.source_cache_len, self.speech_window
+        wav = wav.copy()
+        wav[:n] = wav[:n] * w[:n] + prev_tail[-n:] * w[n:]
+        return wav
+
+    def tts(self, text_tokens: np.ndarray, prompt_text_len: int,
+            llm_prompt_speech_token: np.ndarray, flow_prompt_speech_token: np.ndarray,
+            prompt_speech_feat: np.ndarray, flow_embedding: np.ndarray,
+            llm_embedding: Optional[np.ndarray] = None, stream: bool = False,
+            speed: float = 1.0, gen: Optional[torch.Generator] = None) -> Iterator[dict]:
+        """Yield {'tts_speech': np.ndarray [S]}: one chunk, or the stream's
+        chunks (decode chunks of hop tokens interleaved with synthesis)."""
+        if gen is None:
+            gen = torch.Generator().manual_seed(time.time_ns() % (1 << 31))
+        session = self.new_session()
+        fpt = np.asarray(flow_prompt_speech_token, np.int64)
+        feat = np.asarray(prompt_speech_feat, np.float32)
+        emb = np.asarray(flow_embedding, np.float32)
+        if not stream:
+            tokens = self.llm_generate(text_tokens, prompt_text_len, llm_prompt_speech_token,
+                                       llm_embedding, gen)
+            yield {"tts_speech": self.token2wav(tokens, fpt, feat, emb, session,
+                                                finalize=True, speed=speed)}
+            return
+        state, allowed, cap = self._prefill(text_tokens, prompt_text_len,
+                                            llm_prompt_speech_token, llm_embedding, gen)
+        consumed, hop, lap = 0, self.token_min_hop_len, self.token_overlap_len
+        while True:
+            lm_decode_chunk_v1(self.llm, state, hop)
+            count, done = int(state.gen.count[0]), bool(state.gen.done[0])
+            tokens = state.gen.out[0, :count].cpu().numpy()
+            while count - consumed >= hop + lap:
+                yield {"tts_speech": self.token2wav(tokens[consumed:consumed + hop + lap], fpt,
+                                                    feat, emb, session, finalize=False)}
+                consumed += hop
+                hop = min(self.token_max_hop_len, int(hop * self.stream_scale_factor))
+            if done or state.gen.step >= cap:
+                break
+        _warn_if_capped(count, allowed, cap, self.fr)
+        yield {"tts_speech": self.token2wav(tokens[consumed:], fpt, feat, emb, session,
+                                            finalize=True)}

@@ -1,7 +1,9 @@
-"""Text tokenizers: the Qwen byte-level BPE tokenizer of CosyVoice2 and a
-byte tokenizer for tests and smoke runs.
+"""Text tokenizers: the Qwen byte-level BPE tokenizer of CosyVoice2, the
+whisper-style multilingual tokenizer of CosyVoice v1, and a byte tokenizer
+for tests and smoke runs.
 
-Port of cosyvoice_tpu/tokenizer/text.py's QwenTokenizer and ByteTokenizer.
+Port of cosyvoice_tpu/tokenizer/text.py's QwenTokenizer,
+WhisperTiktokenTokenizer and ByteTokenizer.
 The JAX package's QwenTokenizer wraps `transformers.AutoTokenizer`; this one
 reads the HF `tokenizer.json` itself (neither `transformers` nor `tokenizers`
 is needed) and gives the same ids:
@@ -15,9 +17,16 @@ is needed) and gives the same ids:
     each regex is a scanner over `unicodedata.category` that takes its
     alternatives in order, as the regex engine does;
   * each piece is mapped to the GPT-2 byte alphabet and merged by BPE rank.
+The JAX package's WhisperTiktokenTokenizer wraps `tiktoken`; this one reads
+the same *.tiktoken ranks file and gives the same ids without it: the
+whisper pattern is the GPT-2 regex above, and tiktoken's merge works on raw
+bytes, merging the one adjacent pair whose concatenation has the lowest rank
+(the leftmost of equal ones) until no concatenation has a rank, after a
+whole-piece lookup.
 """
 from __future__ import annotations
 
+import base64
 import json
 import os
 import unicodedata
@@ -275,6 +284,82 @@ class QwenTokenizer:
                 pending.append(self.id_to_token[t])
         flush()
         return "".join(out)
+
+
+# the v1 tokenizer's specials after its ranks (the reference's tokenizer.py)
+WHISPER_SPECIALS_HEAD = ("<|endoftext|>", "<|startoftranscript|>")
+WHISPER_SPECIALS_TAIL = ("<|translate|>", "<|transcribe|>", "<|startoflm|>",
+                         "<|startofprev|>", "<|nospeech|>", "<|notimestamps|>")
+
+
+class WhisperTiktokenTokenizer:
+    """CosyVoice v1's multilingual tokenizer: a tiktoken ranks file (one
+    "base64(token) rank" a line) with the GPT-2 pattern, and the reference's
+    specials after the ranks: endoftext, startoftranscript, num_languages
+    language tags, the task tags, 1501 timestamps and <|endofprompt|>."""
+
+    def __init__(self, vocab_path: str, num_languages: int = 100):
+        with open(vocab_path, "rb") as f:
+            self.ranks = {base64.b64decode(tok): int(rank)
+                          for tok, rank in (line.split() for line in f if line.strip())}
+        specials = (list(WHISPER_SPECIALS_HEAD)
+                    + [f"<|lang{i}|>" for i in range(num_languages)]
+                    + list(WHISPER_SPECIALS_TAIL)
+                    + [f"<|{i * 0.02:.2f}|>" for i in range(1501)] + ["<|endofprompt|>"])
+        n_vocab = len(self.ranks)
+        self.special_tokens = {tok: n_vocab + i for i, tok in enumerate(specials)}
+        self.n_vocab = n_vocab + len(specials)
+        self.id_to_bytes = {r: b for b, r in self.ranks.items()}
+        self.id_to_bytes.update({i: t.encode("utf-8") for t, i in self.special_tokens.items()})
+        self._cache: dict = {}
+
+    def _bpe(self, piece: bytes) -> list:
+        """tiktoken's byte-pair merge of one pre-token."""
+        if piece in self.ranks:
+            return [self.ranks[piece]]
+        if piece in self._cache:
+            return self._cache[piece]
+        parts = [piece[i:i + 1] for i in range(len(piece))]
+        while len(parts) > 1:
+            best, at = None, -1
+            for i in range(len(parts) - 1):
+                r = self.ranks.get(parts[i] + parts[i + 1])
+                if r is not None and (best is None or r < best):
+                    best, at = r, i
+            if best is None:
+                break
+            parts[at:at + 2] = [parts[at] + parts[at + 1]]
+        ids = [self.ranks[p] for p in parts]
+        self._cache[piece] = ids
+        return ids
+
+    def encode(self, text: str, **kwargs) -> list[int]:
+        """Every special is allowed (the JAX package passes them all); each
+        starts with "<|" and ends with "|>", so at most one matches at a
+        place and the leftmost match splits the text."""
+        ids, start, i = [], 0, 0
+        while i < len(text):
+            j = text.find("<|", i)
+            if j < 0:
+                break
+            k = text.find("|>", j + 2)
+            if k < 0:
+                break
+            tok = text[j:k + 2]
+            if tok in self.special_tokens:
+                for word in _split(text[start:j], _gpt2_match):
+                    ids += self._bpe(word.encode("utf-8"))
+                ids.append(self.special_tokens[tok])
+                start = i = k + 2
+            else:
+                i = j + 1
+        for word in _split(text[start:], _gpt2_match):
+            ids += self._bpe(word.encode("utf-8"))
+        return ids
+
+    def decode(self, tokens) -> str:
+        data = b"".join(self.id_to_bytes[int(t)] for t in tokens if int(t) < self.n_vocab)
+        return data.decode("utf-8", errors="replace")
 
 
 class ByteTokenizer:

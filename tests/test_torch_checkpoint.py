@@ -71,7 +71,8 @@ JCFG = dict(lm_cfg=jllm.LMConfig(**LM, qwen=JQwen2Config(**QWEN),
 TCFG = dict(lm_cfg=tllm.LMConfig(**LM, qwen=TQwen2Config(**QWEN),
                                  sampling=tllm.SamplingConfig(method="greedy")),
             flow_cfg=tflow.FlowConfig(**FLOW, encoder=tconf.ConformerConfig(**ENC),
-                                      estimator=tflow.EstimatorConfig(**EST, channels=32),
+                                      estimator=tflow.EstimatorConfig(**EST, causal=True,
+                                                                      channels=(32,)),
                                       cfm=tflow.CFMConfig(noise_frames=4000)),
             hift_cfg=thift.HiFTConfig(**HIFT), campplus_cfg=tcamp.CAMPPlusConfig(**U.CAMP),
             s3_cfg=ts3.S3Config(**U.S3))

@@ -91,7 +91,7 @@ def flow128():
     jcfg = dataclasses.replace(jcfg, estimator=jflow.EstimatorConfig(
         **_est_kwargs(True), causal=True, channels=(128,)))
     tcfg = dataclasses.replace(tcfg, estimator=tflow.EstimatorConfig(
-        **_est_kwargs(True), channels=128))
+        **_est_kwargs(True), causal=True, channels=(128,)))
     jm = jflow.CausalMaskedDiffWithXvec(jcfg)
     params = jax.jit(lambda k: jm.init(
         k, jnp.zeros((1, 8), jnp.int32), jnp.asarray([8]), jnp.zeros((1, 4, U.N_MEL)),

@@ -36,7 +36,7 @@ JCFG = jflow.FlowConfig(**COMMON, encoder=jconf.ConformerConfig(
     estimator=jflow.EstimatorConfig(**EST, causal=True, channels=(16,)))
 TCFG = tflow.FlowConfig(**COMMON, encoder=tconf.ConformerConfig(**ENC),
                         cfm=tflow.CFMConfig(n_timesteps=4),
-                        estimator=tflow.EstimatorConfig(**EST, channels=16))
+                        estimator=tflow.EstimatorConfig(**EST, causal=True, channels=(16,)))
 HOP, LA, TOK_CAP = 4, 3, 64
 
 

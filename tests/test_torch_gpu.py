@@ -258,6 +258,31 @@ def test_fused_layer_norm_routes(cuda, dtype, atol, rtol):
                                        atol=atol, rtol=rtol)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 1e-4, 2.0 ** -7)])
+@pytest.mark.parametrize("T", [947, 689])
+def test_v1_estimator_shapes(cuda, dtype, atol, rtol, T):
+    """K2 and K3 at the CosyVoice v1 estimator's shapes: the CFG pair (B = 2),
+    an odd T at the top level (947: a 3 s prompt and 200 tokens at 22.05 kHz
+    / 256 hop; 689: 200 tokens without a prompt) and ceil(T / 2) at the mid
+    level, every key valid (v1's all-ones mel mask, no pad); K3 over both
+    levels' rows at C = 256 with and without the mish."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    for rows in (T, -(-T // 2)):
+        qkv = torch.randn(2, rows, 3 * 512, generator=g, device=cuda).to(dtype)
+        lens = torch.full((2,), rows, dtype=torch.int32, device=cuda)
+        q3, k3, v3 = (qkv[..., i * 512:(i + 1) * 512].reshape(2, rows, 8, 64) for i in range(3))
+        _assert_attention_close(K2.dit_attention_packed(qkv, lens, 0.125, 64).reshape(
+            2, rows, 8, 64), K2.dit_attention_plain(q3, k3, v3, lens, 0.125), lens, dtype)
+        x = (torch.randn(2 * rows, 256, generator=g, device=cuda) * 3).to(dtype)
+        w, b = (torch.randn(256, generator=g, device=cuda).to(dtype) for _ in range(2))
+        for act in ("none", "mish"):
+            torch.testing.assert_close(K3.fused_layer_norm(x, w, b, 1e-5, act).float(),
+                                       K3.layer_norm_plain(x, w, b, 1e-5, act).float(),
+                                       atol=atol, rtol=rtol)
+
+
 def _step_case(cuda, dtype, seed, L, C, pos):
     g = torch.Generator(device=cuda).manual_seed(seed)
     H, I, nq, nkv = 896, 4864, 14, 2

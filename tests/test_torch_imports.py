@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
-`transformers` / `tokenizers`: it reads tokenizer.json itself), and its
-entry points do not fall back to the CPU unless asked to."""
+`transformers` / `tokenizers` / `tiktoken`: it reads tokenizer.json and
+the v1 ranks file itself), and its entry points do not fall back to the
+CPU unless asked to."""
 import subprocess
 import sys
 from pathlib import Path
@@ -27,9 +28,15 @@ import cosyvoice_tpu_torch.utils.onnx_io, cosyvoice_tpu_torch.utils.npz_io
 import cosyvoice_tpu_torch.utils.audio, cosyvoice_tpu_torch.utils.checkpoint
 import cosyvoice_tpu_torch.ops.kaldi, cosyvoice_tpu_torch.models.campplus
 import cosyvoice_tpu_torch.models.s3tokenizer
+import cosyvoice_tpu_torch.models.conformer, cosyvoice_tpu_torch.models.flow
+import cosyvoice_tpu_torch.ops.sampling, cosyvoice_tpu_torch.nn.norm
+from cosyvoice_tpu_torch.runtime.api import CosyVoice
+from cosyvoice_tpu_torch.runtime.model import CosyVoiceV1Model
+from cosyvoice_tpu_torch.tokenizer.text import WhisperTiktokenTokenizer
 bad = [m for m in sys.modules
-       if m in ("jax", "flax", "cosyvoice_tpu", "transformers", "tokenizers")
-       or m.startswith(("jax.", "flax.", "cosyvoice_tpu.", "transformers.", "tokenizers."))]
+       if m in ("jax", "flax", "cosyvoice_tpu", "transformers", "tokenizers", "tiktoken")
+       or m.startswith(("jax.", "flax.", "cosyvoice_tpu.", "transformers.", "tokenizers.",
+                        "tiktoken."))]
 print(",".join(bad))
 """
 
@@ -106,3 +113,28 @@ def test_bigvgan_raises_without_gpu_and_runs_on_cpu_when_asked():
     wav, mel = model(torch.zeros(1, 5, dtype=torch.long), torch.tensor([5]),
                      torch.zeros(1, 8))
     assert wav.shape == (1, 10) and mel.shape == (1, 5, 8)
+
+
+def test_v1_model_raises_without_gpu_and_runs_on_cpu_when_asked():
+    if torch.cuda.is_available():
+        pytest.skip("this check is for hosts without a GPU")
+    from cosyvoice_tpu_torch.models.conformer import ConformerConfig
+    from cosyvoice_tpu_torch.models.flow import (EstimatorConfig, FlowV1Config,
+                                                 MaskedDiffWithXvec)
+    from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
+    from cosyvoice_tpu_torch.models.llm import TransformerLM, TransformerLMConfig
+    from cosyvoice_tpu_torch.runtime.model import CosyVoiceV1Model
+    import torch_port_util as U
+
+    enc = ConformerConfig(32, 4, 48, 1, 32, static_chunk_size=1)
+    llm = TransformerLM(TransformerLMConfig(32, 32, 32, 300, U.SPEECH_VOCAB, 24,
+                                            text_encoder=enc, llm=enc))
+    flow = MaskedDiffWithXvec(FlowV1Config(32, U.N_MEL, 24, U.SPEECH_VOCAB, encoder=enc,
+                                           estimator=EstimatorConfig(
+                                               4 * U.N_MEL, U.N_MEL, False, (16, 16), 1, 1,
+                                               2, 8), regulator_stages=1))
+    parts = dict(llm=llm, flow=flow, hift=HiFTGenerator(HiFTConfig(**U.HIFT)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CosyVoiceV1Model(**parts)
+    model = CosyVoiceV1Model(**parts, device="cpu")
+    assert all(p.device.type == "cpu" for p in model.llm.parameters())

@@ -57,8 +57,8 @@ def one_torch_thread():
 
 
 def est_kwargs(fused: bool) -> dict:
-    """Estimator config fields shared by both packages (the JAX config adds
-    causal=True, channels=(32,); the port's is that topology with channels=32)."""
+    """Estimator config fields shared by both packages (each config adds the
+    causal one-level topology, causal=True, channels=(32,))."""
     return dict(in_channels=4 * N_MEL, out_channels=N_MEL, n_blocks=1, num_mid_blocks=1,
                 num_heads=2, attention_head_dim=64, fused_attention=fused,
                 fused_norm=fused, approx_gelu=fused)
@@ -69,7 +69,7 @@ def jax_est_config(fused: bool):
 
 
 def torch_est_config(fused: bool):
-    return tflow.EstimatorConfig(**est_kwargs(fused), channels=32)
+    return tflow.EstimatorConfig(**est_kwargs(fused), causal=True, channels=(32,))
 
 
 def random_params(init, *args, seed: int = 0, **kwargs):
