@@ -110,7 +110,24 @@ Phases, each printing JSON lines:
      flow and HiFT seconds, first chunk, peak memory; K2 / K3 launches equal
      to 640 / 1280 a flow call; K2 and K3 against their plain versions at
      the estimator's shapes (B = 2, an odd T and ceil(T / 2)) and timed there;
- 16. timing  - at the main path's shapes: each kernel against its plain
+ 16. phoneme - the phoneme LMs: (a) small fp32 stacks on the card against
+     the CPU: the Src2 LM's greedy tokens through phoneme_lm_generate (two
+     ragged rows) and the engine (5 requests through 2 slots at three
+     phoneme buckets, each also equal to a B=1 decode), a 2-stream phoneme
+     ContinuousSynthesizer (tokens exact, every chunk within CONT_WAV_TOL)
+     and the v1 phoneme LM's greedy tokens (spk_adapt on); (b) at full
+     width cosyvoice2_pho.yaml's Qwen2LM_Phoneme_Src2 (PhonemeLMConfig: the
+     Qwen2-0.5B body int8 in bf16 over the packed cache, the 6 x 1024
+     phoneme conformer and the fusion in bf16) with the main path's flow at
+     a 512-d speaker vector and its HiFT: one B=1 greedy decode of 200
+     tokens (prefix ms: encoder + fusion, then the prefill; ms a token),
+     then 8 streams of 40 seeded phonemes, 200 tokens each, through 8
+     slots, windowed (flow_context_tokens 250), hop_scale 2.0, from a 3 s
+     prompt: first-chunk latency, wall, RTF, peak memory, launches (K1, K2
+     and K3 must be > 0); (c) cosyvoice_phoneme.yaml's v1 LM
+     (V1PhonemeLMConfig, fp32): 200 greedy tokens, prefill ms and ms a
+     token;
+ 17. timing  - at the main path's shapes: each kernel against its plain
      version on the same inputs, then the kernel, the plain version and the
      one PyTorch call that computes the same function, timed (CUDA events);
      K1 also at the engine's shape (B = 8, cache 384, per-row frontiers)
@@ -140,9 +157,11 @@ row its launches' device times by kernel (phase_ms: LN1 + qkv, K2's
 attention kernel, out-proj + LN3 + FFN) and K2 alone at the block's qkv
 shape (k2_dev_ms); every row adds launches_continuous, its launches in the
 continuous phase's windowed and incremental runs, launches_checkpoint, its
-launches in the checkpoint phase's int8 and int4 requests, and launches_v1,
-its launches in the v1 phase's four requests; the K2 and K3 rows add
-v1_shapes, their times at the v1 estimator's two levels.
+launches in the checkpoint phase's int8 and int4 requests, launches_v1,
+its launches in the v1 phase's four requests, and launches_phoneme, its
+launches in the phoneme phase's three full-width runs; the K2 and K3 rows
+add v1_shapes, their times at the v1 estimator's two levels.  The line
+before the card's line gives the whole run's seconds.
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero.
 """
 from __future__ import annotations
@@ -2353,6 +2372,335 @@ def v1_phase(kernels: dict, smi: str) -> dict:
     return res
 
 
+# the phoneme phase: the production phoneme LM (cosyvoice2_pho.yaml's
+# Qwen2LM_Phoneme_Src2) at full width, PHO_STREAMS streams of PHO_LEN seeded
+# phonemes, PHO_TOKENS tokens a stream (both token ratios PHO_TOKENS /
+# PHO_LEN), a 3 s prompt (75 tokens, 150 mel rows)
+PHO_STREAMS, PHO_TOKENS, PHO_LEN, PHO_PROMPT = 8, 200, 40, 75
+
+
+def pho_ids(rng, n: int, cfg) -> np.ndarray:
+    """n seeded (phoneme, tone, lang, prosody) rows within cfg's tables."""
+    return np.stack([rng.integers(0, size, n) for size, _ in cfg.tables], axis=-1)
+
+
+def pho_small_lm(device: str, v1: bool = False):
+    """A small fp32 Src2 phoneme LM whose widths the kernels take (head_dim
+    64, the packed decode cache), greedy, its head biased away from EOS and
+    the ids past it; or (v1) a small TransformerLMPhoneme with a
+    speaker-adaptive text encoder.  Built on the CPU from one seed, so both
+    devices hold the same weights."""
+    from cosyvoice_tpu_torch.models.conformer import ConformerConfig
+    from cosyvoice_tpu_torch.models.llm import SamplingConfig
+    from cosyvoice_tpu_torch.models.llm_phoneme import (PhonemeEmbedConfig, PhonemeLMConfig,
+                                                        Qwen2LMPhonemeSrc2)
+    from cosyvoice_tpu_torch.models.llm_v1_phoneme import (TransformerLMPhoneme,
+                                                           V1PhonemeLMConfig)
+    from cosyvoice_tpu_torch.models.qwen2 import Qwen2Config
+
+    greedy = SamplingConfig(method="greedy")
+    pho = PhonemeEmbedConfig(30, 64, 16, 32, 2, 16, 6, 16)           # 128 wide
+    torch.manual_seed(5)
+    if v1:
+        llm = TransformerLMPhoneme(V1PhonemeLMConfig(
+            128, 128, 128, 300, 64, 24, sampling=greedy, phoneme=pho, spk_adapt=True,
+            text_encoder=ConformerConfig(128, 4, 256, 1, 128, static_chunk_size=1),
+            llm=ConformerConfig(128, 4, 256, 2, 128, static_chunk_size=1,
+                                input_layer="linear_legacy", activation="relu")))
+    else:
+        llm = Qwen2LMPhonemeSrc2(PhonemeLMConfig(
+            128, 128, 64, 24, sampling=greedy, phoneme=pho,
+            encoder=ConformerConfig(128, 4, 256, 1, 128), fusion_heads=2, fusion_ffn=256,
+            qwen=Qwen2Config(vocab_size=300, hidden_size=128, num_layers=2, num_heads=4,
+                             num_kv_heads=2, head_dim=64, intermediate_size=256,
+                             rope_theta=10000.0, fused_cache_update=True)))
+        with torch.no_grad():
+            llm.llm_decoder.bias[64:] -= 8.0
+    return llm.to(device).eval()
+
+
+def pho_small_checks() -> dict:
+    """The small fp32 phoneme stacks on the card against the CPU: greedy
+    tokens of phoneme_lm_generate (two ragged rows) and of the engine (5
+    requests through 2 slots at three phoneme buckets, each also against a
+    B=1 phoneme_lm_generate on the card), a 2-stream ContinuousSynthesizer
+    (tokens exact, every chunk within CONT_WAV_TOL) and the v1 phoneme LM's
+    greedy tokens."""
+    from cosyvoice_tpu_torch.models.llm_phoneme import phoneme_lm_generate
+    from cosyvoice_tpu_torch.models.llm_v1_phoneme import v1_phoneme_generate
+    from cosyvoice_tpu_torch.runtime.engine import GenRequest, ServingEngine
+    from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model
+    from cosyvoice_tpu_torch.runtime.serving import ContinuousSynthesizer, TTSRequest
+
+    pcfg = pho_small_lm("cpu").cfg.phoneme
+    rng = np.random.default_rng(31)
+    B, Tt, Tp, Ts = 2, 12, 16, 10
+    batch = dict(text=rng.integers(0, 300, (B, Tt)), text_len=np.array([12, 7]),
+                 pho=np.stack([pho_ids(rng, Tp, pcfg) for _ in range(B)]),
+                 pho_len=np.array([16, 9]), psp=rng.integers(0, 64, (B, Ts)),
+                 psp_len=np.array([10, 4]),
+                 emb=rng.standard_normal((B, 24)).astype(np.float32))
+    reqs = [GenRequest(text=rng.integers(0, 300, nt), prompt_speech=rng.integers(0, 64, ns),
+                       pho_token=pho_ids(rng, npho, pcfg),
+                       embedding=rng.standard_normal(24).astype(np.float32),
+                       min_len=4, max_len=30, new_text_len=npho)
+            for nt, npho, ns in ((6, 7, 4), (4, 5, 2), (8, 13, 3), (5, 3, 6), (7, 11, 1))]
+    streams = [TTSRequest(text_tokens=rng.integers(0, 300, 10), prompt_text_len=0,
+                          prompt_speech_tokens=rng.integers(0, 64, p),
+                          prompt_feat=(rng.standard_normal((2 * p, 80)) * 0.3).astype(np.float32),
+                          embedding=rng.standard_normal(24).astype(np.float32),
+                          pho_token=pho_ids(rng, 8, pcfg)) for p in (25, 10)]
+    v1_in = (pho_ids(rng, 9, pcfg)[None], np.array([9]), rng.integers(0, 64, (1, 5)),
+             np.array([5]), rng.standard_normal((1, 24)).astype(np.float32))
+
+    def one(lm, dev, r):
+        t = lambda x: torch.as_tensor(np.asarray(x), device=dev)[None]
+        n = lambda v: torch.tensor([v], device=dev)
+        out, cnt = phoneme_lm_generate(lm, t(r.text), n(len(r.text)), t(r.pho_token),
+                                       n(len(r.pho_token)), t(r.prompt_speech),
+                                       n(len(r.prompt_speech)), t(r.embedding), n(r.min_len),
+                                       n(r.max_len), None, 30, 128)
+        return out[0, :int(cnt[0])].cpu().numpy()
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        lm = pho_small_lm(dev)
+        t = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        out, cnt = phoneme_lm_generate(lm, t["text"], t["text_len"], t["pho"], t["pho_len"],
+                                       t["psp"], t["psp_len"], t["emb"],
+                                       torch.tensor([5, 0], device=dev),
+                                       torch.tensor([40, 25], device=dev), None, 40, 128)
+        gen = [out[b, :int(cnt[b])].cpu().numpy() for b in range(B)]
+        eng = ServingEngine(lm, num_slots=2, cache_len=128, max_out=30, segment_steps=6,
+                            text_bucket=4, speech_bucket=8, device=dev).generate(reqs)
+        b1 = [one(lm, dev, r) for r in reqs]
+        base = small_stack(dev, max_decode_tokens=160)
+        model = CosyVoice2Model(llm=lm, flow=base.flow, hift=base.hift, max_decode_tokens=160,
+                                device=dev)
+        chunks = [[], []]
+        with EngineRecord() as rec:
+            ContinuousSynthesizer(model, num_slots=2, cache_len=256, text_bucket=16,
+                                  speech_bucket=32).synthesize_batch(
+                streams, on_chunk=lambda i, wav, fin: chunks[i].append(wav))
+        v1 = pho_small_lm(dev, v1=True)
+        tv = [torch.as_tensor(x, device=dev) for x in v1_in]
+        o1, c1 = v1_phoneme_generate(v1, *tv, torch.tensor([40], device=dev), None, 40, 128)
+        runs[dev] = dict(gen=gen, eng=eng, b1=b1, stream_tokens=rec.tokens, chunks=chunks,
+                         v1=o1[0, :int(c1[0])].cpu().numpy())
+    g, c = runs["cuda"], runs["cpu"]
+    same = lambda a, b: len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+    shapes = [[len(w) for w in ch] for ch in g["chunks"]]
+    shapes_equal = shapes == [[len(w) for w in ch] for ch in c["chunks"]]
+    return dict(
+        generate_tokens=[len(x) for x in g["gen"]], generate_equal=same(g["gen"], c["gen"]),
+        engine_tokens=[len(x) for x in g["eng"]], engine_equal_cpu=same(g["eng"], c["eng"]),
+        engine_equal_b1=same(g["eng"], g["b1"]),
+        stream_tokens=[len(x) for x in g["stream_tokens"]],
+        stream_tokens_equal=same(g["stream_tokens"], c["stream_tokens"]),
+        chunk_samples=shapes, chunk_samples_equal=shapes_equal,
+        wav_max_abs_err=max(float(np.abs(a - b).max()) for x, y in zip(g["chunks"], c["chunks"])
+                            for a, b in zip(x, y)) if shapes_equal else float("inf"),
+        wav_tol=CONT_WAV_TOL, finite=all(np.isfinite(w).all() for ch in g["chunks"] for w in ch),
+        v1_tokens=len(g["v1"]), v1_equal=bool(np.array_equal(g["v1"], c["v1"])))
+
+
+def pho_full_width_lm():
+    """cosyvoice2_pho.yaml's LM (PhonemeLMConfig defaults: the Qwen2-0.5B
+    body int8 weight-only in bf16 over the packed decode cache, the 6 x 1024
+    phoneme conformer and the fusion in bf16) on seeded random weights, its
+    head biased away from the two ids past EOS."""
+    from cosyvoice_tpu_torch.models.llm_phoneme import PhonemeLMConfig, Qwen2LMPhonemeSrc2
+    from cosyvoice_tpu_torch.utils.quant import quantize_qwen_int8
+
+    cfg = PhonemeLMConfig()
+    with torch.device("cuda"):
+        fp = Qwen2LMPhonemeSrc2(cfg)
+        rand_init_(fp, 12400)
+        state = quantize_qwen_int8(fp.to(torch.bfloat16).state_dict())
+        del fp
+        llm = Qwen2LMPhonemeSrc2(dataclasses.replace(cfg, qwen=dataclasses.replace(
+            cfg.qwen, quant="int8", fused_cache_update=True))).to(torch.bfloat16)
+        llm.load_state_dict(state, strict=True)
+        # the ids past EOS are never emitted: keep every greedy step a token
+        llm.llm_decoder.bias[cfg.eos_token + 1:] = -30.0
+    return llm.eval()
+
+
+def pho_b1_generate(llm, kernels: dict, n_tok: int) -> dict:
+    """One B=1 greedy decode of n_tok tokens (EOS masked throughout) from a
+    PHO_LEN-phoneme request with a 3 s prompt: the prefix's milliseconds
+    (phoneme encoder + fusion + packing, then the body's prefill) and the
+    decode's milliseconds a token, after one short warm-up decode."""
+    from cosyvoice_tpu_torch.models.llm import (SamplingConfig, lm_decode_chunk,
+                                                lm_prefill_from_embeds)
+
+    cfg = llm.cfg
+    llm.cfg = dataclasses.replace(cfg, sampling=SamplingConfig(method="greedy"))
+    rng = np.random.default_rng(41)
+    dev = "cuda"
+    t = lambda x: torch.as_tensor(np.asarray(x), device=dev)[None]
+    n = lambda v: torch.tensor([v], device=dev)
+    args = (t(rng.integers(0, cfg.qwen.vocab_size, 20)), n(20),
+            t(pho_ids(rng, PHO_LEN, cfg.phoneme)), n(PHO_LEN),
+            t(rng.integers(0, cfg.speech_token_size, PHO_PROMPT)), n(PHO_PROMPT),
+            t(rng.standard_normal(cfg.spk_embed_dim).astype(np.float32)))
+    cache_len = -(-(3 + 20 + PHO_LEN + PHO_PROMPT + n_tok) // 128) * 128
+
+    def run(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embeds, seq_len = llm.prefix_for_decode(*args)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stream = lm_prefill_from_embeds(llm, embeds, seq_len, n(steps), n(steps), None,
+                                        steps, cache_len)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        lm_decode_chunk(llm, stream, steps)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return stream.gen, (t1 - t0, t2 - t1, t3 - t2)
+
+    run(5)
+    for mod in kernels.values():
+        mod.launches = 0
+    state, (enc_s, prefill_s, decode_s) = run(n_tok)
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    llm.cfg = cfg
+    return dict(prefix_len=int(PHO_LEN + PHO_PROMPT + 3), tokens=int(state.count[0]),
+                steps=state.step, encoder_fusion_ms=enc_s * 1e3, prefill_ms=prefill_s * 1e3,
+                prefix_ms=(enc_s + prefill_s) * 1e3,
+                decode_ms_per_token=decode_s * 1e3 / max(state.step - 1, 1),
+                launches=launches)
+
+
+def pho_v1_generate(kernels: dict, n_tok: int) -> dict:
+    """cosyvoice_phoneme.yaml's v1 LM (V1PhonemeLMConfig defaults, fp32) on
+    seeded random weights, EOS's logit biased down: one warm-up, then
+    n_tok greedy tokens from a PHO_LEN-phoneme request with a 3 s prompt,
+    prefill and decode timed apart."""
+    from cosyvoice_tpu_torch.models.llm import (SamplingConfig, lm_decode_chunk_v1,
+                                                lm_prefill_stream_v1)
+    from cosyvoice_tpu_torch.models.llm_v1_phoneme import (TransformerLMPhoneme,
+                                                           V1PhonemeLMConfig)
+
+    cfg = dataclasses.replace(V1PhonemeLMConfig(), sampling=SamplingConfig(method="greedy"))
+    with torch.device("cuda"):
+        llm = TransformerLMPhoneme(cfg)
+    rand_init_(llm, 12410)
+    with torch.no_grad():
+        llm.llm_decoder.bias[cfg.eos_token] = -30.0
+    llm.eval()
+    rng = np.random.default_rng(42)
+    t = lambda x: torch.as_tensor(np.asarray(x), device="cuda")[None]
+    n = lambda v: torch.tensor([v], device="cuda")
+    args = (t(pho_ids(rng, PHO_LEN, cfg.phoneme)), n(PHO_LEN),
+            t(rng.integers(0, cfg.speech_token_size, PHO_PROMPT)), n(PHO_PROMPT),
+            t(rng.standard_normal(cfg.spk_embed_dim).astype(np.float32)))
+    cache_len = -(-(3 + PHO_LEN + PHO_PROMPT + n_tok) // 128) * 128
+
+    def run(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream = lm_prefill_stream_v1(llm, *args, n(steps), None, steps, cache_len)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lm_decode_chunk_v1(llm, stream, steps)
+        torch.cuda.synchronize()
+        return stream.gen, t1 - t0, time.perf_counter() - t1
+
+    run(5)
+    for mod in kernels.values():
+        mod.launches = 0
+    state, prefill_s, decode_s = run(n_tok)
+    res = dict(tokens=int(state.count[0]), steps=state.step, prefill_ms=prefill_s * 1e3,
+               decode_ms_per_token=decode_s * 1e3 / max(state.step - 1, 1),
+               launches={name: mod.launches for name, mod in kernels.items()})
+    del llm
+    torch.cuda.empty_cache()
+    return res
+
+
+@torch.no_grad()
+def phoneme_phase(res_main: dict, kernels: dict, smi: str) -> dict:
+    """The phoneme LMs: (a) pho_small_checks; (b) at full width the
+    production LM (pho_full_width_lm) with the main path's flow at a 512-d
+    speaker vector (FlowConfig, bf16 on K2 + K3) and its bf16 HiFT: one B=1
+    greedy decode of PHO_TOKENS tokens (pho_b1_generate), then PHO_STREAMS
+    streams of PHO_LEN seeded phonemes and PHO_TOKENS tokens each (the
+    recipe's non_random_ras) through as many slots, windowed
+    (flow_context_tokens 250), hop_scale 2.0, from a 3 s prompt (75 tokens,
+    a seeded mel and 512-d vector); (c) the v1 phoneme LM (pho_v1_generate).
+    Gates: every small-stack comparison; the full-width runs emit every
+    token, a finite wav a stream, K1 > 0 in the B=1 decode and K1, K2, K3
+    > 0 in the streams.  Every run resets all kernel counts before it and
+    reads them after."""
+    from cosyvoice_tpu_torch.models.flow import CausalMaskedDiffWithXvec, FlowConfig
+    from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model
+    from cosyvoice_tpu_torch.runtime.serving import TTSRequest
+
+    K1, K2, K3 = (kernels[k] for k in ("lm_decode_attention", "dit_attention",
+                                       "fused_layer_norm"))
+    t_phase = time.perf_counter()
+    small = pho_small_checks()
+    t0 = time.perf_counter()
+    llm = pho_full_width_lm()
+    fcfg = FlowConfig(spk_embed_dim=llm.cfg.spk_embed_dim)
+    with torch.device("cuda"):
+        flow = CausalMaskedDiffWithXvec(dataclasses.replace(
+            fcfg, encoder_dtype="bfloat16", estimator=dataclasses.replace(
+                fcfg.estimator, dtype="bfloat16", fused_attention=True, fused_norm=True,
+                approx_gelu=True)))
+    rand_init_(flow, 12401)
+    flow.encoder.to(torch.bfloat16)
+    flow.decoder.estimator.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b1 = pho_b1_generate(llm, kernels, PHO_TOKENS)
+    ratio = PHO_TOKENS / PHO_LEN              # min = max = PHO_TOKENS tokens
+    llm.cfg = dataclasses.replace(llm.cfg, min_token_text_ratio=ratio,
+                                  max_token_text_ratio=ratio)
+    rng = np.random.default_rng(43)
+    reqs = [TTSRequest(text_tokens=rng.integers(0, llm.cfg.qwen.vocab_size, 20),
+                       prompt_text_len=0,
+                       prompt_speech_tokens=rng.integers(0, llm.cfg.speech_token_size,
+                                                         PHO_PROMPT),
+                       prompt_feat=(rng.standard_normal((2 * PHO_PROMPT, 80)) * 0.5
+                                    ).astype(np.float32),
+                       embedding=rng.standard_normal(llm.cfg.spk_embed_dim).astype(np.float32),
+                       pho_token=pho_ids(rng, PHO_LEN, llm.cfg.phoneme))
+            for _ in range(PHO_STREAMS)]
+    model = CosyVoice2Model(llm=llm, flow=flow, hift=res_main["stack"][2],
+                            max_decode_tokens=PHO_TOKENS, device="cuda",
+                            flow_context_tokens=250)
+    for mod in kernels.values():
+        mod.launches = 0
+    streams = continuous_full(model, reqs, K1, K2, K3, incremental=False)
+    streams["launches"] = {name: mod.launches for name, mod in kernels.items()}
+    del model, llm, flow
+    torch.cuda.empty_cache()
+    v1 = pho_v1_generate(kernels, PHO_TOKENS)
+    res = {"phase": "phoneme", "card": smi, "small_fp32": small, "setup_s": setup_s,
+           "b1_generate": b1,
+           "traffic": {"streams": PHO_STREAMS, "slots": PHO_STREAMS, "phonemes": PHO_LEN,
+                       "tokens_a_stream": PHO_TOKENS, "hop_scale": 2.0,
+                       "prompt_speech_tokens": PHO_PROMPT, "flow_context_tokens": 250},
+           "streams": streams, "v1_generate": v1, "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    gates = [small["generate_equal"], small["engine_equal_cpu"], small["engine_equal_b1"],
+             small["stream_tokens_equal"], small["chunk_samples_equal"],
+             small["wav_max_abs_err"] <= small["wav_tol"], small["finite"], small["v1_equal"],
+             min(small["generate_tokens"]) > 0, small["v1_tokens"] > 0,
+             b1["tokens"] == PHO_TOKENS, b1["launches"]["lm_decode_attention"] > 0,
+             streams["tokens"] == [PHO_TOKENS] * PHO_STREAMS, streams["finite"],
+             all(streams["launches"][k] > 0 for k in ("lm_decode_attention", "dit_attention",
+                                                      "fused_layer_norm")),
+             v1["tokens"] == PHO_TOKENS]
+    if not all(gates):
+        raise AssertionError(f"phoneme phase failed: {gates} {res}")
+    return res
+
+
 def profile_request(run) -> None:
     """One more request under torch.profiler: device kernel time by name and
     the device's busy share of the wall time."""
@@ -2759,6 +3107,7 @@ def timing(K1, K2, K3, K4, K5, K6, K7, last_decode, flow, block_shape) -> list:
 
 
 def main() -> int:
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on a GPU",
               file=sys.stderr)
@@ -2808,8 +3157,10 @@ def main() -> int:
     cont = continuous_phase(res, b1, K1, K2, K3, smi)
     serve_phase(res, smi)
     ckpt = checkpoint_phase(res, K1, K2, K3, K5, smi)["full_width"]
-    v1 = v1_phase({"lm_decode_attention": K1, "dit_attention": K2, "fused_layer_norm": K3,
-                   "dit_block": K4, "int4_matmul": K5, "lm_step": K6, "snake_aa": K7}, smi)
+    kernels = {"lm_decode_attention": K1, "dit_attention": K2, "fused_layer_norm": K3,
+               "dit_block": K4, "int4_matmul": K5, "lm_step": K6, "snake_aa": K7}
+    v1 = v1_phase(kernels, smi)
+    pho = phoneme_phase(res, kernels, smi)
     flow = res["stack"][1]
     del res["stack"]
     rows = timing(K1, K2, K3, K4, K5, K6, K7, res["last_decode"], flow, batched["block_shape"])
@@ -2833,9 +3184,15 @@ def main() -> int:
         row["launches_v1"] = v1["launches"][row["name"]]
         if row["name"] in v1["kernel_times"]:
             row["v1_shapes"] = v1["kernel_times"][row["name"]]
+        # the phoneme phase's full-width runs
+        row["launches_phoneme"] = {
+            "b1_generate": pho["b1_generate"]["launches"][row["name"]],
+            "streams": pho["streams"]["launches"][row["name"]],
+            "v1_generate": pho["v1_generate"]["launches"][row["name"]]}
         row.update(edge_max_abs_err=errs[row["name"]],
                    tolerance=tolerance.get(row["name"], CHECK_TOL[torch.bfloat16]),
                    kernel_ms=row["ms"])
+    emit({"phase": "run", "seconds": time.perf_counter() - t_run})
     print(smi, flush=True)
     emit({"kernels": rows, "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

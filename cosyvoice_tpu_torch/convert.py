@@ -1,5 +1,5 @@
-"""JAX parameter trees -> the port's state_dicts (CosyVoice2's modules and
-CosyVoice v1's TransformerLM and MaskedDiffWithXvec).
+"""JAX parameter trees -> the port's state_dicts (CosyVoice2's modules,
+CosyVoice v1's TransformerLM and MaskedDiffWithXvec, and the phoneme LMs).
 
 Each function takes a flax param tree (nested dicts of numpy or JAX arrays,
 with or without the top-level "params" key) and returns a state_dict that the
@@ -106,6 +106,8 @@ def _conformer_layer(sd, name, p, norms=("norm_mha", "norm_ff")):
     sd[f"{name}.self_attn.pos_bias_v"] = _t(att["pos_bias_v"])
     _dense(sd, f"{name}.feed_forward.w_1", p["ff"]["w_1"])
     _dense(sd, f"{name}.feed_forward.w_2", p["ff"]["w_2"])
+    if "spk_linear" in p:       # a speaker-adaptive layer (ConformerConfig.spk_adapt)
+        _dense(sd, f"{name}.spk_linear", p["spk_linear"])
 
 
 def _encoder(sd, pre, p):
@@ -199,16 +201,58 @@ def conformer_encoder_state_from_jax(params: dict, transformer_layer: bool = Fal
     return sd
 
 
-def transformer_lm_state_from_jax(params: dict) -> dict:
-    """models/llm.py TransformerLM (CosyVoice v1) params -> port state_dict."""
-    p = _root(params)
-    sd = {}
-    for emb in ("text_embedding", "llm_embedding", "speech_embedding"):
+def _v1_lm(sd, p):
+    """The v1 LM's tree but its text embedding."""
+    for emb in ("llm_embedding", "speech_embedding"):
         sd[f"{emb}.weight"] = _t(p[emb]["embedding"])
     for lin in ("text_encoder_affine_layer", "llm_decoder", "spk_embed_affine_layer"):
         _dense(sd, lin, p[lin])
     _conformer_encoder(sd, "text_encoder.", p["text_encoder"])
     _conformer_encoder(sd, "llm.", p["llm"], transformer_layer=True)
+    return sd
+
+
+def _phoneme_embedding(sd, p):
+    """PhonemeEmbedding's four tables (JAX `embed_{i}`) -> `text_embedding.{i}`."""
+    for i in _indices(p["text_embedding"], "embed_"):
+        sd[f"text_embedding.{i}.weight"] = _t(p["text_embedding"][f"embed_{i}"]["embedding"])
+
+
+def transformer_lm_state_from_jax(params: dict) -> dict:
+    """models/llm.py TransformerLM (CosyVoice v1) params -> port state_dict."""
+    p = _root(params)
+    return _v1_lm({"text_embedding.weight": _t(p["text_embedding"]["embedding"])}, p)
+
+
+def v1_phoneme_lm_state_from_jax(params: dict) -> dict:
+    """models/llm_v1_phoneme.py TransformerLMPhoneme params -> port
+    state_dict (a spk_adapt text encoder's `spk_linear`s come with their
+    layers)."""
+    p = _root(params)
+    sd: dict = {}
+    _phoneme_embedding(sd, p)
+    return _v1_lm(sd, p)
+
+
+def phoneme_lm_state_from_jax(params: dict) -> dict:
+    """models/llm_phoneme.py Qwen2LMPhoneme / Qwen2LMPhonemeSrc /
+    Qwen2LMPhonemeSrc2 params -> port state_dict; the fusion layer (the
+    Src variants' `src_attention`) comes when the tree has one."""
+    p = _root(params)
+    sd = lm_state_from_jax(p)       # the Qwen2 body, llm/speech embeddings, head
+    _phoneme_embedding(sd, p)
+    _conformer_encoder(sd, "text_encoder.", p["text_encoder"])
+    for lin in ("text_encoder_affine_layer", "spk_embed_affine_layer"):
+        _dense(sd, lin, p[lin])
+    if "src_attention" in p:
+        f, pre = p["src_attention"], "src_attention.0."
+        for norm in ("norm1", "norm2", "norm3"):
+            _ln(sd, pre + norm, f[norm])
+        for att in ("self_attn", "src_attn"):
+            for lin in ("linear_q", "linear_k", "linear_v", "linear_out"):
+                _dense(sd, f"{pre}{att}.{lin}", f[att][lin])
+        _dense(sd, pre + "feed_forward.w_1", f["ff_w1"])
+        _dense(sd, pre + "feed_forward.w_2", f["ff_w2"])
     return sd
 
 

@@ -4,8 +4,11 @@ ConformerEncoder of the CosyVoice v1 family (its text encoder, its LM body
 and its flow encoder).
 
 Port of the parts of cosyvoice_tpu/models/conformer.py that these use (no
-macaron FFN, no conv module, no MoE FFN, no speaker adaptation, no conv
-subsampling front ends), with two kinds of incremental step:
+macaron FFN, no conv module, no MoE FFN, no conv subsampling front ends),
+with the speaker-adaptive layer of the phoneme LMs' text encoders
+(`spk_adapt`: a per-layer `spk_linear` adds the raw speaker vector at the
+layer's entry, and the layer's norms take eps 1e-5), and two kinds of
+incremental step:
   * `.chunk`, which models/flow_chunk.py drives: new rows against cached
     K/V (the espnet rel-pos skew at a per-row offset) and 2-row conv
     histories; `chunk_anchor` anchors the encoder's chunk grid at the
@@ -50,6 +53,8 @@ class ConformerConfig:
     static_chunk_size: int = 0
     activation: str = "swish"     # swish | relu: the FFN's
     input_layer: str = "linear"   # linear | linear_legacy (a ReLU after the norm)
+    spk_adapt: bool = False       # per-layer speaker injection (full forward only)
+    spk_emb_size: int = 512
 
 
 @lru_cache(maxsize=None)
@@ -184,14 +189,16 @@ class PositionwiseFeedForward(nn.Module):
 
 
 class ConformerEncoderLayer(nn.Module):
-    """Pre-norm self-attention + FFN (eps 1e-12 norms)."""
+    """Pre-norm self-attention + FFN (eps 1e-12 norms; with spk_adapt, eps
+    1e-5 and the speaker vector's projection added at the entry)."""
 
     NORMS = ("norm_mha", "norm_ff")     # the checkpoint's names of the two norms
 
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
         for name in self.NORMS:
-            self.add_module(name, LayerNorm(cfg.dim, 1e-12))
+            self.add_module(name, LayerNorm(cfg.dim, 1e-5 if cfg.spk_adapt else 1e-12))
+        self.spk_linear = Dense(cfg.spk_emb_size, cfg.dim) if cfg.spk_adapt else None
         self.self_attn = RelPositionAttention(cfg.heads, cfg.dim, cfg.key_bias)
         self.feed_forward = PositionwiseFeedForward(cfg.dim, cfg.linear_units,
                                                     cfg.activation)
@@ -199,8 +206,10 @@ class ConformerEncoderLayer(nn.Module):
     def _norms(self):
         return self._modules[self.NORMS[0]], self._modules[self.NORMS[1]]
 
-    def forward(self, x, pos_emb, attn_mask):
+    def forward(self, x, pos_emb, attn_mask, spk_emb: Optional[torch.Tensor] = None):
         norm_mha, norm_ff = self._norms()
+        if spk_emb is not None and self.spk_linear is not None:
+            x = x + self.spk_linear(spk_emb)[:, None, :].to(x.dtype)
         x = x + self.self_attn(norm_mha(x), pos_emb, attn_mask)
         return x + self.feed_forward(norm_ff(x))
 
@@ -379,15 +388,18 @@ class ConformerEncoder(nn.Module):
         self.encoders = nn.ModuleList(layer(cfg) for _ in range(cfg.num_blocks))
         self.after_norm = LayerNorm(cfg.dim, 1e-5)
 
-    def forward(self, xs: torch.Tensor, lens: torch.Tensor):
-        """xs [B, T, input_size], lens [B] -> (h [B, T, dim], valid [B, T])."""
+    def forward(self, xs: torch.Tensor, lens: torch.Tensor,
+                spk_emb: Optional[torch.Tensor] = None):
+        """xs [B, T, input_size], lens [B] -> (h [B, T, dim], valid [B, T]);
+        spk_emb [B, spk_emb_size] (the raw speaker vector) feeds the
+        spk_adapt layers and is ignored without them."""
         T = xs.shape[1]
         pad = make_non_pad_mask(lens, T)
         xs = self.embed(xs)
         pos_emb = espnet_rel_pos_emb(T, self.cfg.dim, xs.dtype, xs.device)
         attn_mask = add_chunk_mask(pad, self.cfg.static_chunk_size)
         for layer in self.encoders:
-            xs = layer(xs, pos_emb, attn_mask)
+            xs = layer(xs, pos_emb, attn_mask, spk_emb)
         return self.after_norm(xs), pad
 
     def prefill(self, xs: torch.Tensor, cache: ConformerKVCache):

@@ -2,8 +2,10 @@
 TransformerLM, and their AR decode loops.
 
 Port of cosyvoice_tpu/models/llm.py (Qwen2LM, lm_generate, the chunked
-decode of streaming synthesis (lm_prefill_stream, lm_decode_chunk) and the
-B=1 whole-step decode lm_generate_fused_step; TransformerLM with
+decode of streaming synthesis (lm_prefill_stream, lm_decode_chunk), the
+decode loop from packed prefix embeddings that the phoneme LMs share
+(lm_prefill_from_embeds, lm_generate_from_embeds) and the B=1 whole-step
+decode lm_generate_fused_step; TransformerLM with
 lm_generate_v1 and its streaming pair lm_prefill_stream_v1 /
 lm_decode_chunk_v1, over a conformer KV cache, B=1 as in the JAX package).
 Inputs are [sos, text_emb(prompt_text ++ text), task,
@@ -220,14 +222,15 @@ class StreamState:
 
 
 @torch.no_grad()
-def lm_prefill_stream(model: Qwen2LM, text, text_len, prompt_speech, prompt_speech_len,
-                      min_len, max_len, gen: Optional[torch.Generator], max_steps: int,
-                      cache_len: int) -> StreamState:
-    """Prefill over the packed [sos,text,task,speech] prefix (right-padded
-    rows) and the first sample; lm_decode_chunk takes it from there."""
+def lm_prefill_from_embeds(model: Qwen2LM, embeds, seq_len, min_len, max_len,
+                           gen: Optional[torch.Generator], max_steps: int,
+                           cache_len: int) -> StreamState:
+    """Prefill over packed prefix embeddings [B, Tp, D] (right-padded rows
+    of seq_len [B]) and the first sample; lm_decode_chunk takes it from
+    there.  `model` is any LM with the decode contract: forward_hidden,
+    decode_logits, speech_emb and cfg.{qwen, eos_token, sampling} (Qwen2LM
+    and the phoneme LMs of models/llm_phoneme.py)."""
     cfg = model.cfg
-    embeds, seq_len = model.prefill_embeds(text, text_len, prompt_speech,
-                                           prompt_speech_len)
     B, Tp, D = embeds.shape
     dev = embeds.device
     cache = KVCache.create(cfg.qwen, B, cache_len, embeds.dtype, dev)
@@ -246,6 +249,17 @@ def lm_prefill_stream(model: Qwen2LM, text, text_len, prompt_speech, prompt_spee
                      recent_n=torch.zeros(B, dtype=torch.int32, device=dev))
     _sample_advance(model, state, last, min_len, max_len, gen)
     return StreamState(state, seq_len, Tp, cache_len, min_len, max_len, gen)
+
+
+@torch.no_grad()
+def lm_prefill_stream(model: Qwen2LM, text, text_len, prompt_speech, prompt_speech_len,
+                      min_len, max_len, gen: Optional[torch.Generator], max_steps: int,
+                      cache_len: int) -> StreamState:
+    """lm_prefill_from_embeds over the packed [sos,text,task,speech] prefix."""
+    embeds, seq_len = model.prefill_embeds(text, text_len, prompt_speech,
+                                           prompt_speech_len)
+    return lm_prefill_from_embeds(model, embeds, seq_len, min_len, max_len, gen, max_steps,
+                                  cache_len)
 
 
 @torch.no_grad()
@@ -268,16 +282,28 @@ def lm_decode_chunk(model: Qwen2LM, stream: StreamState, n_steps: int) -> Stream
     return stream
 
 
+@torch.no_grad()
+def lm_generate_from_embeds(model: Qwen2LM, embeds, seq_len, min_len, max_len,
+                            gen: Optional[torch.Generator], max_steps: int, cache_len: int):
+    """The decode loop every Qwen2-body LM shares, from packed prefix
+    embeddings: the prefill and one chunk that runs to the end.
+    Returns (tokens [B, max_steps], count [B])."""
+    stream = lm_prefill_from_embeds(model, embeds, seq_len, min_len, max_len, gen,
+                                    max_steps, cache_len)
+    state = lm_decode_chunk(model, stream, max_steps).gen
+    return state.out, state.count
+
+
+@torch.no_grad()
 def lm_generate(model: Qwen2LM, text, text_len, prompt_speech, prompt_speech_len,
                 min_len, max_len, gen: Optional[torch.Generator], max_steps: int,
                 cache_len: int):
     """CosyVoice2 Qwen2LM generation over the packed [sos,text,task,speech]
-    prefix (right-padded rows): the streaming prefill and one chunk that
-    runs to the end.  Returns (tokens [B, max_steps], count [B])."""
-    stream = lm_prefill_stream(model, text, text_len, prompt_speech, prompt_speech_len,
-                               min_len, max_len, gen, max_steps, cache_len)
-    state = lm_decode_chunk(model, stream, max_steps).gen
-    return state.out, state.count
+    prefix (right-padded rows).  Returns (tokens [B, max_steps], count [B])."""
+    embeds, seq_len = model.prefill_embeds(text, text_len, prompt_speech,
+                                           prompt_speech_len)
+    return lm_generate_from_embeds(model, embeds, seq_len, min_len, max_len, gen,
+                                   max_steps, cache_len)
 
 
 @dataclass
@@ -394,14 +420,19 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: TransformerLMConfig = TransformerLMConfig()):
         super().__init__()
         self.cfg = cfg
-        self.text_embedding = nn.Embedding(cfg.text_token_size, cfg.text_encoder_input_size)
-        self.text_encoder = ConformerEncoder(cfg.text_encoder)
+        self.text_embedding, text_encoder = self._text_front(cfg)
+        self.text_encoder = ConformerEncoder(text_encoder)
         self.text_encoder_affine_layer = Dense(cfg.text_encoder.dim, cfg.llm_input_size)
         self.llm_embedding = nn.Embedding(2, cfg.llm_input_size)
         self.llm = ConformerEncoder(cfg.llm, transformer_layer=True)
         self.llm_decoder = Dense(cfg.llm_output_size, cfg.speech_token_size + 1)
         self.speech_embedding = nn.Embedding(cfg.speech_token_size, cfg.llm_input_size)
         self.spk_embed_affine_layer = Dense(cfg.spk_embed_dim, cfg.llm_input_size)
+
+    def _text_front(self, cfg) -> tuple[nn.Module, ConformerConfig]:
+        """The text embedding table and the text encoder's config (the v1
+        phoneme LM takes its factored embedding and speaker adaptation)."""
+        return nn.Embedding(cfg.text_token_size, cfg.text_encoder_input_size), cfg.text_encoder
 
     def encode_text(self, text, text_len):
         """text ids [B, Tt] -> [B, Tt, llm_input_size] through the causal
@@ -414,11 +445,15 @@ class TransformerLM(nn.Module):
         """Pack [sos, spk, text_enc, task, speech_emb] per row (right-padded);
         with embedding None (or empty) the speaker slot is left out.
         -> (embeds [B, N, D], seq_len [B])."""
-        B, Tt = text.shape
+        return self._pack_prefix(self.encode_text(text, text_len), text_len, prompt_speech,
+                                 prompt_speech_len, embedding)
+
+    def _pack_prefix(self, text_h, text_len, prompt_speech, prompt_speech_len,
+                     embedding: Optional[torch.Tensor]):
+        """prefill_embeds' packing of the encoded text text_h [B, Tt, D]."""
+        B, Tt, D = text_h.shape
         Ts = prompt_speech.shape[1]
-        dev = text.device
-        text_h = self.encode_text(text, text_len)
-        D = text_h.shape[-1]
+        dev = text_h.device
         has_spk = embedding is not None and embedding.shape[-1] > 0
         n_fixed = 2 if has_spk else 1
         N = n_fixed + Tt + 1 + Ts

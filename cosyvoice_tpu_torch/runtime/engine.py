@@ -6,6 +6,9 @@ sequences finish at different times:
   * `engine_admit` / `engine_admit_many` prefill one request (or a burst of
     same-bucket requests) into a small cache, copy the prefix K/V into the
     slots' rows of the engine-wide cache and sample each first token;
+    `engine_admit_pho` / `engine_admit_many_pho` do the same for the
+    phoneme LMs (models/llm_phoneme.py), whose prefix `prefix_for_decode`
+    builds from text, phonemes and a speaker vector;
   * `engine_decode_segment` advances every live slot by up to n steps; each
     slot sits at its own sequence length, so the cache carries a per-row
     frontier `pos [S]` (the lm_decode_attention kernel takes the vector under
@@ -29,7 +32,9 @@ work, which then overlaps the device's decode; a Python segment loop runs
 the segment on the host before returning, so here `on_segment` fires right
 after the segment's harvest and admissions, ahead of the next segment, and
 a streamed chunk waits for no extra segment.  Cache writes are in place.
-Phoneme-LM requests are not ported yet.
+The helpers take any LM with the decode contract (forward_hidden,
+decode_logits, speech_emb, cfg.{qwen, eos_token, sampling}): Qwen2LM and
+the phoneme LMs, which subclass it.
 """
 from __future__ import annotations
 
@@ -46,10 +51,6 @@ from cosyvoice_tpu_torch.models.llm import GenState, Qwen2LM, _sample_advance
 from cosyvoice_tpu_torch.models.qwen2 import KVCache, causal_prefill_bias
 from cosyvoice_tpu_torch.ops.masks import NEG_INF
 from cosyvoice_tpu_torch.runtime.model import round_up
-
-_PHONEME_LM = ("phoneme-LM requests are not ported yet (ROADMAP Queue 1 item 8, "
-               "models/llm_phoneme.py)")
-
 
 @dataclass
 class EngineState:
@@ -107,12 +108,27 @@ def engine_admit_many(model: Qwen2LM, state: EngineState, slots, text, text_len,
     return _engine_install_many(model, state, slots, embeds, seq_len, min_len, max_len)
 
 
-def engine_admit_pho(*args, **kwargs):
-    raise NotImplementedError(_PHONEME_LM)
+@torch.no_grad()
+def engine_admit_pho(model, state: EngineState, slot: int, text, text_len, pho_token,
+                     pho_len, prompt_speech, prompt_speech_len, embedding, min_len,
+                     max_len) -> EngineState:
+    """engine_admit for a phoneme LM: text [Tt], pho_token [Tp, 4] (bucketed
+    lengths), embedding [spk_dim]; the prefix is `prefix_for_decode`'s."""
+    embeds, seq_len = model.prefix_for_decode(
+        text[None], text_len.reshape(1), pho_token[None], pho_len.reshape(1),
+        prompt_speech[None], prompt_speech_len.reshape(1), embedding[None])
+    return _engine_install(model, state, slot, embeds, seq_len, min_len, max_len)
 
 
-def engine_admit_many_pho(*args, **kwargs):
-    raise NotImplementedError(_PHONEME_LM)
+@torch.no_grad()
+def engine_admit_many_pho(model, state: EngineState, slots, text, text_len, pho_token,
+                          pho_len, prompt_speech, prompt_speech_len, embedding, min_len,
+                          max_len) -> EngineState:
+    """engine_admit_many for a phoneme LM: pho_token [K, Tp, 4], embedding
+    [K, spk_dim], the rest as engine_admit_many's."""
+    embeds, seq_len = model.prefix_for_decode(text, text_len, pho_token, pho_len,
+                                              prompt_speech, prompt_speech_len, embedding)
+    return _engine_install_many(model, state, slots, embeds, seq_len, min_len, max_len)
 
 
 def _engine_install(model, state: EngineState, slot: int, embeds, seq_len, min_len,
@@ -203,9 +219,9 @@ class GenRequest:
     min_len: Optional[int] = None    # default 2x / 20x new-text len
     max_len: Optional[int] = None
     new_text_len: Optional[int] = None  # len basis for min/max (default: all)
-    # phoneme LM requests: not ported yet (raise)
-    pho_token: Optional[np.ndarray] = None
-    embedding: Optional[np.ndarray] = None
+    # phoneme-LM requests: 4-way factored ids and the speaker vector
+    pho_token: Optional[np.ndarray] = None   # [Tp, 4]
+    embedding: Optional[np.ndarray] = None   # [spk_embed_dim]
 
 
 @dataclass
@@ -261,9 +277,13 @@ class ServingEngine:
         stopping = False
 
         def prep(r: GenRequest) -> dict:
-            """Bucket/pad one request's host arrays and derive min/max lens."""
-            if r.pho_token is not None:
-                raise NotImplementedError(_PHONEME_LM)
+            """Bucket/pad one request's host arrays and derive min/max lens.
+            A phoneme request's stream is bucketed like text, and its bucket
+            key never equals a text request's, so the two never share a
+            batched prefill."""
+            if r.pho_token is not None and not hasattr(self.model, "prefix_for_decode"):
+                raise ValueError(f"a phoneme request needs a phoneme LM "
+                                 f"(models/llm_phoneme.py), not {type(self.model).__name__}")
             tt = np.asarray(r.text, np.int64)
             ps = np.asarray(r.prompt_speech, np.int64)
             ntl = r.new_text_len if r.new_text_len is not None else len(tt)
@@ -272,18 +292,30 @@ class ServingEngine:
             mx = min(mx, self.max_out)
             Tt = round_up(max(len(tt), 1), self.text_bucket)
             Ts = round_up(max(len(ps), 1), self.speech_bucket)
-            need = 3 + Tt + Ts + mx
+            # a bound on the prefix: the phoneme stream and the speaker slot
+            Tp = (round_up(max(len(r.pho_token), 1), self.text_bucket)
+                  if r.pho_token is not None else 0)
+            need = 3 + Tt + Tp + Ts + mx
             if need > self.cache_len:
                 raise ValueError(f"request needs {need} cache rows > {self.cache_len}")
             text = np.zeros(Tt, np.int64)
             text[:len(tt)] = tt
             psp = np.zeros(Ts, np.int64)
             psp[:len(ps)] = ps
-            return dict(text=text, tlen=len(tt), psp=psp, plen=len(ps), mn=mn, mx=mx,
-                        key=(Tt, Ts))
+            p = dict(text=text, tlen=len(tt), psp=psp, plen=len(ps), mn=mn, mx=mx,
+                     pho=None, key=(Tt, Ts, Tp if r.pho_token is not None else -1))
+            if r.pho_token is not None:
+                pho = np.asarray(r.pho_token, np.int64)
+                p["pho"] = np.zeros((Tp, pho.shape[1]), np.int64)
+                p["pho"][:len(pho)] = pho
+                p.update(pho_len=len(pho), emb=np.asarray(r.embedding, np.float32))
+            return p
 
         def t(x):
             return torch.as_tensor(np.asarray(x), dtype=torch.long, device=dev)
+
+        def emb(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
         def admit_all(items: list) -> None:
             """Admit a burst: same-bucket requests share one batched prefill;
@@ -298,15 +330,27 @@ class ServingEngine:
                 ps = [p for p, _ in members]
                 if len(members) == 1:
                     p = ps[0]
-                    state = engine_admit(self.model, state, slots[0], t(p["text"]),
-                                         t(p["tlen"]), t(p["psp"]), t(p["plen"]), p["mn"],
-                                         p["mx"])
+                    if p["pho"] is None:
+                        state = engine_admit(self.model, state, slots[0], t(p["text"]),
+                                             t(p["tlen"]), t(p["psp"]), t(p["plen"]),
+                                             p["mn"], p["mx"])
+                    else:
+                        state = engine_admit_pho(
+                            self.model, state, slots[0], t(p["text"]), t(p["tlen"]),
+                            t(p["pho"]), t(p["pho_len"]), t(p["psp"]), t(p["plen"]),
+                            emb(p["emb"]), p["mn"], p["mx"])
                 else:
                     col = lambda k: t([p[k] for p in ps])
-                    state = engine_admit_many(
-                        self.model, state, slots, t(np.stack([p["text"] for p in ps])),
-                        col("tlen"), t(np.stack([p["psp"] for p in ps])), col("plen"),
-                        col("mn"), col("mx"))
+                    stack = lambda k: t(np.stack([p[k] for p in ps]))
+                    if ps[0]["pho"] is None:
+                        state = engine_admit_many(
+                            self.model, state, slots, stack("text"), col("tlen"),
+                            stack("psp"), col("plen"), col("mn"), col("mx"))
+                    else:
+                        state = engine_admit_many_pho(
+                            self.model, state, slots, stack("text"), col("tlen"),
+                            stack("pho"), col("pho_len"), stack("psp"), col("plen"),
+                            emb(np.stack([p["emb"] for p in ps])), col("mn"), col("mx"))
                 for slot, (_, cb) in zip(slots, members):
                     slot_cb[slot] = cb
                     seen[slot] = 0

@@ -14,11 +14,15 @@ Port of cosyvoice_tpu/runtime/serving.py:
   `batch_chunks`, as the sequential token2wav calls) and vocodes them with
   the grouped vocoders of runtime/model.py; incremental mode computes each
   mel row once against per-slot cached state (runtime/flow_engine.py).
+  A request with `pho_token` goes to a phoneme LM (models/llm_phoneme.py):
+  its phoneme count sets the token bounds, and `embedding` is both the
+  LM's speaker vector and the flow's.
 The JAX package pads a flush group to a power of two to bound its compiles;
 eager PyTorch compiles nothing per shape, so the port runs the group as it
 comes (the outputs a row are the same either way).  Not ported: the
-multi-chip `mesh`, the second-card `flow_device` and phoneme-LM requests
-(each raises).
+multi-chip `mesh` and the second-card `flow_device` (each raises).
+BatchedSynthesizer refuses phoneme requests, as the JAX one has no
+phoneme route.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ import torch.nn.functional as F
 
 from cosyvoice_tpu_torch.models.flow import _DTYPES, reference_rand_noise
 from cosyvoice_tpu_torch.models.llm import lm_generate
-from cosyvoice_tpu_torch.runtime.engine import _PHONEME_LM, GenRequest, ServingEngine
+from cosyvoice_tpu_torch.runtime.engine import GenRequest, ServingEngine
 from cosyvoice_tpu_torch.runtime.flow_engine import FlowSlotEngine
 from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model, round_up
 
@@ -51,9 +55,9 @@ class TTSRequest:
     prompt_text_len: int
     prompt_speech_tokens: np.ndarray
     prompt_feat: np.ndarray            # [P, 80]
-    embedding: np.ndarray              # [spk_dim]
-    # phoneme-LM requests: not ported yet (raise)
-    pho_token: Optional[np.ndarray] = None
+    embedding: np.ndarray              # [spk_dim]: the flow's, and a phoneme LM's
+    # phoneme-LM requests (ContinuousSynthesizer): 4-way factored ids
+    pho_token: Optional[np.ndarray] = None     # [Tp, 4]
 
 
 @dataclass
@@ -78,7 +82,10 @@ class BatchedSynthesizer:
         `gen` drives the LM's sampling (default: seed 0); the vocoder's
         source noise comes from a generator seeded from it."""
         if any(r.pho_token is not None for r in requests):
-            raise NotImplementedError(_PHONEME_LM)
+            raise NotImplementedError(
+                "BatchedSynthesizer has no phoneme route (neither has the JAX package's, "
+                "cosyvoice_tpu/runtime/serving.py); serve phoneme requests through "
+                "ContinuousSynthesizer")
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
         tokens = self.generate(requests, gen)
         mel, tls, pfl = self.flow_batch(requests, tokens)
@@ -431,12 +438,16 @@ class ContinuousSynthesizer:
                 if item is None:
                     return None
                 req, on_chunk = item
-                if req.pho_token is not None:
-                    raise NotImplementedError(_PHONEME_LM)
                 st = _Stream(req, on_chunk, m.new_session(), hop)
+                pho = req.pho_token is not None
+                # a phoneme request's token bounds count its phonemes
                 return (GenRequest(text=np.asarray(req.text_tokens, np.int64),
                                    prompt_speech=np.asarray(req.prompt_speech_tokens, np.int64),
-                                   new_text_len=len(req.text_tokens) - req.prompt_text_len),
+                                   new_text_len=(len(req.pho_token) if pho else
+                                                 len(req.text_tokens) - req.prompt_text_len),
+                                   pho_token=np.asarray(req.pho_token, np.int64) if pho else None,
+                                   embedding=(np.asarray(req.embedding, np.float32) if pho
+                                              else None)),
                         make_on_tokens(st))
 
         engine.serve(_Adapter(), gen=gen, on_segment=on_segment)

@@ -286,13 +286,13 @@ def test_incremental_matches_stream_model():
 
 
 def test_continuous_refusals():
-    """A second card for the flow, phoneme-LM requests and a prompt longer
-    than a flow slot's cache raise."""
+    """A second card for the flow, a phoneme request to a model whose LM is
+    not a phoneme LM and a prompt longer than a flow slot's cache raise."""
     model = _noisy("incremental")
     with pytest.raises(NotImplementedError, match="second card"):
         TS.ContinuousSynthesizer(model, flow_device="cuda:1")
     r = _requests(TS.TTSRequest)[0]
-    with pytest.raises(NotImplementedError, match="phoneme"):
+    with pytest.raises(ValueError, match="phoneme"):
         TS.ContinuousSynthesizer(model, **SYNTH).synthesize_batch(
             [dataclasses.replace(r, pho_token=np.zeros((4, 4), np.int32))])
     with pytest.raises(ValueError, match="tok_cap"):

@@ -30,6 +30,9 @@ import cosyvoice_tpu_torch.ops.kaldi, cosyvoice_tpu_torch.models.campplus
 import cosyvoice_tpu_torch.models.s3tokenizer
 import cosyvoice_tpu_torch.models.conformer, cosyvoice_tpu_torch.models.flow
 import cosyvoice_tpu_torch.ops.sampling, cosyvoice_tpu_torch.nn.norm
+import cosyvoice_tpu_torch.models.llm_phoneme, cosyvoice_tpu_torch.models.llm_v1_phoneme
+import cosyvoice_tpu_torch.tokenizer.phoneme, cosyvoice_tpu_torch.tokenizer.phoneme_frontend
+import cosyvoice_tpu_torch.tokenizer.polyphone
 from cosyvoice_tpu_torch.runtime.api import CosyVoice
 from cosyvoice_tpu_torch.runtime.model import CosyVoiceV1Model
 from cosyvoice_tpu_torch.tokenizer.text import WhisperTiktokenTokenizer
@@ -138,3 +141,27 @@ def test_v1_model_raises_without_gpu_and_runs_on_cpu_when_asked():
         CosyVoiceV1Model(**parts)
     model = CosyVoiceV1Model(**parts, device="cpu")
     assert all(p.device.type == "cpu" for p in model.llm.parameters())
+
+
+def test_phoneme_engine_raises_without_gpu_and_runs_on_cpu_when_asked():
+    if torch.cuda.is_available():
+        pytest.skip("this check is for hosts without a GPU")
+    from cosyvoice_tpu_torch.models.conformer import ConformerConfig
+    from cosyvoice_tpu_torch.models.llm_phoneme import (PhonemeEmbedConfig, PhonemeLMConfig,
+                                                        Qwen2LMPhonemeSrc2)
+    from cosyvoice_tpu_torch.models.qwen2 import Qwen2Config
+    from cosyvoice_tpu_torch.runtime.engine import GenRequest, ServingEngine
+    import torch_port_util as U
+
+    llm = Qwen2LMPhonemeSrc2(PhonemeLMConfig(
+        32, 32, U.SPEECH_VOCAB, 24, phoneme=PhonemeEmbedConfig(30, 12, 16, 8, 2, 2, 6, 2),
+        encoder=ConformerConfig(32, 4, 48, 1, 24), qwen=Qwen2Config(**U.QWEN),
+        fusion_heads=4, fusion_ffn=48))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(llm)
+    engine = ServingEngine(llm, num_slots=1, cache_len=160, max_out=4, device="cpu")
+    req = GenRequest(text=np.arange(5), prompt_speech=np.arange(3),
+                     pho_token=np.zeros((6, 4), np.int64), embedding=np.ones(24, np.float32),
+                     min_len=4, max_len=4)
+    (tokens,) = engine.generate([req])
+    assert len(tokens) <= 4 and (tokens < U.SPEECH_VOCAB).all()
