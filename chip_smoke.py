@@ -127,7 +127,24 @@ Phases, each printing JSON lines:
      and K3 must be > 0); (c) cosyvoice_phoneme.yaml's v1 LM
      (V1PhonemeLMConfig, fp32): 200 greedy tokens, prefill ms and ms a
      token;
- 17. timing  - at the main path's shapes: each kernel against its plain
+ 17. lam     - the LAM stack: (a) small fp32 stacks on the card against
+     the CPU, the noise drawn on CPU generators: a SpeakerEmbedding's
+     vector of a seeded 3 s 24 kHz prompt through speaker_embed (within
+     5e-4), a VITS wav of two ragged rows with two upsample conformers at
+     noise_scale 0.5 (within 1e-2), and TransformerLMPhonemeWithSpk's
+     greedy tokens from the prompt's features through encode_speaker and
+     v1_phoneme_generate (exact); (b) at full width in fp32 on seeded
+     weights: SpeakerEmbeddingConfig() on a 3 s and a 10 s prompt (ms a
+     prompt, the median of 5, split into features, CAMPPlus, posterior +
+     style encoders, GST + fuser) and VITS at its recipe
+     (examples/tts_vc/cosyvoice2/conf/cosyvoice2_vits_tts.yaml) over the
+     bigvgan phase's 4 rows of 250/200/150/100 tokens (one warm-up, one
+     timed inference: wall, audio, RTF, peak memory, a finite wav in
+     [-1, 1] of 960 samples a token); (c) one LAM request: the 10 s
+     prompt's vector, the phoneme phase's full-width Src2 LM (200 greedy
+     tokens on K1), VITS with g = the vector: speaker ms, LM ms a token,
+     VITS s, total, RTF, launches (K1 must be > 0);
+ 18. timing  - at the main path's shapes: each kernel against its plain
      version on the same inputs, then the kernel, the plain version and the
      one PyTorch call that computes the same function, timed (CUDA events);
      K1 also at the engine's shape (B = 8, cache 384, per-row frontiers)
@@ -158,8 +175,9 @@ attention kernel, out-proj + LN3 + FFN) and K2 alone at the block's qkv
 shape (k2_dev_ms); every row adds launches_continuous, its launches in the
 continuous phase's windowed and incremental runs, launches_checkpoint, its
 launches in the checkpoint phase's int8 and int4 requests, launches_v1,
-its launches in the v1 phase's four requests, and launches_phoneme, its
-launches in the phoneme phase's three full-width runs; the K2 and K3 rows
+its launches in the v1 phase's four requests, launches_phoneme, its
+launches in the phoneme phase's three full-width runs, and launches_lam,
+its launches in the lam phase's chain; the K2 and K3 rows
 add v1_shapes, their times at the v1 estimator's two levels.  The line
 before the card's line gives the whole run's seconds.
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero.
@@ -2526,47 +2544,56 @@ def pho_full_width_lm():
     return llm.eval()
 
 
-def pho_b1_generate(llm, kernels: dict, n_tok: int) -> dict:
-    """One B=1 greedy decode of n_tok tokens (EOS masked throughout) from a
-    PHO_LEN-phoneme request with a 3 s prompt: the prefix's milliseconds
-    (phoneme encoder + fusion + packing, then the body's prefill) and the
-    decode's milliseconds a token, after one short warm-up decode."""
+def pho_b1_args(cfg, rng, spk_vec=None) -> tuple:
+    """A B=1 phoneme request on the card: 20 text ids, PHO_LEN phonemes, a
+    PHO_PROMPT-token prompt and a speaker vector (`spk_vec` [1, spk_dim], or
+    a seeded random one)."""
+    t = lambda x: torch.as_tensor(np.asarray(x), device="cuda")[None]
+    n = lambda v: torch.tensor([v], device="cuda")
+    text, pho = rng.integers(0, cfg.qwen.vocab_size, 20), pho_ids(rng, PHO_LEN, cfg.phoneme)
+    psp = rng.integers(0, cfg.speech_token_size, PHO_PROMPT)
+    if spk_vec is None:
+        spk_vec = t(rng.standard_normal(cfg.spk_embed_dim).astype(np.float32))
+    return t(text), n(20), t(pho), n(PHO_LEN), t(psp), n(PHO_PROMPT), spk_vec
+
+
+def pho_b1_decode(llm, args: tuple, steps: int):
+    """A greedy B=1 decode of exactly `steps` tokens (EOS masked throughout)
+    -> (its GenState, (encoder + fusion s, prefill s, decode s))."""
     from cosyvoice_tpu_torch.models.llm import (SamplingConfig, lm_decode_chunk,
                                                 lm_prefill_from_embeds)
 
     cfg = llm.cfg
     llm.cfg = dataclasses.replace(cfg, sampling=SamplingConfig(method="greedy"))
-    rng = np.random.default_rng(41)
-    dev = "cuda"
-    t = lambda x: torch.as_tensor(np.asarray(x), device=dev)[None]
-    n = lambda v: torch.tensor([v], device=dev)
-    args = (t(rng.integers(0, cfg.qwen.vocab_size, 20)), n(20),
-            t(pho_ids(rng, PHO_LEN, cfg.phoneme)), n(PHO_LEN),
-            t(rng.integers(0, cfg.speech_token_size, PHO_PROMPT)), n(PHO_PROMPT),
-            t(rng.standard_normal(cfg.spk_embed_dim).astype(np.float32)))
-    cache_len = -(-(3 + 20 + PHO_LEN + PHO_PROMPT + n_tok) // 128) * 128
+    n = lambda v: torch.tensor([v], device="cuda")
+    cache_len = -(-(3 + 20 + PHO_LEN + PHO_PROMPT + steps) // 128) * 128
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embeds, seq_len = llm.prefix_for_decode(*args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stream = lm_prefill_from_embeds(llm, embeds, seq_len, n(steps), n(steps), None,
+                                    steps, cache_len)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    lm_decode_chunk(llm, stream, steps)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    llm.cfg = cfg
+    return stream.gen, (t1 - t0, t2 - t1, t3 - t2)
 
-    def run(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        embeds, seq_len = llm.prefix_for_decode(*args)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        stream = lm_prefill_from_embeds(llm, embeds, seq_len, n(steps), n(steps), None,
-                                        steps, cache_len)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        lm_decode_chunk(llm, stream, steps)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        return stream.gen, (t1 - t0, t2 - t1, t3 - t2)
 
-    run(5)
+def pho_b1_generate(llm, kernels: dict, n_tok: int) -> dict:
+    """One B=1 greedy decode of n_tok tokens (EOS masked throughout) from a
+    PHO_LEN-phoneme request with a 3 s prompt: the prefix's milliseconds
+    (phoneme encoder + fusion + packing, then the body's prefill) and the
+    decode's milliseconds a token, after one short warm-up decode."""
+    args = pho_b1_args(llm.cfg, np.random.default_rng(41))
+    pho_b1_decode(llm, args, 5)
     for mod in kernels.values():
         mod.launches = 0
-    state, (enc_s, prefill_s, decode_s) = run(n_tok)
+    state, (enc_s, prefill_s, decode_s) = pho_b1_decode(llm, args, n_tok)
     launches = {name: mod.launches for name, mod in kernels.items()}
-    llm.cfg = cfg
     return dict(prefix_len=int(PHO_LEN + PHO_PROMPT + 3), tokens=int(state.count[0]),
                 steps=state.step, encoder_fusion_ms=enc_s * 1e3, prefill_ms=prefill_s * 1e3,
                 prefix_ms=(enc_s + prefill_s) * 1e3,
@@ -2698,6 +2725,254 @@ def phoneme_phase(res_main: dict, kernels: dict, smi: str) -> dict:
              v1["tokens"] == PHO_TOKENS]
     if not all(gates):
         raise AssertionError(f"phoneme phase failed: {gates} {res}")
+    return res
+
+
+# the lam phase: the LAM speaker stack (SpeakerEmbeddingConfig) on prompts of
+# LAM_PROMPTS_S seconds of 24 kHz audio, VITS at its recipe over the bigvgan
+# phase's rows (4 rows of 250/200/150/100 tokens, 960 samples a token), and
+# the chain 10 s prompt -> speaker vector -> the phoneme phase's LM (200
+# greedy tokens) -> VITS; the small stacks of (a) below
+LAM_PROMPTS_S, LAM_VITS_ROWS, LAM_REPS = (3.0, 10.0), (250, 200, 150, 100), 5
+LAM_SMALL_SPK = dict(inter_channels=32, hidden_channels=32, speaker_emb_dim=24,
+                     style_hidden=32, style_layers=2, gst_tokens=64, gst_heads=4, gst_layers=2)
+LAM_SMALL_CAMP = dict(embedding_size=16, growth_rate=8, bn_size=2, init_channels=16,
+                      blocks=((2, 3, 1), (2, 3, 2), (2, 3, 2)))
+LAM_SMALL_VITS = dict(n_vocab=64, inter_channels=32, hidden_channels=32, filter_channels=64,
+                      n_heads=2, n_layers=2, resblock_kernel_sizes=(3, 7),
+                      resblock_dilation_sizes=((1, 3), (1, 3)), upsample_rates=(4, 3),
+                      upsample_initial_channel=64, upsample_kernel_sizes=(8, 7),
+                      gin_channels=24)
+# the small SpeakerEmbedding's vector, card against CPU (the checkpoint
+# phase's CAMPPlus bar); the small VITS wav (the reference phase's bar)
+LAM_VEC_TOL, LAM_WAV_TOL = 5e-4, 1e-2
+
+
+def lam_wav(seconds: float, seed: int) -> np.ndarray:
+    """A seeded 24 kHz prompt: two tones with a tremolo and a little noise."""
+    t = np.arange(int(24000 * seconds)) / 24000.0
+    return (0.3 * np.sin(2 * np.pi * 180 * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
+            + 0.1 * np.sin(2 * np.pi * 410 * t)
+            + 0.01 * np.random.default_rng(seed).standard_normal(len(t))).astype(np.float32)
+
+
+def lam_small_models(device: str):
+    """(SpeakerEmbedding, VitsDecoder, TransformerLMPhonemeWithSpk) at small
+    fp32 widths (the speaker stacks on the recipe's 1024 / 300 spectrum, a
+    VITS with two 1-block upsample conformers, pho_small_lm's v1 LM), built
+    on the CPU from one seed so both devices hold the same weights."""
+    from cosyvoice_tpu_torch.models.campplus import CAMPPlusConfig
+    from cosyvoice_tpu_torch.models.conformer import ConformerConfig
+    from cosyvoice_tpu_torch.models.llm_v1_phoneme import (TransformerLMPhonemeWithSpk,
+                                                           WithSpkConfig)
+    from cosyvoice_tpu_torch.models.speaker import SpeakerEmbedding, SpeakerEmbeddingConfig
+    from cosyvoice_tpu_torch.models.vits import VitsConfig, VitsDecoder
+
+    lm_cfg = pho_small_lm("cpu", v1=True).cfg
+    spk_cfg = SpeakerEmbeddingConfig(**LAM_SMALL_SPK,
+                                     campplus=CAMPPlusConfig(**LAM_SMALL_CAMP))
+    up = ConformerConfig(32, 2, 64, 1, 32)
+    torch.manual_seed(61)
+    models = (SpeakerEmbedding(spk_cfg),
+              VitsDecoder(VitsConfig(**LAM_SMALL_VITS, up_enc1=up, up_enc2=up)),
+              TransformerLMPhonemeWithSpk(WithSpkConfig(lm=lm_cfg, spk=spk_cfg)))
+    return [m.to(device).eval() for m in models]
+
+
+def lam_small_checks() -> dict:
+    """(a) The small fp32 stacks on the card against the CPU, every noise
+    drawn on a CPU generator (the same draws on both): the SpeakerEmbedding
+    vector of a 3 s prompt (speaker_embed), the VITS wav of two ragged rows
+    at noise_scale 0.5, TransformerLMPhonemeWithSpk's greedy tokens from the
+    prompt's features through encode_speaker and v1_phoneme_generate."""
+    from cosyvoice_tpu_torch.models.llm_v1_phoneme import v1_phoneme_generate
+    from cosyvoice_tpu_torch.models.speaker import speaker_embed, speaker_features
+
+    wav3 = lam_wav(3.0, 60)
+    rng = np.random.default_rng(62)
+    tokens = rng.integers(0, LAM_SMALL_VITS["n_vocab"], (2, 30))
+    tlen = np.array([30, 17])
+    g = rng.standard_normal((2, LAM_SMALL_VITS["gin_channels"])).astype(np.float32)
+    pho_cfg = pho_small_lm("cpu", v1=True).cfg.phoneme
+    pho, psp = pho_ids(rng, 9, pho_cfg)[None], rng.integers(0, 64, (1, 5))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        spk, vits, with_spk = lam_small_models(dev)
+        t = lambda x: torch.as_tensor(np.asarray(x), device=dev)
+        vec = speaker_embed(spk, wav3, gen=torch.Generator().manual_seed(63))
+        wav = vits.inference(t(tokens), t(tlen), t(g), gen=torch.Generator().manual_seed(64),
+                             noise_scale=0.5).cpu().numpy()
+        emb = with_spk.encode_speaker(*speaker_features(with_spk.cfg.spk, wav3, dev),
+                                      gen=torch.Generator().manual_seed(65))
+        out, cnt = v1_phoneme_generate(with_spk.lm, t(pho), t([9]), t(psp), t([5]), emb,
+                                       t([40]), None, 40, 128)
+        runs[dev] = dict(vec=vec, wav=wav, emb=emb.cpu().numpy(),
+                         tokens=out[0, :int(cnt[0])].cpu().numpy())
+    g_, c_ = runs["cuda"], runs["cpu"]
+    return dict(vec_max_abs_err=float(np.abs(g_["vec"] - c_["vec"]).max()),
+                vec_tol=LAM_VEC_TOL, vec_dim=int(g_["vec"].shape[0]),
+                wav_max_abs_err=float(np.abs(g_["wav"] - c_["wav"]).max()), wav_tol=LAM_WAV_TOL,
+                wav_shape=list(g_["wav"].shape), wav_finite=bool(np.isfinite(g_["wav"]).all()),
+                with_spk_vec_max_abs_err=float(np.abs(g_["emb"] - c_["emb"]).max()),
+                with_spk_tokens=len(g_["tokens"]),
+                with_spk_tokens_equal=bool(np.array_equal(g_["tokens"], c_["tokens"])))
+
+
+def lam_speaker_ms(spk, wav: np.ndarray, reps: int = LAM_REPS) -> dict:
+    """speaker_embed's parts a prompt, synchronised, after one warm-up: the
+    features (resample_poly to 16 kHz on the host, kaldi fbank and the linear
+    spectrum on the card), CAMPPlus, the posterior + style encoders, the GST
+    and the fuser; the median of `reps` runs of each and of their sum."""
+    from cosyvoice_tpu_torch.models.speaker import speaker_features
+
+    gen = torch.Generator(device="cuda").manual_seed(66)
+    parts = {"features": [], "campplus": [], "posterior_style": [], "gst_fuse": []}
+    for rep in range(reps + 1):
+        stamps = [time.perf_counter()]
+        fb, spec, spec_len = speaker_features(spk.cfg, wav, "cuda")
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        timbre = spk.timbre(fb)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        style = spk.style(spec, spec_len, gen=gen)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        vec = spk.fuse(timbre, style)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if rep:
+            for key, a, b in zip(parts, stamps, stamps[1:]):
+                parts[key].append((b - a) * 1e3)
+    res = {f"{key}_ms": float(np.median(v)) for key, v in parts.items()}
+    res["total_ms"] = float(np.median([sum(x) for x in zip(*parts.values())]))
+    res.update(frames_spec=int(spec.shape[1]), frames_fbank=int(fb.shape[1]),
+               finite=bool(torch.isfinite(vec).all()))
+    return res
+
+
+def lam_vits_full(vits) -> dict:
+    """(b) VITS at RECIPE, fp32: 4 rows of LAM_VITS_ROWS tokens (pad ids 0),
+    seeded 512-d speaker vectors, noise from a CUDA generator: a warm-up and
+    a timed inference."""
+    lens = list(LAM_VITS_ROWS)
+    T = max(lens)
+    g = torch.Generator(device="cuda").manual_seed(67)
+    tlen = torch.tensor(lens, device="cuda")
+    valid = torch.arange(T, device="cuda")[None] < tlen[:, None]
+    tokens = torch.where(valid, torch.randint(0, vits.cfg.n_vocab, (4, T), generator=g,
+                                              device="cuda"), 0)
+    spk = torch.randn(4, vits.cfg.gin_channels, generator=g, device="cuda")
+    per_token = math.prod(vits.cfg.upsample_rates) * 4        # two 2x conformers
+
+    def forward():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav = vits.inference(tokens, tlen, spk, gen=g, noise_scale=0.5)
+        torch.cuda.synchronize()
+        return wav, time.perf_counter() - t0
+
+    forward()
+    torch.cuda.reset_peak_memory_stats()
+    wav, wall = forward()
+    audio_s = sum(lens) * per_token / 24000.0
+    return dict(rows_tokens=lens, samples_a_token=per_token, wav_shape=list(wav.shape),
+                row_samples=[n * per_token for n in lens], wall_s=wall, audio_s=audio_s,
+                rtf=wall / audio_s, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                finite=bool(torch.isfinite(wav).all()), wav_max_abs=float(wav.abs().max()))
+
+
+def lam_chain(spk, vits, kernels: dict) -> dict:
+    """(c) One LAM request: the 10 s prompt's speaker vector (speaker_embed),
+    cosyvoice2_pho.yaml's Src2 LM at full width (pho_full_width_lm: int8
+    body on K1) decoding PHO_TOKENS greedy tokens from the phoneme phase's
+    request shape with that vector, then VITS with g = the vector; one
+    warm-up chain of 5 tokens first.  Every kernel count is reset before the
+    timed chain and read after it."""
+    from cosyvoice_tpu_torch.models.speaker import speaker_embed
+
+    llm = pho_full_width_lm()
+    wav10 = lam_wav(10.0, 68)
+    gen = torch.Generator(device="cuda").manual_seed(69)
+
+    def chain(steps: int):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vec = torch.as_tensor(speaker_embed(spk, wav10, gen=gen), device="cuda")[None]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, lm_s = pho_b1_decode(llm, pho_b1_args(llm.cfg, np.random.default_rng(70),
+                                                     vec), steps)
+        n = int(state.count[0])
+        t2 = time.perf_counter()
+        wav = vits.inference(state.out[:, :n], state.count, vec, gen=gen, noise_scale=0.5)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return vec, n, wav, (t1 - t0, t2 - t1, t3 - t2, lm_s)
+
+    chain(5)
+    for mod in kernels.values():
+        mod.launches = 0
+    vec, n, wav, (spk_s, lm_s, vits_s, (enc_s, prefill_s, decode_s)) = chain(PHO_TOKENS)
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    layers = llm.cfg.qwen.num_layers
+    del llm
+    torch.cuda.empty_cache()
+    total = spk_s + lm_s + vits_s
+    audio_s = wav.shape[1] / 24000.0
+    return dict(prompt_s=10.0, tokens=n, speaker_ms=spk_s * 1e3, lm_s=lm_s,
+                lm_prefix_ms=(enc_s + prefill_s) * 1e3,
+                lm_ms_per_token=decode_s * 1e3 / max(n - 1, 1), vits_s=vits_s, total_s=total,
+                audio_s=audio_s, rtf=total / audio_s, wav_shape=list(wav.shape),
+                wav_finite=bool(torch.isfinite(wav).all()),
+                wav_max_abs=float(wav.abs().max()), vec_norm=float(vec.norm()),
+                launches=launches, k1_launches_expected=layers * (PHO_TOKENS - 1))
+
+
+@torch.no_grad()
+def lam_phase(kernels: dict, smi: str) -> dict:
+    """The LAM stack: (a) lam_small_checks; (b) SpeakerEmbeddingConfig() in
+    fp32 on seeded fan-in-scaled weights (CAMPPlus with perturbed BatchNorm
+    statistics) on the 3 s and 10 s prompts (lam_speaker_ms), VITS at its
+    recipe (lam_vits_full); (c) lam_chain.  Gates: every small-stack bar;
+    finite vectors of 512; a finite full-width wav in [-1, 1] of the rows'
+    shape; the chain's PHO_TOKENS tokens, a finite wav of 960 samples a
+    token and K1 > 0."""
+    from cosyvoice_tpu_torch.models.speaker import SpeakerEmbedding, SpeakerEmbeddingConfig
+    from cosyvoice_tpu_torch.models.vits import RECIPE, VitsDecoder
+
+    t_phase = time.perf_counter()
+    small = lam_small_checks()
+    cfg = SpeakerEmbeddingConfig()
+    with torch.device("cuda"):
+        spk = SpeakerEmbedding(cfg)
+        vits = VitsDecoder(RECIPE)
+    rand_init_(spk, 12430)
+    spk.speaker_encoder = seeded_campplus(cfg.campplus, 12431)
+    rand_init_(vits, 12432)
+    spk.eval()
+    vits.eval()
+    speaker = {f"{s:g}s": lam_speaker_ms(spk, lam_wav(s, 71)) for s in LAM_PROMPTS_S}
+    full = lam_vits_full(vits)
+    chain = lam_chain(spk, vits, kernels)
+    del spk, vits
+    torch.cuda.empty_cache()
+    res = {"phase": "lam", "card": smi, "small_fp32": small,
+           "speaker_config": "SpeakerEmbeddingConfig() fp32", "speaker_ms": speaker,
+           "vits_config": "cosyvoice2_vits_tts.yaml (models/vits.py RECIPE) fp32",
+           "vits": full, "chain": chain, "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    T = max(LAM_VITS_ROWS)
+    gates = [small["vec_max_abs_err"] <= LAM_VEC_TOL, small["wav_max_abs_err"] <= LAM_WAV_TOL,
+             small["wav_finite"], small["with_spk_tokens_equal"], small["with_spk_tokens"] > 0,
+             all(r["finite"] for r in speaker.values()),
+             full["finite"], full["wav_max_abs"] <= 1.0,
+             full["wav_shape"] == [4, T * full["samples_a_token"]],
+             chain["tokens"] == PHO_TOKENS, chain["wav_finite"], chain["wav_max_abs"] <= 1.0,
+             chain["wav_shape"] == [1, PHO_TOKENS * full["samples_a_token"]],
+             chain["launches"]["lm_decode_attention"] > 0]
+    if not all(gates):
+        raise AssertionError(f"lam phase failed: {gates} {res}")
     return res
 
 
@@ -3161,6 +3436,7 @@ def main() -> int:
                "dit_block": K4, "int4_matmul": K5, "lm_step": K6, "snake_aa": K7}
     v1 = v1_phase(kernels, smi)
     pho = phoneme_phase(res, kernels, smi)
+    lam = lam_phase(kernels, smi)
     flow = res["stack"][1]
     del res["stack"]
     rows = timing(K1, K2, K3, K4, K5, K6, K7, res["last_decode"], flow, batched["block_shape"])
@@ -3189,6 +3465,8 @@ def main() -> int:
             "b1_generate": pho["b1_generate"]["launches"][row["name"]],
             "streams": pho["streams"]["launches"][row["name"]],
             "v1_generate": pho["v1_generate"]["launches"][row["name"]]}
+        # the lam phase's chain (speaker vector -> phoneme LM -> VITS)
+        row["launches_lam"] = lam["chain"]["launches"][row["name"]]
         row.update(edge_max_abs_err=errs[row["name"]],
                    tolerance=tolerance.get(row["name"], CHECK_TOL[torch.bfloat16]),
                    kernel_ms=row["ms"])

@@ -1,5 +1,6 @@
 """JAX parameter trees -> the port's state_dicts (CosyVoice2's modules,
-CosyVoice v1's TransformerLM and MaskedDiffWithXvec, and the phoneme LMs).
+CosyVoice v1's TransformerLM and MaskedDiffWithXvec, the phoneme LMs, VITS,
+CAMPPlus and the LAM speaker embedding).
 
 Each function takes a flax param tree (nested dicts of numpy or JAX arrays,
 with or without the top-level "params" key) and returns a state_dict that the
@@ -344,4 +345,180 @@ def bigvgan_state_from_jax(params: dict, cfg) -> dict:
                     _wn_conv(sd, f"{name}.{conv}.{d}", q[f"{conv}_{d}"])
             for a in _indices(q, "act_"):
                 aa_act(f"{name}.activations.{a}", q[f"act_{a}"])
+    return sd
+
+
+# ---- VITS, the LAM speaker embedding, the speaker-co-trained v1 LM ----------
+
+def _gamma_beta(sd, name, p):
+    """A flax LayerNorm -> the reference's `gamma` / `beta` LayerNorm."""
+    sd[f"{name}.gamma"] = _t(p["scale"])
+    sd[f"{name}.beta"] = _t(p["bias"])
+
+
+def _wn(sd, name, p):
+    """models/vits.py WN (JAX `in_{i}`, `res_skip_{i}`, `cond_layer`) ->
+    `in_layers.{i}`, `res_skip_layers.{i}`, `cond_layer`."""
+    if "cond_layer" in p:
+        _wn_conv(sd, f"{name}.cond_layer", p["cond_layer"])
+    for i in _indices(p, "in_"):
+        _wn_conv(sd, f"{name}.in_layers.{i}", p[f"in_{i}"])
+        _wn_conv(sd, f"{name}.res_skip_layers.{i}", p[f"res_skip_{i}"])
+
+
+def _posterior(sd, name, p):
+    """The JAX `enc_q_pre`, `enc_q_wn`, `enc_q_proj` -> `enc_q.{pre,enc,proj}`."""
+    _conv(sd, f"{name}.pre", p["enc_q_pre"])
+    _wn(sd, f"{name}.enc", p["enc_q_wn"])
+    _conv(sd, f"{name}.proj", p["enc_q_proj"])
+
+
+def vits_state_from_jax(params: dict) -> dict:
+    """models/vits.py VitsDecoder params -> port (and reference checkpoint)
+    state_dict; the inverse of the JAX package's import_vits_torch."""
+    p = _root(params)
+    sd = {"enc_p.emb.weight": _t(p["emb"]["embedding"])}
+    enc, pre = p["encoder"], "enc_p.encoder."
+    for i in _indices(enc, "attn_"):
+        att = enc[f"attn_{i}"]
+        for conv in ("conv_q", "conv_k", "conv_v", "conv_o"):
+            _conv(sd, f"{pre}attn_layers.{i}.{conv}", att[conv])
+        for rel in ("emb_rel_k", "emb_rel_v"):
+            sd[f"{pre}attn_layers.{i}.{rel}"] = _t(att[rel])
+        _gamma_beta(sd, f"{pre}norm_layers_1.{i}", enc[f"norm1_{i}"]["ln"])
+        _gamma_beta(sd, f"{pre}norm_layers_2.{i}", enc[f"norm2_{i}"]["ln"])
+        for conv in ("conv_1", "conv_2"):
+            _conv(sd, f"{pre}ffn_layers.{i}.{conv}", enc[f"ffn_{i}"][conv])
+    _conv(sd, "enc_p.proj", p["enc_proj"])
+    for name in ("up_enc1", "up_enc2"):
+        if name in p:
+            _encoder(sd, f"enc_p.{name}.", p[name])
+    _posterior(sd, "enc_q", p)
+    for i in _indices(p["flow"], "flow_"):
+        f = p["flow"][f"flow_{i}"]
+        _conv(sd, f"flow.flows.{2 * i}.pre", f["pre"])
+        _wn(sd, f"flow.flows.{2 * i}.enc", f["enc"])
+        _conv(sd, f"flow.flows.{2 * i}.post", f["post"])
+    dec = p["dec"]
+    for conv in ("conv_pre", "cond", "conv_post"):
+        _conv(sd, f"dec.{conv}", dec[conv])
+    nk = len([k for k in dec if k.startswith("resblocks_0_")])
+    for i in _indices(dec, "ups_"):
+        _wn_convT(sd, f"dec.ups.{i}", dec[f"ups_{i}"])
+        for j in range(nk):
+            q = dec[f"resblocks_{i}_{j}"]
+            for d in _indices(q, "convs1_"):
+                for conv in ("convs1", "convs2"):
+                    _wn_conv(sd, f"dec.resblocks.{i * nk + j}.{conv}.{d}", q[f"{conv}_{d}"])
+    return sd
+
+
+def conv_flow_state_from_jax(params: dict) -> dict:
+    """models/vits.py ConvFlow params -> port (and reference) state_dict; the
+    inverse of the JAX package's import_conv_flow_torch."""
+    p = _root(params)
+    sd: dict = {}
+    _conv(sd, "pre", p["pre"])
+    _conv(sd, "proj", p["proj"])
+    c = p["convs"]
+    for i in _indices(c, "convs_sep_"):
+        _conv(sd, f"convs.convs_sep.{i}", c[f"convs_sep_{i}"])
+        _conv(sd, f"convs.convs_1x1.{i}", c[f"convs_1x1_{i}"])
+        _gamma_beta(sd, f"convs.norms_1.{i}", c[f"norms_1_{i}"])
+        _gamma_beta(sd, f"convs.norms_2.{i}", c[f"norms_2_{i}"])
+    return sd
+
+
+def campplus_state_from_jax(variables: dict) -> dict:
+    """models/campplus.py CAMPPlus {'params', 'batch_stats'} -> port (and
+    reference) state_dict, BatchNorm counters 0; the inverse of the JAX
+    package's import_campplus_torch."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+
+    def conv2d(name, q):
+        sd[f"{name}.weight"] = _t(np.asarray(q["kernel"]).transpose(3, 2, 0, 1))
+
+    def bn(name, path):
+        q, st = p, s
+        for k in path + ("bn",):
+            q, st = q[k], st[k]
+        if "scale" in q:
+            sd[f"{name}.weight"] = _t(q["scale"])
+            sd[f"{name}.bias"] = _t(q["bias"])
+        sd[f"{name}.running_mean"] = _t(st["mean"])
+        sd[f"{name}.running_var"] = _t(st["var"])
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    head = p["head"]
+    for i in (1, 2):
+        conv2d(f"head.conv{i}", head[f"conv{i}"])
+        bn(f"head.bn{i}", ("head", f"bn{i}"))
+    for key in sorted(k for k in head if k.startswith("layer")):
+        li, bi = key[len("layer"):].split("_")
+        name = f"head.layer{li}.{bi}"
+        for i in (1, 2):
+            conv2d(f"{name}.conv{i}", head[key][f"conv{i}"])
+            bn(f"{name}.bn{i}", ("head", key, f"bn{i}"))
+        if "shortcut_conv" in head[key]:
+            conv2d(f"{name}.shortcut.0", head[key]["shortcut_conv"])
+            bn(f"{name}.shortcut.1", ("head", key, "shortcut_bn"))
+    _conv(sd, "xvector.tdnn.linear", p["tdnn_conv"])
+    bn("xvector.tdnn.nonlinear.batchnorm", ("tdnn_nl", "batchnorm"))
+    for key in (k for k in p if re.fullmatch(r"block\d+_tdnnd\d+", k)):
+        b, layer = key[len("block"):].split("_tdnnd")
+        name = f"xvector.block{b}.tdnnd{layer}"
+        bn(f"{name}.nonlinear1.batchnorm", (key, "nonlinear1", "batchnorm"))
+        _conv(sd, f"{name}.linear1", p[key]["linear1"])
+        bn(f"{name}.nonlinear2.batchnorm", (key, "nonlinear2", "batchnorm"))
+        for conv in ("linear_local", "linear1", "linear2"):
+            _conv(sd, f"{name}.cam_layer.{conv}", p[key]["cam_layer"][conv])
+    for i in sorted(int(m.group(1)) for k in p if (m := re.fullmatch(r"transit(\d+)_conv", k))):
+        bn(f"xvector.transit{i}.nonlinear.batchnorm", (f"transit{i}_nl", "batchnorm"))
+        _conv(sd, f"xvector.transit{i}.linear", p[f"transit{i}_conv"])
+    bn("xvector.out_nonlinear.batchnorm", ("out_nonlinear", "batchnorm"))
+    sd["xvector.dense.linear.weight"] = _t(np.asarray(p["dense_linear"]["kernel"]).T[:, :, None])
+    bn("xvector.dense.nonlinear.batchnorm", ("dense_nl", "batchnorm"))
+    return sd
+
+
+def speaker_embedding_state_from_jax(variables: dict) -> dict:
+    """models/speaker.py SpeakerEmbedding (or SpeakerEmbeddingWoPostEnc)
+    {'params', 'batch_stats'} -> port (and reference checkpoint) state_dict;
+    the inverse of the JAX package's import_speaker_embedding_torch."""
+    p = variables["params"]
+    camp = campplus_state_from_jax({"params": p["speaker_encoder"],
+                                    "batch_stats": variables["batch_stats"]["speaker_encoder"]})
+    sd = {f"speaker_encoder.{k}": v for k, v in camp.items()}
+    if "enc_q_pre" in p:
+        _posterior(sd, "enc_q", p)
+    st, pre = p["style_encoder"], "style_encoder."
+    _dense(sd, pre + "in_fc.fc", st["in_fc"])
+    _dense(sd, pre + "fc.fc", st["fc"])
+    for i in _indices(st, "attn_"):
+        _dense(sd, f"{pre}spectral_layers.{i}.0.fc", st[f"spectral_{i}_0"])
+        _dense(sd, f"{pre}spectral_layers.{i}.3.fc", st[f"spectral_{i}_1"])
+        for g in (0, 1):
+            _conv(sd, f"{pre}temporal_layers.{i}.{g}.conv1.conv", st[f"glu_{i}_{g}"]["conv1"])
+        for lin in ("w_qs", "w_ks", "w_vs", "fc"):
+            _dense(sd, f"{pre}attn_layers.{i}.{lin}", st[f"attn_{i}"][lin])
+    gst = p["gst"]
+    for i in _indices(gst, "embed_"):
+        sd[f"gst.embeds.{i}"] = _t(gst[f"embed_{i}"])
+        for lin in ("W_query", "W_key", "W_value"):
+            _dense(sd, f"gst.attentions.{i}.{lin}", gst[f"attention_{i}"][lin])
+    if "speaker_adapter" in p:
+        _dense(sd, "speaker_adapter.style_fuser", p["speaker_adapter"])
+    return sd
+
+
+def with_spk_state_from_jax(variables: dict) -> dict:
+    """models/llm_v1_phoneme.py TransformerLMPhonemeWithSpk {'params',
+    'batch_stats'} -> port state_dict (`lm.*`, `speaker_embed.*`)."""
+    p = variables["params"]
+    sd = {f"lm.{k}": v for k, v in v1_phoneme_lm_state_from_jax(p["lm"]).items()}
+    spk = speaker_embedding_state_from_jax({
+        "params": p["speaker_embed"],
+        "batch_stats": variables["batch_stats"]["speaker_embed"]})
+    sd.update((f"speaker_embed.{k}", v) for k, v in spk.items())
     return sd

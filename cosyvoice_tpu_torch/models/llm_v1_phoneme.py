@@ -10,8 +10,15 @@ the raw, un-normalised speaker vector enters every layer through its
 seq_len = 3 + pho_len + speech_len.  Decode is the v1 decode
 (lm_prefill_stream_v1 / lm_decode_chunk_v1): EOS masked at the first step
 only, no min_len, the fed-back id clamped to eos - 1 before the embedding
-lookup.  TransformerLMPhonemeWithSpk (it needs models/speaker.py), the
-SpecAugment helper and the training loss are not ported.
+lookup.
+
+TransformerLMPhonemeWithSpk is the LM beside the SpeakerEmbedding it was
+co-trained with (`lm`, `speaker_embed`), for inference: `encode_speaker`
+gives the speaker vector from fbank and linear-spectrum features, which
+v1_phoneme_generate(model.lm, ...) decodes with.  Its training forward (the
+VICReg regularizer between a clean and a SpecAugment'ed speaker pass), the
+SpecAugment helper and the training losses are not ported: they come with
+training.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 
 from cosyvoice_tpu_torch.models.llm import TransformerLM, TransformerLMConfig, lm_generate_v1
 from cosyvoice_tpu_torch.models.llm_phoneme import PhonemeEmbedConfig, PhonemeEmbedding
+from cosyvoice_tpu_torch.models.speaker import SpeakerEmbedding, SpeakerEmbeddingConfig
 
 
 @dataclass(frozen=True)
@@ -64,3 +72,23 @@ def v1_phoneme_generate(model: TransformerLMPhoneme, pho_token, pho_len, prompt_
     not taken here.  Returns (tokens [1, max_steps], count [1])."""
     return lm_generate_v1(model, pho_token, pho_len, prompt_speech, prompt_speech_len,
                           embedding, max_len, gen, max_steps, cache_len)
+
+
+@dataclass(frozen=True)
+class WithSpkConfig:
+    lm: V1PhonemeLMConfig = field(default_factory=V1PhonemeLMConfig)
+    spk: SpeakerEmbeddingConfig = field(default_factory=SpeakerEmbeddingConfig)
+
+
+class TransformerLMPhonemeWithSpk(torch.nn.Module):
+    def __init__(self, cfg: WithSpkConfig = WithSpkConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.lm = TransformerLMPhoneme(cfg.lm)
+        self.speaker_embed = SpeakerEmbedding(cfg.spk)
+
+    def encode_speaker(self, fbank, spec, spec_len, noise: Optional[torch.Tensor] = None,
+                       gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(fbank [B, Tf, 80], spec [B, Ts, 513], spec_len [B]) -> the speaker
+        vector [B, spk.speaker_emb_dim] (SpeakerEmbedding.forward)."""
+        return self.speaker_embed(fbank, spec, spec_len, noise=noise, gen=gen)

@@ -1,7 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package (nor
-`transformers` / `tokenizers` / `tiktoken`: it reads tokenizer.json and
-the v1 ranks file itself), and its entry points do not fall back to the
-CPU unless asked to."""
+"""The port (and chip_smoke.py) stands alone: it imports neither JAX nor
+the JAX package (nor `transformers` / `tokenizers` / `tiktoken`: it reads
+tokenizer.json and the v1 ranks file itself), and its entry points do not
+fall back to the CPU unless asked to."""
 import subprocess
 import sys
 from pathlib import Path
@@ -33,6 +33,10 @@ import cosyvoice_tpu_torch.ops.sampling, cosyvoice_tpu_torch.nn.norm
 import cosyvoice_tpu_torch.models.llm_phoneme, cosyvoice_tpu_torch.models.llm_v1_phoneme
 import cosyvoice_tpu_torch.tokenizer.phoneme, cosyvoice_tpu_torch.tokenizer.phoneme_frontend
 import cosyvoice_tpu_torch.tokenizer.polyphone
+import cosyvoice_tpu_torch.models.vits, cosyvoice_tpu_torch.models.speaker
+import cosyvoice_tpu_torch.ops.splines, cosyvoice_tpu_torch.bin.extract_speaker_vec
+from cosyvoice_tpu_torch.models.llm_v1_phoneme import TransformerLMPhonemeWithSpk
+import chip_smoke
 from cosyvoice_tpu_torch.runtime.api import CosyVoice
 from cosyvoice_tpu_torch.runtime.model import CosyVoiceV1Model
 from cosyvoice_tpu_torch.tokenizer.text import WhisperTiktokenTokenizer
@@ -165,3 +169,32 @@ def test_phoneme_engine_raises_without_gpu_and_runs_on_cpu_when_asked():
                      min_len=4, max_len=4)
     (tokens,) = engine.generate([req])
     assert len(tokens) <= 4 and (tokens < U.SPEECH_VOCAB).all()
+
+
+def test_vits_and_speaker_loaders_raise_without_gpu_and_run_on_cpu_when_asked():
+    if torch.cuda.is_available():
+        pytest.skip("this check is for hosts without a GPU")
+    from cosyvoice_tpu_torch.models.campplus import CAMPPlusConfig
+    from cosyvoice_tpu_torch.models.speaker import (SpeakerEmbeddingConfig,
+                                                    load_speaker_embedding, speaker_embed)
+    from cosyvoice_tpu_torch.models.vits import VitsConfig, load_vits
+    import torch_port_util as U
+
+    vcfg = VitsConfig(n_vocab=30, spec_channels=9, inter_channels=8, hidden_channels=8,
+                      filter_channels=8, n_heads=2, n_layers=1, resblock_kernel_sizes=(3,),
+                      resblock_dilation_sizes=((1,),), upsample_rates=(2,),
+                      upsample_initial_channel=8, upsample_kernel_sizes=(4,), gin_channels=4)
+    scfg = SpeakerEmbeddingConfig(spec_channels=33, inter_channels=8, hidden_channels=8,
+                                  speaker_emb_dim=8, hop_length=48, filter_length=64,
+                                  campplus=CAMPPlusConfig(**U.CAMP), style_hidden=8,
+                                  style_layers=1, gst_tokens=4, gst_heads=2, gst_layers=1)
+    for load, cfg in ((load_vits, vcfg), (load_speaker_embedding, scfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            load(cfg)
+    wav = load_vits(vcfg, device="cpu").inference(
+        torch.zeros(1, 5, dtype=torch.long), torch.tensor([5]), torch.zeros(1, 4),
+        gen=torch.Generator().manual_seed(0))
+    assert wav.shape == (1, 10)
+    vec = speaker_embed(load_speaker_embedding(scfg, device="cpu"), np.zeros(4800, np.float32),
+                        gen=torch.Generator().manual_seed(0))
+    assert vec.shape == (8,) and np.isfinite(vec).all()

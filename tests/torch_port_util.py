@@ -250,3 +250,34 @@ def tokenizer_dir(path, form: str) -> str:
     (path / "tokenizer_config.json").write_text(json.dumps(
         {"tokenizer_class": "PreTrainedTokenizerFast", "model_max_length": 512}))
     return str(path)
+
+
+def seeded_state(module: torch.nn.Module, seed: int) -> dict:
+    """A state dict for `module` under its (reference checkpoint) names, drawn
+    with numpy: norm scales and weight-norm gains 1 + 0.2 N, biases 0.05 N,
+    embedding tables N, BatchNorm running means 0.1 N and variances
+    0.75 + 0.5 U, other tensors N / sqrt(their size a leading row);
+    BatchNorm counters kept."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, v in module.state_dict().items():
+        leaf, shape = name.rsplit(".", 1)[-1], tuple(v.shape)
+        z = rng.standard_normal(shape).astype(np.float32)
+        if leaf == "num_batches_tracked":
+            out[name] = v.clone()
+            continue
+        if leaf == "running_var":
+            a = 0.75 + 0.5 * rng.random(shape).astype(np.float32)
+        elif leaf == "running_mean":
+            a = 0.1 * z
+        elif leaf in ("gamma", "weight_g") or (leaf == "weight" and len(shape) == 1):
+            a = 1.0 + 0.2 * z
+        elif leaf in ("bias", "beta"):
+            a = 0.05 * z
+        elif leaf == "weight" and isinstance(module.get_submodule(name.rsplit(".", 1)[0]),
+                                             torch.nn.Embedding):
+            a = z
+        else:
+            a = z / np.sqrt(max(int(np.prod(shape[1:])), 1))
+        out[name] = torch.from_numpy(np.asarray(a, np.float32))
+    return out
