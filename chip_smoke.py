@@ -29,7 +29,15 @@ Phases, each printing JSON lines:
   7. int4    - one full-width zero-shot request with the LM quantized to
      packed int4 (group 128) from the same seeded bf16 weights: latency,
      RTF, LM ms/token, K5 launches (must be > 0), a finite waveform, and
-     the teacher-forced argmax agreement with the bf16 LM;
+     the teacher-forced argmax agreement with the bf16 LM; then the same
+     weights quantized to int4xla (nibble values, group 128, PyTorch ops)
+     without and with AWQ (calibrated by collect_act_stats on one seeded
+     request): 200 greedy steps each (ms/step, K1 launches exactly 24 x
+     199, no K5), peak memory, the teacher-forced agreement with the bf16
+     LM and the device time of a step's 168 projections at one row
+     (dev_time; beside bf16's, int8's and int4's); and the small stack's
+     LM in int4xla, fp32, card against CPU (logits within 2e-5, 40 greedy
+     tokens equal), without and with AWQ;
   8. batched - BatchedSynthesizer.synthesize_batch over 8 zero-shot requests
      (the main path's weights and prompt, decode caps spread over 100-200
      tokens) with the estimator's fused_block on: one warm-up batch, then
@@ -144,7 +152,17 @@ Phases, each printing JSON lines:
      prompt's vector, the phoneme phase's full-width Src2 LM (200 greedy
      tokens on K1), VITS with g = the vector: speaker ms, LM ms a token,
      VITS s, total, RTF, launches (K1 must be > 0);
- 18. timing  - at the main path's shapes: each kernel against its plain
+ 18. multicode - the multi-codebook phoneme LM: (a) a small fp32 one on
+     the card against the CPU (greedy delayed codes, steps and done flags
+     of two ragged rows equal); (b) examples/tts_vc/cosyvoice2/conf/
+     cosyvoice2_multicode.yaml built through the port's config.py (the
+     Qwen2-0.5B body, the 6 x 1024 phoneme conformer, 4 fusion layers, 6
+     codebooks of 1002 ids) on seeded weights in bf16 over the packed
+     decode cache: 40 phonemes + 20 text ids, a 512-d speaker vector, a
+     3 s prompt of 120 code rows, 200 greedy steps at B=1, then 4 ragged
+     rows: prefix ms, ms a step, the reverted [B, 195, 6] shape, peak
+     memory, K1 launches (exactly 24 x 199 a call, no other kernel);
+ 19. timing  - at the main path's shapes: each kernel against its plain
      version on the same inputs, then the kernel, the plain version and the
      one PyTorch call that computes the same function, timed (CUDA events);
      K1 also at the engine's shape (B = 8, cache 384, per-row frontiers)
@@ -176,8 +194,9 @@ shape (k2_dev_ms); every row adds launches_continuous, its launches in the
 continuous phase's windowed and incremental runs, launches_checkpoint, its
 launches in the checkpoint phase's int8 and int4 requests, launches_v1,
 its launches in the v1 phase's four requests, launches_phoneme, its
-launches in the phoneme phase's three full-width runs, and launches_lam,
-its launches in the lam phase's chain; the K2 and K3 rows
+launches in the phoneme phase's three full-width runs, launches_lam, its
+launches in the lam phase's chain, and launches_multicode, its launches
+in the multicode phase's B=1 and B=4 decodes; the K2 and K3 rows
 add v1_shapes, their times at the v1 estimator's two levels.  The line
 before the card's line gives the whole run's seconds.
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero.
@@ -914,11 +933,15 @@ def fused_step_phase(llm, prompt, K1, K6, smi: str, n: int = 200) -> dict:
 
 
 @torch.no_grad()
-def int4_phase(res_main: dict, K5, smi: str) -> dict:
+def int4_phase(res_main: dict, K1, K5, smi: str) -> dict:
     """One full-width zero-shot request (the main path's first) with the LM
     quantized to packed int4 at group 128 from the same seeded bf16 weights;
     then the teacher-forced argmax agreement of the int4 LM with the bf16 LM
-    over the request's generated tokens."""
+    over the request's generated tokens.  Then int4xla (PyTorch ops, no
+    TPU kernel; decode attention on K1) from the same weights, without and
+    with AWQ: int4xla_small_checks, and int4xla_run for each (gates: tokens
+    equal and logits close on the small stack; INT4XLA_TOKENS steps, K1
+    exactly 24 x (steps - 1), no K5 launch at full width)."""
     from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LM
     from cosyvoice_tpu_torch.models.qwen2 import causal_prefill_bias
     from cosyvoice_tpu_torch.runtime.api import CosyVoice2
@@ -976,16 +999,159 @@ def int4_phase(res_main: dict, K5, smi: str) -> dict:
         # the predictions of the n_tok generated tokens
         return m.decode_logits(h)[0, T - n_tok - 1:T - 1].argmax(-1)
 
-    agree = float((tf_argmax(llm4) == tf_argmax(fp)).float().mean()) if n_tok else 0.0
+    want = tf_argmax(fp)
+    agree = float((tf_argmax(llm4) == want).float().mean()) if n_tok else 0.0
+    # the device time of one decode step's 168 projections at one row, by
+    # weight format (int8: the main path's LM)
+    proj = {name: dev_time(projection_step(m))
+            for name, m in (("bf16", fp), ("int8", res_main["stack"][0]), ("int4", llm4))}
+    del model, cv, llm4
+    torch.cuda.empty_cache()
+    xla = {"small_fp32": int4xla_small_checks(),
+           **{name: int4xla_run(fp, awq, K1, K5, tf_argmax, want)
+              for name, awq in (("plain", False), ("awq", True))}}
     res = {"phase": "int4", "card": smi, "speech_tokens": n_tok, "wav_samples": len(wav),
            "latency_s": latency, "rtf": latency / max(len(wav) / 24000.0, 1e-9),
            "lm_s": lm_s[0], "lm_ms_per_token": lm_s[0] * 1e3 / max(n_tok, 1),
            "k5_launches": k5_launches, "wav_finite": bool(np.isfinite(wav).all()),
-           "teacher_forced_agreement_vs_bf16": agree}
+           "teacher_forced_agreement_vs_bf16": agree, "projections_step_dev": proj,
+           "int4xla": xla}
     emit(res)
     if not k5_launches or not res["wav_finite"] or n_tok == 0 \
             or wav.shape != (n_tok * 2 * 480,):
         raise AssertionError(f"int4 request failed: {res}")
+    small = xla["small_fp32"]
+    gates = [small[k]["tokens_equal"] and small[k]["logits_close"] and small[k]["tokens"] > 0
+             for k in ("plain", "awq")]
+    gates += [xla[k]["steps"] == INT4XLA_TOKENS and xla[k]["k1_launches"] == xla[k][
+        "k1_launches_expected"] and xla[k]["k5_launches"] == 0 for k in ("plain", "awq")]
+    if not all(gates):
+        raise AssertionError(f"int4xla failed: {gates} {xla}")
+    return res
+
+
+# the int4 phase's int4xla runs: greedy tokens a decode, the group size
+INT4XLA_TOKENS, INT4XLA_GROUP = 200, 128
+
+
+def projection_step(lm):
+    """A callable that runs every QDense of lm's Qwen2 body once on one row
+    of its input width (a decode step's projections, attention left out)."""
+    from cosyvoice_tpu_torch.models.qwen2 import QDense
+
+    dtype = lm.llm_embedding.weight.dtype
+    width = {"int4xla": lambda w: w.shape[0], "int4": lambda w: 2 * w.shape[0]}
+    calls = [(m, torch.randn(1, width.get(m.quant, lambda w: w.shape[1])(m.weight),
+                             device="cuda", dtype=dtype))
+             for m in lm.body.modules() if isinstance(m, QDense)]
+    return lambda: [m(x) for m, x in calls]
+
+
+def int4xla_calibration(device: str, vocab: int, speech: int, seed: int) -> tuple:
+    """One seeded calibration request (20 text ids, a 75-token prompt) on
+    `device` -> collect_act_stats's arguments."""
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.as_tensor(np.asarray(x), device=device)
+    return t(rng.integers(0, vocab, (1, 20))), t([20]), t(rng.integers(0, speech, (1, 75))), t([75])
+
+
+def int4xla_lm(fp, act_amax, device: str, group: int = INT4XLA_GROUP):
+    """`fp`'s weights quantized to int4xla (AWQ first with `act_amax`) in a
+    Qwen2LM of fp's dtype on `device`, greedy, over the packed decode
+    cache."""
+    from cosyvoice_tpu_torch.models.llm import Qwen2LM, SamplingConfig
+    from cosyvoice_tpu_torch.utils.quant import quantize_qwen_int4xla
+
+    cfg = fp.cfg
+    cfg = dataclasses.replace(cfg, sampling=SamplingConfig(method="greedy"),
+                              qwen=dataclasses.replace(cfg.qwen, quant="int4xla",
+                                                       quant_group=group,
+                                                       fused_cache_update=True))
+    state = quantize_qwen_int4xla(fp.state_dict(), group_size=group, act_amax=act_amax)
+    dtype = fp.llm_embedding.weight.dtype
+    with torch.device(device):
+        lm = Qwen2LM(cfg).to(dtype)
+    lm.load_state_dict(state, strict=True)
+    return lm.eval()
+
+
+@torch.no_grad()
+def int4xla_small_checks() -> dict:
+    """The small stack's LM (small_stack) quantized to int4xla at group 64,
+    without and with AWQ (calibrated on the CPU), in fp32 on the card
+    against the CPU: teacher-forced logits within 2e-5 and 40 greedy
+    tokens equal."""
+    from cosyvoice_tpu_torch.models.llm import collect_act_stats, lm_generate
+    from cosyvoice_tpu_torch.models.qwen2 import causal_prefill_bias
+
+    fp = small_stack("cpu").llm
+    stats = collect_act_stats(fp, *int4xla_calibration("cpu", 300, 64, 61))
+    rng = np.random.default_rng(62)
+    text, psp = rng.integers(0, 300, (1, 12)), rng.integers(0, 64, (1, 30))
+    out = {}
+    for name, amax in (("plain", None), ("awq", stats)):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            lm = int4xla_lm(fp, amax, dev, group=64)
+            t = lambda x: torch.as_tensor(np.asarray(x), device=dev)
+            emb, seq_len = lm.prefill_embeds(t(text), t([12]), t(psp), t([30]))
+            T = emb.shape[1]
+            h, _ = lm.forward_hidden(emb, torch.arange(T, device=dev)[None],
+                                     causal_prefill_bias(T, T, seq_len, 1, emb.dtype, dev))
+            toks, cnt = lm_generate(lm, t(text), t([12]), t(psp[:, :6]), t([6]), t([40]),
+                                    t([40]), None, 40, 128)
+            got[dev] = (lm.decode_logits(h).cpu(), toks[0, :int(cnt[0])].cpu())
+        (lg, tg), (lc, tc) = got["cuda"], got["cpu"]
+        out[name] = dict(logits_max_abs_err=float((lg - lc).abs().max()),
+                         logits_close=bool(torch.allclose(lg, lc, atol=2e-5, rtol=2e-5)),
+                         tokens=len(tg), tokens_equal=bool(torch.equal(tg, tc)))
+    return out
+
+
+def int4xla_run(fp, awq: bool, K1, K5, tf_argmax, want) -> dict:
+    """The main path's bf16 LM (fp) quantized to int4xla, with AWQ
+    calibrated by collect_act_stats on one seeded request or without:
+    INT4XLA_TOKENS greedy decode steps (EOS masked throughout; an id past
+    EOS is a step that emits no token) after a short warm-up, ms a step, K1
+    launches, peak memory, and the teacher-forced argmax agreement with the
+    bf16 LM (tf_argmax over the int4 request's tokens, want its bf16
+    result)."""
+    from cosyvoice_tpu_torch.models.llm import (collect_act_stats, lm_decode_chunk,
+                                                lm_generate, lm_prefill_stream)
+
+    t0 = time.perf_counter()
+    stats = None
+    if awq:
+        stats = collect_act_stats(fp, *int4xla_calibration(
+            "cuda", fp.cfg.qwen.vocab_size, fp.cfg.speech_token_size, 63))
+    torch.cuda.reset_peak_memory_stats()
+    lm = int4xla_lm(fp, stats, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(64)
+    t = lambda x: torch.as_tensor(np.asarray(x), device="cuda")
+    args = (t(rng.integers(0, fp.cfg.qwen.vocab_size, (1, 20))), t([20]),
+            t(rng.integers(0, fp.cfg.speech_token_size, (1, 75))), t([75]))
+    n = INT4XLA_TOKENS
+    lm_generate(lm, *args, t([5]), t([5]), None, 5, 256)
+    K1.launches = K5.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = lm_decode_chunk(lm, lm_prefill_stream(lm, *args, t([n]), t([n]), None, n, 384),
+                            n).gen
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    agree = float((tf_argmax(lm) == want).float().mean())
+    proj = dev_time(projection_step(lm))
+    res = dict(awq=awq, group=INT4XLA_GROUP, setup_s=setup_s, steps=state.step,
+               projections_step_dev=proj,
+               tokens=int(state.count[0]), ms_per_step=decode_s * 1e3 / max(state.step, 1),
+               k1_launches=K1.launches,
+               k1_launches_expected=fp.cfg.qwen.num_layers * (state.step - 1),
+               k5_launches=K5.launches, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               teacher_forced_agreement_vs_bf16=agree)
+    del lm
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2976,6 +3142,179 @@ def lam_phase(kernels: dict, smi: str) -> dict:
     return res
 
 
+# the multicode phase: cosyvoice2_multicode.yaml's LM, built through the
+# port's config.py; B=1 requests of MC_TEXT text ids and MC_PHONEMES
+# phonemes with a 3 s prompt of MC_PROMPT aligned code rows (40 Hz) and a
+# 512-d speaker vector, MC_STEPS greedy steps; then MC_ROWS ragged rows
+MC_RECIPE = "cosyvoice2/conf/cosyvoice2_multicode.yaml"
+MC_STEPS, MC_TEXT, MC_PHONEMES, MC_PROMPT = 200, 20, 40, 120
+MC_ROWS = ((20, 40, 120), (16, 33, 100), (12, 26, 80), (8, 19, 60))   # text, phonemes, prompt
+
+
+def mc_small_lm(device: str):
+    """A small fp32 multi-code LM whose widths the kernels take (head_dim
+    64, the packed decode cache), greedy, its head biased away from EOS and
+    BOS; built on the CPU from one seed, so both devices hold the same
+    weights."""
+    from cosyvoice_tpu_torch.models.conformer import ConformerConfig
+    from cosyvoice_tpu_torch.models.llm import SamplingConfig
+    from cosyvoice_tpu_torch.models.llm_multicode import (MultiCodeLMConfig,
+                                                          Qwen2LMPhonemeMultiCode)
+    from cosyvoice_tpu_torch.models.llm_phoneme import PhonemeEmbedConfig
+    from cosyvoice_tpu_torch.models.qwen2 import Qwen2Config
+
+    torch.manual_seed(6)
+    llm = Qwen2LMPhonemeMultiCode(MultiCodeLMConfig(
+        128, 128, 64, 24, sampling=SamplingConfig(method="greedy"),
+        phoneme=PhonemeEmbedConfig(30, 64, 16, 32, 2, 16, 6, 16),
+        encoder=ConformerConfig(128, 4, 256, 1, 128), fusion_heads=2, fusion_ffn=256,
+        qwen=Qwen2Config(vocab_size=300, hidden_size=128, num_layers=2, num_heads=4,
+                         num_kv_heads=2, head_dim=64, intermediate_size=256,
+                         rope_theta=10000.0, fused_cache_update=True),
+        codebooknum=3, src_attn_layers=2))
+    with torch.no_grad():
+        C = llm.cfg.codebooknum
+        llm.ar_decoder.model.bias[llm.cfg.eos_id * C:] -= 8.0
+    return llm.to(device).eval()
+
+
+def mc_args(cfg, rows, rng, device: str) -> tuple:
+    """Ragged multi-code requests: rows of (text ids, phonemes, prompt code
+    rows) -> the padded tensors multicode_generate takes (speaker vectors of
+    cfg.spk_embed_dim)."""
+    B = len(rows)
+    Tt, Tp, Tc = (max(r[i] for r in rows) for i in range(3))
+    pho = np.zeros((B, Tp, 4), np.int64)
+    for b, (_, n, _) in enumerate(rows):
+        pho[b, :n] = pho_ids(rng, n, cfg.phoneme)
+    t = lambda x: torch.as_tensor(np.asarray(x), device=device)
+    return (t(rng.integers(0, cfg.qwen.vocab_size, (B, Tt))), t([r[0] for r in rows]), t(pho),
+            t([r[1] for r in rows]), t(rng.integers(0, cfg.speech_token_size,
+                                                    (B, Tc, cfg.codebooknum))),
+            t([r[2] for r in rows]),
+            t(rng.standard_normal((B, cfg.spk_embed_dim)).astype(np.float32)))
+
+
+def mc_small_checks() -> dict:
+    """The small fp32 multi-code LM on the card against the CPU: greedy
+    delayed codes, steps and done flags of two ragged rows, 40 steps."""
+    from cosyvoice_tpu_torch.models.llm_multicode import multicode_generate
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        lm = mc_small_lm(dev)
+        args = mc_args(lm.cfg, ((12, 16, 10), (7, 9, 4)), np.random.default_rng(33), dev)
+        out, n, done = multicode_generate(lm, *args, torch.tensor([40, 40], device=dev), None,
+                                          40, 128)
+        runs[dev] = (out.cpu().numpy(), n, done.cpu().numpy())
+    (og, ng, dg), (oc, nc, dc) = runs["cuda"], runs["cpu"]
+    return dict(steps=ng, codes_equal=bool(np.array_equal(og, oc)), steps_equal=ng == nc,
+                done_equal=bool(np.array_equal(dg, dc)))
+
+
+def mc_full_width_lm():
+    """cosyvoice2_multicode.yaml's LM through config.recipe_config (the
+    Qwen2-0.5B body, the 6 x 1024 phoneme conformer, 4 fusion layers, 6
+    codebooks of 1002 ids) on seeded fan-in-scaled weights in bf16, greedy,
+    over the packed decode cache (every one-token step on K1), its head
+    biased away from EOS and BOS so that every step emits codes."""
+    from cosyvoice_tpu_torch.config import recipe_config
+    from cosyvoice_tpu_torch.models.llm import SamplingConfig
+    from cosyvoice_tpu_torch.models.llm_multicode import Qwen2LMPhonemeMultiCode
+
+    cfg = recipe_config(MC_RECIPE, "llm")
+    cfg = dataclasses.replace(cfg, sampling=SamplingConfig(method="greedy"),
+                              qwen=dataclasses.replace(cfg.qwen, fused_cache_update=True))
+    with torch.device("cuda"):
+        llm = Qwen2LMPhonemeMultiCode(cfg)
+    rand_init_(llm, 12440)
+    llm.to(torch.bfloat16)
+    with torch.no_grad():
+        llm.ar_decoder.model.bias[cfg.eos_id * cfg.codebooknum:] = -30.0
+    return llm.eval()
+
+
+def mc_generate(llm, rows, K1, seed: int) -> dict:
+    """MC_STEPS greedy steps over `rows` after a one-step warm-up: the
+    prefix's milliseconds (the one-step call: phoneme encoder, fusion,
+    packing, the prefill and the first codes), milliseconds a later step,
+    the reverted matrix's shape, peak memory, K1 launches."""
+    from cosyvoice_tpu_torch.models.llm_multicode import multicode_generate
+    from cosyvoice_tpu_torch.ops.delay import revert_delay_pattern
+
+    args = mc_args(llm.cfg, rows, np.random.default_rng(seed), "cuda")
+    B = len(rows)
+    cache_len = -(-(3 + max(r[1] + r[2] for r in rows) + MC_STEPS) // 128) * 128
+    max_len = torch.full((B,), MC_STEPS, device="cuda")
+
+    def run(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = multicode_generate(llm, *args, max_len, None, steps, cache_len)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    run(1)
+    _, prefix_s = run(1)
+    torch.cuda.reset_peak_memory_stats()
+    K1.launches = 0
+    (out, n, done), total_s = run(MC_STEPS)
+    launches = K1.launches
+    rev = revert_delay_pattern(out[:, 1:n + 1])
+    codes = out[:, 1:n + 1]
+    return dict(rows=[list(r) for r in rows], steps=n, done=done.tolist(),
+                prefix_ms=prefix_s * 1e3,
+                ms_per_step=(total_s - prefix_s) * 1e3 / max(n - 1, 1), total_s=total_s,
+                reverted_shape=list(rev.shape),
+                codes_in_range=bool(((codes >= 0) & (codes < llm.cfg.speech_token_size)).all()),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                k1_launches=launches,
+                k1_launches_expected=llm.cfg.qwen.num_layers * (MC_STEPS - 1))
+
+
+@torch.no_grad()
+def multicode_phase(kernels: dict, smi: str) -> dict:
+    """The multi-code phoneme LM: (a) mc_small_checks; (b) at full width
+    (mc_full_width_lm) one B=1 request, then MC_ROWS ragged rows at B=4,
+    MC_STEPS greedy steps each (mc_generate).  Gates: the small stack's
+    codes, steps and done flags equal on card and CPU; every full-width run
+    takes MC_STEPS steps with no row done, reverts to [B, MC_STEPS - 5, 6]
+    codes in range, and launches K1 exactly 24 x (MC_STEPS - 1) times (one
+    launch a layer a step at any B) and no other kernel."""
+    t_phase = time.perf_counter()
+    small = mc_small_checks()
+    t0 = time.perf_counter()
+    llm = mc_full_width_lm()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    runs, launches = {}, {}
+    for name, rows, seed in (("b1", MC_ROWS[:1], 51), ("b4_ragged", MC_ROWS, 52)):
+        for mod in kernels.values():
+            mod.launches = 0
+        runs[name] = mc_generate(llm, rows, kernels["lm_decode_attention"], seed)
+        launches[name] = {k: mod.launches for k, mod in kernels.items()}
+    cfg = llm.cfg
+    del llm
+    torch.cuda.empty_cache()
+    res = {"phase": "multicode", "card": smi, "small_fp32": small,
+           "config": f"{MC_RECIPE} (config.recipe_config) bf16, greedy, packed cache",
+           "codebooks": cfg.codebooknum, "ids_a_codebook": cfg.max_id,
+           "fusion_layers": cfg.src_attn_layers, "setup_s": setup_s, "runs": runs,
+           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    gates = [small["codes_equal"], small["steps_equal"], small["done_equal"],
+             small["steps"] > 1]
+    for name, r in runs.items():
+        B = len(r["rows"])
+        gates += [r["steps"] == MC_STEPS, not any(r["done"]), r["codes_in_range"],
+                  r["reverted_shape"] == [B, MC_STEPS - cfg.codebooknum + 1, cfg.codebooknum],
+                  r["k1_launches"] == r["k1_launches_expected"],
+                  all(v == 0 for k, v in launches[name].items() if k != "lm_decode_attention")]
+    if not all(gates):
+        raise AssertionError(f"multicode phase failed: {gates} {res}")
+    return res
+
+
 def profile_request(run) -> None:
     """One more request under torch.profiler: device kernel time by name and
     the device's busy share of the wall time."""
@@ -3422,7 +3761,7 @@ def main() -> int:
     launches = dict(res["launches"])
     launches["lm_step"] = fused_step_phase(res["stack"][0], res["first_prompt"], K1, K6,
                                            smi)["k6_launches"]
-    launches["int4_matmul"] = int4_phase(res, K5, smi)["k5_launches"]
+    launches["int4_matmul"] = int4_phase(res, K1, K5, smi)["k5_launches"]
     batched = batched_phase(res, K1, K4, smi)
     launches["dit_block"] = batched["k4_launches"]
     k1_engine = engine_phase(res, K1, smi)["full_width_int8"]["k1_launches"]
@@ -3437,6 +3776,7 @@ def main() -> int:
     v1 = v1_phase(kernels, smi)
     pho = phoneme_phase(res, kernels, smi)
     lam = lam_phase(kernels, smi)
+    mc = multicode_phase(kernels, smi)
     flow = res["stack"][1]
     del res["stack"]
     rows = timing(K1, K2, K3, K4, K5, K6, K7, res["last_decode"], flow, batched["block_shape"])
@@ -3467,6 +3807,9 @@ def main() -> int:
             "v1_generate": pho["v1_generate"]["launches"][row["name"]]}
         # the lam phase's chain (speaker vector -> phoneme LM -> VITS)
         row["launches_lam"] = lam["chain"]["launches"][row["name"]]
+        # the multicode phase's full-width B=1 and B=4 decodes
+        row["launches_multicode"] = {run: mc["launches"][run][row["name"]]
+                                     for run in ("b1", "b4_ragged")}
         row.update(edge_max_abs_err=errs[row["name"]],
                    tolerance=tolerance.get(row["name"], CHECK_TOL[torch.bfloat16]),
                    kernel_ms=row["ms"])

@@ -1,13 +1,15 @@
 """JAX parameter trees -> the port's state_dicts (CosyVoice2's modules,
-CosyVoice v1's TransformerLM and MaskedDiffWithXvec, the phoneme LMs, VITS,
-CAMPPlus and the LAM speaker embedding).
+CosyVoice v1's TransformerLM and MaskedDiffWithXvec, the phoneme LMs and the
+multi-code LM, the conformer's options and front ends, the wenet decoders,
+VITS, CAMPPlus and the LAM speaker embedding).
 
 Each function takes a flax param tree (nested dicts of numpy or JAX arrays,
 with or without the top-level "params" key) and returns a state_dict that the
 port's module loads with `load_state_dict(strict=True)`.  Dense kernels
 [in, out] become weights [out, in]; int8 QDense leaves keep their int8
 kernel (transposed) and fp32 scale [out]; packed-int4 QDense leaves (kernel
-[in/2, out], scale [in/g, out]) keep the JAX layout unchanged; conv kernels
+[in/2, out], scale [in/g, out]) and int4xla ones (int8 nibble values
+[in, out], the same scales) keep the JAX layout unchanged; conv kernels
 [K, Cin, Cout] become [Cout, Cin, K]; weight-norm (g, v) pairs become
 weight_g / weight_v, and a weight-normed transposed conv (stored k-flipped,
 in forward-correlation form) becomes torch's [Cin, Cout, K], as does a
@@ -93,11 +95,40 @@ def lm_state_from_jax(params: dict) -> dict:
             _dense(sd, d + "mlp." + name, lp[name])
     sd["llm_embedding.weight"] = _t(p["llm_embedding"]["embedding"])
     sd["speech_embedding.weight"] = _t(p["speech_embedding"]["embedding"])
-    _dense(sd, "llm_decoder", p["llm_decoder"])
+    if "llm_decoder" in p:      # the multi-code LM's tree has none
+        _dense(sd, "llm_decoder", p["llm_decoder"])
     return sd
 
 
-def _conformer_layer(sd, name, p, norms=("norm_mha", "norm_ff")):
+def _moe(sd, name, p):
+    """MoEFFNLayer's stacked experts (w1 [E, D, H], b1, w2 [E, H, D], b2) ->
+    the reference's `experts.{e}.w_1` / `w_2` and the router `gate`."""
+    _dense(sd, f"{name}.gate", p["gate"])
+    for e in range(np.shape(p["w1"])[0]):
+        for w, b, lin in (("w1", "b1", "w_1"), ("w2", "b2", "w_2")):
+            sd[f"{name}.experts.{e}.{lin}.weight"] = _t(np.asarray(p[w])[e].T)
+            sd[f"{name}.experts.{e}.{lin}.bias"] = _t(np.asarray(p[b])[e])
+
+
+def _conv_module(sd, name, p, stats, batch_norm: bool):
+    """ConvolutionModule; with `batch_norm`, its norm's running statistics
+    from the `batch_stats` subtree `stats` (flax's initial 0 / 1 where it
+    has none)."""
+    for conv in ("pointwise_conv1", "depthwise_conv", "pointwise_conv2"):
+        _conv(sd, f"{name}.{conv}", p[conv])
+    _ln(sd, f"{name}.norm", p["norm"])
+    if batch_norm:
+        st = (stats or {}).get("norm", {})
+        c = np.shape(p["norm"]["scale"])[0]
+        sd[f"{name}.norm.running_mean"] = _t(st.get("mean", np.zeros(c, np.float32)))
+        sd[f"{name}.norm.running_var"] = _t(st.get("var", np.ones(c, np.float32)))
+        sd[f"{name}.norm.num_batches_tracked"] = torch.tensor(0)
+
+
+def _conformer_layer(sd, name, p, norms=("norm_mha", "norm_ff"), stats=None,
+                     batch_norm: bool = False):
+    """One encoder layer; `stats` its `batch_stats` subtree, `batch_norm`
+    whether its conv module's norm is a BatchNorm."""
     _ln(sd, f"{name}.{norms[0]}", p["norm_mha"])
     _ln(sd, f"{name}.{norms[1]}", p["norm_ff"])
     att = p["self_attn"]
@@ -105,10 +136,22 @@ def _conformer_layer(sd, name, p, norms=("norm_mha", "norm_ff")):
         _dense(sd, f"{name}.self_attn.{lin}", att[lin])
     sd[f"{name}.self_attn.pos_bias_u"] = _t(att["pos_bias_u"])
     sd[f"{name}.self_attn.pos_bias_v"] = _t(att["pos_bias_v"])
-    _dense(sd, f"{name}.feed_forward.w_1", p["ff"]["w_1"])
-    _dense(sd, f"{name}.feed_forward.w_2", p["ff"]["w_2"])
+    if "gate" in p["ff"]:       # ffn_type="moe"
+        _moe(sd, f"{name}.feed_forward", p["ff"])
+    else:
+        _dense(sd, f"{name}.feed_forward.w_1", p["ff"]["w_1"])
+        _dense(sd, f"{name}.feed_forward.w_2", p["ff"]["w_2"])
     if "spk_linear" in p:       # a speaker-adaptive layer (ConformerConfig.spk_adapt)
         _dense(sd, f"{name}.spk_linear", p["spk_linear"])
+    if "ff_macaron" in p:       # macaron_style
+        _ln(sd, f"{name}.norm_ff_macaron", p["norm_ff_macaron"])
+        _dense(sd, f"{name}.feed_forward_macaron.w_1", p["ff_macaron"]["w_1"])
+        _dense(sd, f"{name}.feed_forward_macaron.w_2", p["ff_macaron"]["w_2"])
+    if "conv_module" in p:      # use_cnn_module
+        _ln(sd, f"{name}.norm_conv", p["norm_conv"])
+        _ln(sd, f"{name}.norm_final", p["norm_final"])
+        _conv_module(sd, f"{name}.conv_module", p["conv_module"],
+                     (stats or {}).get("conv_module"), batch_norm)
 
 
 def _encoder(sd, pre, p):
@@ -124,7 +167,8 @@ def _encoder(sd, pre, p):
             _conformer_layer(sd, f"{pre}{group}.{i}", p[f"{group}_{i}"])
 
 
-def _conformer_encoder(sd, pre, p, transformer_layer: bool = False):
+def _conformer_encoder(sd, pre, p, transformer_layer: bool = False, stats=None,
+                       batch_norm: bool = False):
     """models/conformer.py ConformerEncoder (JAX `layers_{i}`) -> the
     reference's `encoders.{i}` (a TransformerEncoder's norms are norm1/norm2)."""
     _dense(sd, f"{pre}embed.out.0", p["embed"]["linear"])
@@ -132,7 +176,8 @@ def _conformer_encoder(sd, pre, p, transformer_layer: bool = False):
     _ln(sd, f"{pre}after_norm", p["after_norm"])
     norms = ("norm1", "norm2") if transformer_layer else ("norm_mha", "norm_ff")
     for i in _indices(p, "layers_"):
-        _conformer_layer(sd, f"{pre}encoders.{i}", p[f"layers_{i}"], norms)
+        _conformer_layer(sd, f"{pre}encoders.{i}", p[f"layers_{i}"], norms,
+                         (stats or {}).get(f"layers_{i}"), batch_norm)
 
 
 def _estimator(sd, pre, p, causal: bool = True):
@@ -195,10 +240,65 @@ def estimator_state_from_jax(params: dict, causal: bool = True) -> dict:
     return sd
 
 
-def conformer_encoder_state_from_jax(params: dict, transformer_layer: bool = False) -> dict:
-    """models/conformer.py ConformerEncoder params -> port state_dict."""
+def conformer_encoder_state_from_jax(params: dict, transformer_layer: bool = False,
+                                     batch_norm: bool = False) -> dict:
+    """models/conformer.py ConformerEncoder variables -> port state_dict;
+    with `batch_norm` (cnn_norm="batch_norm") the conv modules' running
+    statistics come from the variables' `batch_stats`."""
     sd: dict = {}
-    _conformer_encoder(sd, "", _root(params), transformer_layer)
+    _conformer_encoder(sd, "", _root(params), transformer_layer, params.get("batch_stats"),
+                       batch_norm)
+    return sd
+
+
+def moe_state_from_jax(params: dict) -> dict:
+    """models/conformer.py MoEFFNLayer params -> port state_dict."""
+    sd: dict = {}
+    _moe(sd, "", _root(params))
+    return {k[1:]: v for k, v in sd.items()}
+
+
+def conv_module_state_from_jax(params: dict, batch_norm: bool = False) -> dict:
+    """models/conformer.py ConvolutionModule variables -> port state_dict."""
+    sd: dict = {}
+    _conv_module(sd, "", _root(params), params.get("batch_stats"), batch_norm)
+    return {k[1:]: v for k, v in sd.items()}
+
+
+def subsampling_state_from_jax(params: dict, rate: int) -> dict:
+    """models/conformer.py Conv1dSubsampling2 (rate 2) / Conv2dSubsampling4,
+    6, 8 params -> port state_dict: conv{i} -> conv.{2i}, out -> out.0
+    (rate 4) or linear (rates 6, 8)."""
+    p, sd = _root(params), {}
+    for i in _indices(p, "conv"):
+        k = np.asarray(p[f"conv{i}"]["kernel"])       # [k, Cin, Cout] / [kh, kw, Cin, Cout]
+        sd[f"conv.{2 * i}.weight"] = _t(k.transpose(2, 1, 0) if k.ndim == 3
+                                        else k.transpose(3, 2, 0, 1))
+        sd[f"conv.{2 * i}.bias"] = _t(p[f"conv{i}"]["bias"])
+    if "out" in p:
+        _dense(sd, "out.0" if rate == 4 else "linear", p["out"])
+    return sd
+
+
+def transformer_decoder_state_from_jax(params: dict, prefix: str = "") -> dict:
+    """models/decoder.py TransformerDecoder params -> port state_dict (the
+    reference's names) under `prefix`."""
+    p = _root(params)
+    sd = {f"{prefix}embed.0.weight": _t(p["embed"]["embedding"])}
+    _ln(sd, f"{prefix}after_norm", p["after_norm"])
+    if "output_layer" in p:
+        _dense(sd, f"{prefix}output_layer", p["output_layer"])
+    for i in _indices(p, "decoders_"):
+        _fusion_layer(sd, f"{prefix}decoders.{i}.", p[f"decoders_{i}"])
+    return sd
+
+
+def bi_transformer_decoder_state_from_jax(params: dict) -> dict:
+    """models/decoder.py BiTransformerDecoder params -> port state_dict."""
+    p = _root(params)
+    sd = transformer_decoder_state_from_jax(p["left_decoder"], "left_decoder.")
+    if "right_decoder" in p:
+        sd.update(transformer_decoder_state_from_jax(p["right_decoder"], "right_decoder."))
     return sd
 
 
@@ -246,14 +346,36 @@ def phoneme_lm_state_from_jax(params: dict) -> dict:
     for lin in ("text_encoder_affine_layer", "spk_embed_affine_layer"):
         _dense(sd, lin, p[lin])
     if "src_attention" in p:
-        f, pre = p["src_attention"], "src_attention.0."
-        for norm in ("norm1", "norm2", "norm3"):
+        _fusion_layer(sd, "src_attention.0.", p["src_attention"])
+    return sd
+
+
+def _fusion_layer(sd, pre, f):
+    """A fusion DecoderLayer (models/llm_phoneme.py): its norms, two
+    attentions and ReLU FFN (JAX ff_w1 / ff_w2 -> feed_forward.w_1 / w_2)."""
+    for norm in ("norm1", "norm2", "norm3"):
+        if norm in f:
             _ln(sd, pre + norm, f[norm])
-        for att in ("self_attn", "src_attn"):
+    for att in ("self_attn", "src_attn"):
+        if att in f:            # a decoder layer without src_attention has none
             for lin in ("linear_q", "linear_k", "linear_v", "linear_out"):
                 _dense(sd, f"{pre}{att}.{lin}", f[att][lin])
-        _dense(sd, pre + "feed_forward.w_1", f["ff_w1"])
-        _dense(sd, pre + "feed_forward.w_2", f["ff_w2"])
+    _dense(sd, pre + "feed_forward.w_1", f["ff_w1"])
+    _dense(sd, pre + "feed_forward.w_2", f["ff_w2"])
+
+
+def multicode_lm_state_from_jax(params: dict) -> dict:
+    """models/llm_multicode.py Qwen2LMPhonemeMultiCode params -> port
+    state_dict: the phoneme LM's pieces, the fusion layers
+    (`src_attention_{i}`), the code tables (`code_embed_{i}`) and the
+    ARDecoder head."""
+    p = _root(params)
+    sd = phoneme_lm_state_from_jax(p)
+    for i in _indices(p, "src_attention_"):
+        _fusion_layer(sd, f"src_attention.{i}.", p[f"src_attention_{i}"])
+    for i in _indices(p, "code_embed_"):
+        sd[f"code_embeddings.{i}.weight"] = _t(p[f"code_embed_{i}"]["embedding"])
+    _dense(sd, "ar_decoder.model", p["ar_decoder"]["model"])
     return sd
 
 
@@ -441,8 +563,8 @@ def campplus_state_from_jax(variables: dict) -> dict:
 
     def bn(name, path):
         q, st = p, s
-        for k in path + ("bn",):
-            q, st = q[k], st[k]
+        for k in path + ("bn",):     # an init tree has no entry for an affine-free BN
+            q, st = q.get(k, {}), st[k]
         if "scale" in q:
             sd[f"{name}.weight"] = _t(q["scale"])
             sd[f"{name}.bias"] = _t(q["bias"])

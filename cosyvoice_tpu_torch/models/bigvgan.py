@@ -58,19 +58,15 @@ class BigVGANConfig:
     use_pallas_act: bool = False
 
 
-# examples/tts_vc/cosyvoice2/conf/cosyvoice2_bigvgan_tts.yaml (the token->wav
-# recipe: 25 Hz tokens, two 2x conformer encoders, 240x to 24 kHz); the
-# conformers' dropout has no inference counterpart here
-RECIPE = BigVGANConfig(
-    vocab_size=6561, input_size=512, output_size=1024, mel_bin=80, resblock="1",
-    upsample_rates=(8, 5, 3, 2), upsample_kernel_sizes=(16, 11, 7, 2),
-    upsample_initial_channel=1536, resblock_kernel_sizes=(3, 7, 11),
-    resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)), speaker_embedding_dim=512,
-    cond_in_each_up_layer=True, activation="snakebeta", snake_logscale=True,
-    encoder1=ConformerConfig(dim=512, heads=8, linear_units=2048, num_blocks=3,
-                             input_size=512),
-    encoder2=ConformerConfig(dim=512, heads=8, linear_units=2048, num_blocks=3,
-                             input_size=512))
+def __getattr__(name: str):
+    """RECIPE: examples/tts_vc/cosyvoice2/conf/cosyvoice2_bigvgan_tts.yaml
+    (the token->wav recipe: 25 Hz tokens, two 2x conformer encoders, 240x to
+    24 kHz), read from the recipe by config.recipe_config on first use."""
+    if name == "RECIPE":
+        from cosyvoice_tpu_torch.config import recipe_config
+
+        return recipe_config("cosyvoice2/conf/cosyvoice2_bigvgan_tts.yaml", "bigvgan")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _get_padding(kernel_size: int, dilation: int = 1) -> int:
@@ -217,11 +213,12 @@ class BigVGAN(nn.Module):
         return torch.tanh(x[..., 0]), mel
 
 
-def load_bigvgan(cfg: BigVGANConfig = RECIPE, state_dict: Optional[dict] = None,
+def load_bigvgan(cfg: Optional[BigVGANConfig] = None, state_dict: Optional[dict] = None,
                  device=None) -> BigVGAN:
-    """A BigVGAN in eval mode on `device` (default: the GPU), with a
-    reference-named state_dict loaded strictly when one is given."""
-    model = BigVGAN(cfg)
+    """A BigVGAN (default: RECIPE) in eval mode on `device` (default: the
+    GPU), with a reference-named state_dict loaded strictly when one is
+    given."""
+    model = BigVGAN(cfg or __getattr__("RECIPE"))
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     return model.to(resolve_device(device)).eval()

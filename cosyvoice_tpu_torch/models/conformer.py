@@ -3,12 +3,15 @@ CosyVoice2 flow encoder (UpsampleConformerEncoder) and the generic
 ConformerEncoder of the CosyVoice v1 family (its text encoder, its LM body
 and its flow encoder).
 
-Port of the parts of cosyvoice_tpu/models/conformer.py that these use (no
-macaron FFN, no conv module, no MoE FFN, no conv subsampling front ends),
-with the speaker-adaptive layer of the phoneme LMs' text encoders
-(`spk_adapt`: a per-layer `spk_linear` adds the raw speaker vector at the
-layer's entry, and the layer's norms take eps 1e-5), and two kinds of
-incremental step:
+Port of cosyvoice_tpu/models/conformer.py: the encoder layer with its
+options (the macaron FFN at half weight, the conv module with norm_conv /
+norm_final, the mixture-of-experts FFN), the speaker-adaptive layer of the
+phoneme LMs' text encoders (`spk_adapt`: a per-layer `spk_linear` adds the
+raw speaker vector at the layer's entry, and the layer's norms take eps
+1e-5), the absolute positional encodings (sinusoidal, whisper, learnable,
+none) and the subsampling front ends (EmbedNoSubsampling,
+Conv1dSubsampling2, Conv2dSubsampling4/6/8) that the transformer stack's
+other users take, and two kinds of incremental step:
   * `.chunk`, which models/flow_chunk.py drives: new rows against cached
     K/V (the espnet rel-pos skew at a per-row offset) and 2-row conv
     histories; `chunk_anchor` anchors the encoder's chunk grid at the
@@ -18,7 +21,11 @@ incremental step:
     (the JAX package scans one-token decodes: the same function); each
     decode step reads its layer's projected rel-pos table, computed once a
     decode, where the JAX package projects the whole table every step.
-Parameter names follow the reference checkpoint (`encoders.{i}.self_attn.linear_q`,
+    Like the JAX decode, both keep the macaron FFN and skip the conv module
+    (it spans time and would need its own history); `.chunk` refuses either
+    option, as the JAX one does.
+Dropout rates and the other training fields of ConformerConfig do nothing
+here.  Parameter names follow the reference checkpoint (`encoders.{i}.self_attn.linear_q`,
 `encoders.{i}.feed_forward.w_1`, `embed.out.0`, ...; wenet's
 TransformerEncoderLayer, the v1 LM body's, names its norms `norm1` / `norm2`).
 """
@@ -55,6 +62,18 @@ class ConformerConfig:
     input_layer: str = "linear"   # linear | linear_legacy (a ReLU after the norm)
     spk_adapt: bool = False       # per-layer speaker injection (full forward only)
     spk_emb_size: int = 512
+    # training only: read by no port code
+    dropout_rate: float = 0.1
+    attention_dropout_rate: float = 0.1
+    # the layer's options (the CosyVoice recipes set none of them)
+    macaron_style: bool = False   # a second FFN before attention, both at weight 0.5
+    use_cnn_module: bool = False  # the conv module after attention, and norm_final
+    cnn_module_kernel: int = 15
+    cnn_causal: bool = False
+    cnn_norm: str = "batch_norm"  # batch_norm (running statistics) | layer_norm
+    ffn_type: str = "ffn"         # ffn | moe (MoEFFNLayer)
+    n_expert: int = 8
+    n_expert_per_token: int = 2
 
 
 @lru_cache(maxsize=None)
@@ -174,7 +193,11 @@ class RelPositionAttention(nn.Module):
         return self.linear_out(out.reshape(B, M, self.dim))
 
 
-_ACTIVATIONS = {"swish": swish, "relu": F.relu}
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")      # jax.nn.gelu's default
+
+
+_ACTIVATIONS = {"swish": swish, "relu": F.relu, "gelu": _gelu}
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -188,42 +211,146 @@ class PositionwiseFeedForward(nn.Module):
         return self.w_2(self.act(self.w_1(x)))
 
 
+class MoEFFNLayer(nn.Module):
+    """Mixture-of-experts positionwise FFN: a linear router (`gate`, no
+    bias), the top-k experts a token, a softmax (fp32) over the selected
+    logits.  Every expert runs on every token and the top-k weights mask the
+    sum, as in the JAX package; the experts keep the reference's names
+    (`experts.{e}.w_1` / `w_2`)."""
+
+    def __init__(self, dim: int, hidden: int, n_expert: int, n_expert_per_token: int,
+                 activation: str = "relu"):
+        super().__init__()
+        self.k = n_expert_per_token
+        self.gate = Dense(dim, n_expert, bias=False)
+        self.experts = nn.ModuleList(PositionwiseFeedForward(dim, hidden, activation)
+                                     for _ in range(n_expert))
+        self.act = _ACTIVATIONS[activation]
+
+    def forward(self, x):
+        logits, idx = torch.topk(self.gate(x), self.k, dim=-1)
+        weights = torch.softmax(logits.float(), dim=-1).to(x.dtype)           # [B, T, k]
+        gate = (F.one_hot(idx, len(self.experts)).to(x.dtype) * weights[..., None]).sum(-2)
+        cat = lambda name: torch.stack([getattr(e, name).weight for e in self.experts]).to(x.dtype)
+        bias = lambda name: torch.stack([getattr(e, name).bias for e in self.experts]).to(x.dtype)
+        h = self.act(torch.einsum("btd,ehd->bteh", x, cat("w_1")) + bias("w_1"))
+        y = torch.einsum("bteh,edh->bted", h, cat("w_2")) + bias("w_2")
+        return torch.einsum("bted,bte->btd", y, gate)
+
+
+class ConvolutionModule(nn.Module):
+    """The conformer conv module: pointwise conv to 2C -> GLU -> depthwise
+    conv (causal: left pad K - 1; else centred) -> norm -> activation ->
+    pointwise conv; pad rows zeroed on the way in and out.  The norm is a
+    LayerNorm (eps 1e-5) or a BatchNorm from its running statistics (eps
+    1e-5, flax's formula)."""
+
+    def __init__(self, channels: int, kernel_size: int = 15, causal: bool = False,
+                 norm: str = "batch_norm", activation: str = "swish"):
+        super().__init__()
+        pad = (kernel_size - 1, 0) if causal else ((kernel_size - 1) // 2,) * 2
+        self.pointwise_conv1 = Conv1d(channels, 2 * channels, 1)
+        self.depthwise_conv = Conv1d(channels, channels, kernel_size, padding=pad,
+                                     groups=channels)
+        self.norm = (LayerNorm(channels, 1e-5) if norm == "layer_norm"
+                     else nn.BatchNorm1d(channels, eps=1e-5))
+        self.pointwise_conv2 = Conv1d(channels, channels, 1)
+        self.act = _ACTIVATIONS[activation]
+
+    def forward(self, x, pad_mask: Optional[torch.Tensor] = None):
+        """x [B, T, C]; pad_mask [B, T] bool (True = valid)."""
+        if pad_mask is not None:
+            x = x.masked_fill(~pad_mask[..., None], 0.0)
+        a, b = self.pointwise_conv1(x).chunk(2, dim=-1)
+        x = self.depthwise_conv(a * torch.sigmoid(b))
+        n = self.norm
+        if isinstance(n, nn.BatchNorm1d):
+            mul = torch.rsqrt(n.running_var + n.eps) * n.weight
+            x = ((x.float() - n.running_mean) * mul + n.bias).to(x.dtype)
+        else:
+            x = n(x)
+        x = self.pointwise_conv2(self.act(x))
+        if pad_mask is not None:
+            x = x.masked_fill(~pad_mask[..., None], 0.0)
+        return x
+
+
 class ConformerEncoderLayer(nn.Module):
-    """Pre-norm self-attention + FFN (eps 1e-12 norms; with spk_adapt, eps
-    1e-5 and the speaker vector's projection added at the entry)."""
+    """Pre-norm [macaron FFN x 0.5] -> self-attention -> [conv module] ->
+    FFN (x 0.5 with the macaron one) [-> norm_final].  Norms eps 1e-12;
+    with spk_adapt, norm_mha / norm_ff eps 1e-5 and the speaker vector's
+    projection added at the entry."""
 
     NORMS = ("norm_mha", "norm_ff")     # the checkpoint's names of the two norms
 
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
+        self.cfg = cfg
         for name in self.NORMS:
             self.add_module(name, LayerNorm(cfg.dim, 1e-5 if cfg.spk_adapt else 1e-12))
         self.spk_linear = Dense(cfg.spk_emb_size, cfg.dim) if cfg.spk_adapt else None
         self.self_attn = RelPositionAttention(cfg.heads, cfg.dim, cfg.key_bias)
-        self.feed_forward = PositionwiseFeedForward(cfg.dim, cfg.linear_units,
-                                                    cfg.activation)
+        if cfg.ffn_type == "moe":
+            self.feed_forward = MoEFFNLayer(cfg.dim, cfg.linear_units, cfg.n_expert,
+                                            cfg.n_expert_per_token, cfg.activation)
+        else:
+            self.feed_forward = PositionwiseFeedForward(cfg.dim, cfg.linear_units,
+                                                        cfg.activation)
+        if cfg.macaron_style:
+            self.norm_ff_macaron = LayerNorm(cfg.dim, 1e-12)
+            self.feed_forward_macaron = PositionwiseFeedForward(cfg.dim, cfg.linear_units,
+                                                                cfg.activation)
+        if cfg.use_cnn_module:
+            self.norm_conv = LayerNorm(cfg.dim, 1e-12)
+            self.norm_final = LayerNorm(cfg.dim, 1e-12)
+            self.conv_module = ConvolutionModule(cfg.dim, cfg.cnn_module_kernel,
+                                                 cfg.cnn_causal, cfg.cnn_norm, cfg.activation)
+        self.ff_scale = 0.5 if cfg.macaron_style else 1.0
 
     def _norms(self):
         return self._modules[self.NORMS[0]], self._modules[self.NORMS[1]]
 
-    def forward(self, x, pos_emb, attn_mask, spk_emb: Optional[torch.Tensor] = None):
+    def _macaron(self, x):
+        if self.cfg.macaron_style:
+            x = x + self.ff_scale * self.feed_forward_macaron(self.norm_ff_macaron(x))
+        return x
+
+    def forward(self, x, pos_emb, attn_mask, spk_emb: Optional[torch.Tensor] = None,
+                pad_mask: Optional[torch.Tensor] = None):
+        """pad_mask [B, T] (True = valid) masks the conv module's input and
+        output."""
         norm_mha, norm_ff = self._norms()
         if spk_emb is not None and self.spk_linear is not None:
             x = x + self.spk_linear(spk_emb)[:, None, :].to(x.dtype)
+        x = self._macaron(x)
         x = x + self.self_attn(norm_mha(x), pos_emb, attn_mask)
-        return x + self.feed_forward(norm_ff(x))
+        if self.cfg.use_cnn_module:
+            x = x + self.conv_module(self.norm_conv(x), pad_mask)
+        x = x + self.ff_scale * self.feed_forward(norm_ff(x))
+        return self.norm_final(x) if self.cfg.use_cnn_module else x
 
     def chunk(self, x, layer_k, layer_v, pos, bias):
-        """M-row incremental step over a static K/V cache (written in place)."""
+        """M-row incremental step over a static K/V cache (written in place);
+        the flow encoder's configuration only (no macaron FFN, no conv
+        module), as in the JAX package."""
+        assert not self.cfg.macaron_style and not self.cfg.use_cnn_module
+        return self.cached_rows(x, layer_k, layer_v, pos, bias)
+
+    def cached_rows(self, x, layer_k, layer_v, pos, bias):
+        """chunk's computation with decode's options: the macaron FFN kept,
+        the conv module skipped (ConformerEncoder.prefill)."""
         norm_mha, norm_ff = self._norms()
+        x = self._macaron(x)
         x = x + self.self_attn.chunk_decode(norm_mha(x), layer_k, layer_v, pos, bias)
-        return x + self.feed_forward(norm_ff(x))
+        return x + self.ff_scale * self.feed_forward(norm_ff(x))
 
     def decode(self, x, layer_k, layer_v, pos: int, valid, table=None):
-        """One-row step at cache slot `pos` (RelPositionAttention.decode)."""
+        """One-row step at cache slot `pos` (RelPositionAttention.decode); the
+        macaron FFN kept, the conv module skipped, as the JAX decode does."""
         norm_mha, norm_ff = self._norms()
+        x = self._macaron(x)
         x = x + self.self_attn.decode(norm_mha(x), layer_k, layer_v, pos, valid, table)
-        return x + self.feed_forward(norm_ff(x))
+        return x + self.ff_scale * self.feed_forward(norm_ff(x))
 
 
 class TransformerEncoderLayer(ConformerEncoderLayer):
@@ -247,6 +374,111 @@ class LinearEmbed(nn.Module):
     def forward(self, x):
         h = self.out[1](self.out[0](x))
         return (F.relu(h) if self.legacy else h) * self.scale
+
+
+def sinusoidal_pos_emb(T: int, d: int, offset: int = 0, dtype=torch.float32,
+                       device=None) -> torch.Tensor:
+    """Absolute sinusoidal table [1, T, d] (interleaved sin / cos) from
+    position `offset` on; the caller adds it to x * sqrt(d)."""
+    pos = np.arange(offset, offset + T, dtype=np.float32)[:, None]
+    div = np.exp(np.arange(0, d, 2, dtype=np.float32) * -(np.log(10000.0) / d))
+    pe = np.zeros((T, d), np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return torch.as_tensor(pe[None], dtype=dtype, device=device)
+
+
+def whisper_pos_emb(T: int, d: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """openai-whisper's encoder sinusoids [1, T, d]: sin | cos concatenated,
+    log timescales over d // 2; no input scale."""
+    inc = np.log(10000.0) / (d // 2 - 1)
+    inv = np.exp(-inc * np.arange(d // 2, dtype=np.float32))
+    t = np.arange(T, dtype=np.float32)[:, None] * inv[None, :]
+    return torch.as_tensor(np.concatenate([np.sin(t), np.cos(t)], axis=1)[None],
+                           dtype=dtype, device=device)
+
+
+def no_pos_emb(T: int, d: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """NoPositionalEncoding's zero table [1, T, d]."""
+    return torch.zeros((1, T, d), dtype=dtype, device=device)
+
+
+class LearnablePositionalEncoding(nn.Module):
+    """whisper-decoder learned positions: a `pe` table [1, max_len, d]; no
+    input scale.  forward(x [B, T, d], offset) -> (x + pe[offset:offset+T],
+    that slice)."""
+
+    def __init__(self, dim: int, max_len: int = 448):
+        super().__init__()
+        self.pe = nn.Parameter(torch.randn(1, max_len, dim) * 0.02)
+
+    def forward(self, x: torch.Tensor, offset: int = 0):
+        emb = self.pe[:, offset:offset + x.shape[1]].to(x.dtype)
+        return x + emb, emb
+
+
+class EmbedNoSubsampling(nn.Module):
+    """Id embedding, no rate change: (ids [B, T], mask) -> ([B, T, odim],
+    mask); the caller adds positions."""
+
+    def __init__(self, vocab: int, odim: int):
+        super().__init__()
+        self.embed = nn.Embedding(vocab, odim)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+        return self.embed(x), mask
+
+
+class Conv1dSubsampling2(nn.Module):
+    """whisper's 1/2-rate front end: conv (k3, pad 1) -> GELU -> conv (k3,
+    stride 2, pad 1) -> GELU on [B, T, idim]; the mask [B, 1, T] sliced
+    [(T + 1) % 2::2].  The convs keep the reference's names conv.0 / conv.2."""
+
+    def __init__(self, idim: int, odim: int):
+        super().__init__()
+        self.conv = nn.ModuleList([Conv1d(idim, odim, 3, padding=1), nn.GELU(),
+                                   Conv1d(odim, odim, 3, stride=2, padding=1), nn.GELU()])
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+        T = x.shape[1]
+        for m in self.conv:
+            x = m(x)
+        return x, mask[:, :, (T + 1) % 2::2]
+
+
+class Conv2dSubsampling(nn.Module):
+    """The 1/4, 1/6 and 1/8-rate front ends: VALID 2-D convs over (time,
+    feature) each with a ReLU, then a linear over the channel-major
+    flattened (channels x reduced features); the mask [B, 1, T] sliced as
+    each conv strides.  Names as the reference's: conv.{0,2,4}, then out.0
+    (rate 4) or linear (rates 6, 8)."""
+
+    PLANS = {4: ((3, 2), (3, 2)), 6: ((3, 2), (5, 3)), 8: ((3, 2), (3, 2), (3, 2))}
+
+    def __init__(self, idim: int, odim: int, rate: int):
+        super().__init__()
+        plan = self.PLANS[rate]
+        layers, f = [], idim
+        for i, (k, s) in enumerate(plan):
+            layers += [nn.Conv2d(1 if i == 0 else odim, odim, k, s), nn.ReLU()]
+            f = (f - k) // s + 1
+        self.conv = nn.Sequential(*layers)
+        lin = Dense(odim * f, odim)
+        if rate == 4:
+            self.out = nn.ModuleList([lin])
+        else:
+            self.linear = lin
+        self.plan = plan
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+        """x [B, T, idim], mask [B, 1, T] -> ([B, T', odim], mask [B, 1, T'])."""
+        h = self.conv(x[:, None])                                  # [B, C, T', F']
+        B, C, T2, F2 = h.shape
+        h = h.transpose(1, 2).reshape(B, T2, C * F2)
+        h = self.out[0](h) if hasattr(self, "out") else self.linear(h)
+        for k, s in self.plan:
+            mask = mask[:, :, k - 1::s]
+        return h, mask
 
 
 class PreLookaheadLayer(nn.Module):
@@ -338,7 +570,7 @@ class UpsampleConformerEncoder(nn.Module):
         # LayerNorm maps zeros to its bias, which would leak into valid rows)
         xs = self.pre_lookahead_layer(xs * pad[..., None].to(xs.dtype))
         for layer in self.encoders:
-            xs = layer(xs, pos_emb, attn_mask)
+            xs = layer(xs, pos_emb, attn_mask, pad_mask=pad)
         xs = self.up_layer(xs)
         T2 = xs.shape[1]
         pad2 = make_non_pad_mask(lens * self.up_stride, T2)
@@ -348,7 +580,7 @@ class UpsampleConformerEncoder(nn.Module):
                                           torch.as_tensor(chunk_anchor) * self.up_stride)
                       if anchored else add_chunk_mask(pad2, chunk * self.up_stride))
         for layer in self.up_encoders:
-            xs = layer(xs, pos_emb2, attn_mask2)
+            xs = layer(xs, pos_emb2, attn_mask2, pad_mask=pad2)
         return self.after_norm(xs), pad2
 
 
@@ -399,7 +631,7 @@ class ConformerEncoder(nn.Module):
         pos_emb = espnet_rel_pos_emb(T, self.cfg.dim, xs.dtype, xs.device)
         attn_mask = add_chunk_mask(pad, self.cfg.static_chunk_size)
         for layer in self.encoders:
-            xs = layer(xs, pos_emb, attn_mask, spk_emb)
+            xs = layer(xs, pos_emb, attn_mask, spk_emb, pad)
         return self.after_norm(xs), pad
 
     def prefill(self, xs: torch.Tensor, cache: ConformerKVCache):
@@ -413,7 +645,7 @@ class ConformerEncoder(nn.Module):
         bias = torch.where(keep, 0.0, NEG_INF).to(x.dtype)[None].expand(B, T, Tmax)
         pos = torch.full((B,), cache.pos, dtype=torch.long, device=x.device)
         for i, layer in enumerate(self.encoders):
-            x = layer.chunk(x, cache.k[i], cache.v[i], pos, bias)
+            x = layer.cached_rows(x, cache.k[i], cache.v[i], pos, bias)
         cache.pos += T
         return self.after_norm(x), cache
 

@@ -413,6 +413,10 @@ class ConditionalDecoder(nn.Module):
 
 @dataclass(frozen=True)
 class CFMConfig:
+    # training only (the flow-matching loss); read by no port code
+    sigma_min: float = 1e-6
+    t_scheduler: str = "cosine"
+    training_cfg_rate: float = 0.2
     inference_cfg_rate: float = 0.7
     noise_frames: int = 15000  # 50 fps * 300 s pinned-noise buffer
     n_timesteps: int = 10      # Euler steps of the incremental flow (flow_chunk)

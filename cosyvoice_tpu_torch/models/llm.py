@@ -4,8 +4,9 @@ TransformerLM, and their AR decode loops.
 Port of cosyvoice_tpu/models/llm.py (Qwen2LM, lm_generate, the chunked
 decode of streaming synthesis (lm_prefill_stream, lm_decode_chunk), the
 decode loop from packed prefix embeddings that the phoneme LMs share
-(lm_prefill_from_embeds, lm_generate_from_embeds) and the B=1 whole-step
-decode lm_generate_fused_step; TransformerLM with
+(lm_prefill_from_embeds, lm_generate_from_embeds), the B=1 whole-step
+decode lm_generate_fused_step and the AWQ calibration pass
+collect_act_stats; TransformerLM with
 lm_generate_v1 and its streaming pair lm_prefill_stream_v1 /
 lm_decode_chunk_v1, over a conformer KV cache, B=1 as in the JAX package).
 Inputs are [sos, text_emb(prompt_text ++ text), task,
@@ -57,6 +58,9 @@ class LMConfig:
     llm_input_size: int = 896
     llm_output_size: int = 896
     speech_token_size: int = 6561
+    # training only (the CE loss); read by no port code
+    length_normalized_loss: bool = True
+    lsm_weight: float = 0.0
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
     qwen: Qwen2Config = field(default_factory=Qwen2Config)
     min_token_text_ratio: float = 2.0
@@ -306,6 +310,41 @@ def lm_generate(model: Qwen2LM, text, text_len, prompt_speech, prompt_speech_len
                                    max_steps, cache_len)
 
 
+@torch.no_grad()
+def collect_act_stats(model: Qwen2LM, text, text_len, speech, speech_len) -> dict:
+    """AWQ calibration (utils/quant.awq_equalize): one teacher-forced pass
+    over the packed [sos, text, task, speech] prefix recording the
+    per-channel max |activation| at the input of every layer's q_proj
+    (attn_in), gate_proj (mlp_in) and down_proj (down_in), over every row,
+    pad rows included, as the JAX package's taps do.  The taps are forward
+    pre-hooks, removed after the pass.  -> {layer: {attn_in, mlp_in,
+    down_in}} fp32 CPU tensors; merge several batches with torch.maximum."""
+    emb, seq_len = model.prefill_embeds(text, text_len, speech, speech_len)
+    B, T = emb.shape[:2]
+    dev = emb.device
+    stats: dict = {}
+
+    def tap(i, key):
+        def hook(_module, args):
+            x = args[0]
+            stats.setdefault(i, {})[key] = x.abs().amax(dim=tuple(range(x.ndim - 1))).float().cpu()
+        return hook
+
+    hooks = []
+    for i, layer in enumerate(model.body.layers):
+        for proj, key in ((layer.self_attn["q_proj"], "attn_in"),
+                          (layer.mlp["gate_proj"], "mlp_in"),
+                          (layer.mlp["down_proj"], "down_in")):
+            hooks.append(proj.register_forward_pre_hook(tap(i, key)))
+    try:
+        model.forward_hidden(emb, torch.arange(T, device=dev)[None].expand(B, T),
+                             causal_prefill_bias(T, T, seq_len, B, emb.dtype, dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return stats
+
+
 @dataclass
 class FusedGenState:
     """GenState twin for the whole-step decode kernel: the cache lives in the
@@ -397,14 +436,18 @@ class TransformerLMConfig:
     text_token_size: int = 60515
     speech_token_size: int = 4096
     spk_embed_dim: int = 192
+    # training only (the CE loss); read by no port code
+    length_normalized_loss: bool = True
+    lsm_weight: float = 0.0
     sampling: SamplingConfig = field(default_factory=lambda: SamplingConfig(
         method="non_random_ras", top_p=0.8, top_k=10, win_size=50, tau_r=0.1))
     text_encoder: ConformerConfig = field(default_factory=lambda: ConformerConfig(
         dim=1024, heads=16, linear_units=4096, num_blocks=6, input_size=512,
-        static_chunk_size=1))
+        static_chunk_size=1, attention_dropout_rate=0.0))
     llm: ConformerConfig = field(default_factory=lambda: ConformerConfig(
         dim=1024, heads=16, linear_units=4096, num_blocks=14, input_size=1024,
-        static_chunk_size=1, input_layer="linear_legacy", activation="relu"))
+        static_chunk_size=1, input_layer="linear_legacy", activation="relu",
+        attention_dropout_rate=0.0))
     min_token_text_ratio: float = 2.0
     max_token_text_ratio: float = 20.0
 

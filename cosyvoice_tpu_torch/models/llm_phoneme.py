@@ -87,11 +87,11 @@ class MultiHeadedAttention(nn.Module):
     scores take NEG_INF, and the masked weights are zeroed after the softmax
     (a row with no valid key gives zeros)."""
 
-    def __init__(self, heads: int, dim: int):
+    def __init__(self, heads: int, dim: int, key_bias: bool = True):
         super().__init__()
         self.heads, self.dim = heads, dim
         self.linear_q = Dense(dim, dim)
-        self.linear_k = Dense(dim, dim)
+        self.linear_k = Dense(dim, dim, bias=key_bias)
         self.linear_v = Dense(dim, dim)
         self.linear_out = Dense(dim, dim)
 
@@ -114,23 +114,29 @@ class MultiHeadedAttention(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """wenet's pre-norm DecoderLayer as the text/phoneme fusion: self-
-    attention, cross-attention onto `memory`, ReLU FFN, each residual."""
+    """wenet's pre-norm DecoderLayer (the text/phoneme fusion, and the
+    layer of models/decoder.py): self-attention, cross-attention onto
+    `memory` (left out with src_attention=False), ReLU FFN, each residual."""
 
-    def __init__(self, dim: int, heads: int, ffn_hidden: int):
+    def __init__(self, dim: int, heads: int, ffn_hidden: int, src_attention: bool = True,
+                 key_bias: bool = True):
         super().__init__()
-        self.norm1, self.norm2, self.norm3 = (LayerNorm(dim, 1e-5) for _ in range(3))
-        self.self_attn = MultiHeadedAttention(heads, dim)
-        self.src_attn = MultiHeadedAttention(heads, dim)
+        self.norm1, self.norm3 = LayerNorm(dim, 1e-5), LayerNorm(dim, 1e-5)
+        self.self_attn = MultiHeadedAttention(heads, dim, key_bias)
+        if src_attention:
+            self.norm2 = LayerNorm(dim, 1e-5)
+            self.src_attn = MultiHeadedAttention(heads, dim, key_bias)
+        self.src_attention = src_attention
         self.feed_forward = PositionwiseFeedForward(dim, ffn_hidden, activation="relu")
 
     def forward(self, tgt, tgt_mask, memory, memory_mask):
-        """tgt [B, Tt, D] with its key mask [B, 1, Tt]; memory [B, Tm, D]
+        """tgt [B, Tt, D] with its mask [B, 1|Tt, Tt]; memory [B, Tm, D]
         with its key mask [B, 1, Tm]."""
         h = self.norm1(tgt)
         tgt = tgt + self.self_attn(h, h, h, tgt_mask)
-        h = self.norm2(tgt)
-        tgt = tgt + self.src_attn(h, memory, memory, memory_mask)
+        if self.src_attention:
+            h = self.norm2(tgt)
+            tgt = tgt + self.src_attn(h, memory, memory, memory_mask)
         return tgt + self.feed_forward(self.norm3(tgt))
 
 
@@ -143,11 +149,16 @@ class PhonemeLMConfig:
     llm_output_size: int = 896
     speech_token_size: int = 6561
     spk_embed_dim: int = 512
+    # training only (the loss and the text-embedding mask); read by no port code
+    length_normalized_loss: bool = True
+    lsm_weight: float = 0.0
+    text_emb_mask_prob: float = 0.5
     sampling: SamplingConfig = field(default_factory=lambda: SamplingConfig(
         method="non_random_ras", top_p=0.8, top_k=10, win_size=10, tau_r=0.1))
     phoneme: PhonemeEmbedConfig = field(default_factory=PhonemeEmbedConfig)
     encoder: ConformerConfig = field(default_factory=lambda: ConformerConfig(
-        dim=1024, heads=16, linear_units=4096, num_blocks=6, input_size=512))
+        dim=1024, heads=16, linear_units=4096, num_blocks=6, input_size=512,
+        attention_dropout_rate=0.0))
     qwen: Qwen2Config = field(default_factory=Qwen2Config)
     fusion_heads: int = 16
     fusion_ffn: int = 4096
@@ -187,16 +198,17 @@ class _PhonemeLMBase(Qwen2LM):
         spk = embedding / embedding.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         return self.spk_embed_affine_layer(spk)[:, None, :]
 
-    def build_prefix(self, streams, embedding, speech, speech_len):
-        """[sos, spk, streams..., task, speech_emb] packed per row (each
-        stream (tensor [B, T_i, D], len [B]) right after the previous one's
-        valid rows; pad rows are dropped) -> (emb [B, N, D], seq_len [B])."""
+    def _pack(self, streams, embedding, tail: int):
+        """[sos, spk, streams..., task] packed per row (each stream (tensor
+        [B, T_i, D], len [B]) right after the previous one's valid rows; pad
+        rows are dropped), with `tail` more slots for the segment that
+        _finish_pack grafts after the task slot -> (emb [B, N, D], seq_len
+        [B] (through the task slot), pos [1, N])."""
         dtype = self.speech_embedding.weight.dtype
         B = streams[0][0].shape[0]
         dev = streams[0][0].device
         D = self.cfg.llm_input_size
-        Ts = speech.shape[1]
-        N = 2 + sum(s.shape[1] for s, _ in streams) + 1 + Ts
+        N = 2 + sum(s.shape[1] for s, _ in streams) + 1 + tail
         pos = torch.arange(N, device=dev)[None, :]
         out = torch.where(pos[..., None] == 0, self.llm_embedding.weight[self.cfg.sos_eos],
                           torch.zeros((), dtype=dtype, device=dev))
@@ -210,13 +222,26 @@ class _PhonemeLMBase(Qwen2LM):
             offset = offset + sl
         out = torch.where((pos == offset[:, None])[..., None],
                           self.llm_embedding.weight[self.cfg.task_id], out)
-        seq_len = offset + 1
+        return out, offset + 1, pos
+
+    @staticmethod
+    def _finish_pack(out, pos, seq_len, seg, seg_len):
+        """Graft seg [B, Ts, D] (seg_len [B] valid rows) into `out` right
+        after each row's task slot -> (emb, seq_len + seg_len)."""
+        B, N, D = out.shape
+        Ts = seg.shape[1]
         if Ts > 0:
             idx = (pos - seq_len[:, None]).clamp(0, Ts - 1)
-            g = torch.gather(self.speech_embedding(speech), 1, idx[..., None].expand(B, N, D))
-            in_seg = (pos >= seq_len[:, None]) & (pos < (seq_len + speech_len)[:, None])
+            g = torch.gather(seg.to(out.dtype), 1, idx[..., None].expand(B, N, D))
+            in_seg = (pos >= seq_len[:, None]) & (pos < (seq_len + seg_len)[:, None])
             out = torch.where(in_seg[..., None], g, out)
-        return out, seq_len + speech_len
+        return out, seq_len + seg_len
+
+    def build_prefix(self, streams, embedding, speech, speech_len):
+        """[sos, spk, streams..., task, speech_emb] packed per row (_pack)
+        -> (emb [B, N, D], seq_len [B])."""
+        out, seq_len, pos = self._pack(streams, embedding, speech.shape[1])
+        return self._finish_pack(out, pos, seq_len, self.speech_embedding(speech), speech_len)
 
     def _masks(self, text_len, Tt, pho_len, Tp):
         return (make_non_pad_mask(text_len, Tt)[:, None, :],

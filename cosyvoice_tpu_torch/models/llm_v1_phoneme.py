@@ -78,6 +78,11 @@ def v1_phoneme_generate(model: TransformerLMPhoneme, pho_token, pho_len, prompt_
 class WithSpkConfig:
     lm: V1PhonemeLMConfig = field(default_factory=V1PhonemeLMConfig)
     spk: SpeakerEmbeddingConfig = field(default_factory=SpeakerEmbeddingConfig)
+    # training only (the VICReg loss); read by no port code
+    sim_coeff: float = 0.5
+    std_coeff: float = 0.4
+    cov_coeff: float = 0.1
+    use_vicreg: bool = True
 
 
 class TransformerLMPhonemeWithSpk(torch.nn.Module):

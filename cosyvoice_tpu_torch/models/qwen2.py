@@ -40,10 +40,13 @@ class Qwen2Config:
     intermediate_size: int = 4864
     rope_theta: float = 1e6
     rms_norm_eps: float = 1e-6
-    # weight-only quantization of the 7 per-layer projections:
-    # "none" | "int8" | "int4" (packed, group-wise scales; the int4_matmul kernel)
+    # the HF export's setting (the speech LMs read no output head of the body)
+    tie_word_embeddings: bool = True
+    # weight-only quantization of the 7 per-layer projections: "none" |
+    # "int8" | "int4" (packed, group-wise scales; the int4_matmul kernel) |
+    # "int4xla" (nibble values as int8, group-wise scales; PyTorch ops)
     quant: str = "none"
-    quant_group: int = 128  # int4 scale group size along the input dim
+    quant_group: int = 128  # int4 / int4xla scale group size along the input dim
     # packed [B, T, KH*D] cache + the lm_decode_attention kernel for decode
     fused_cache_update: bool = False
 
@@ -78,13 +81,19 @@ class QDense(nn.Module):
     int4: `weight` int8 [in/2, out], two input rows per byte, and a
     group-wise `scale` [in/g, out] (g = min(group, in)).  Calls of up to 512
     rows (decode, prefill) go through the int4_matmul kernel; larger ones
-    through its plain unpack-and-matmul, as the JAX package routes them."""
+    through its plain unpack-and-matmul, as the JAX package routes them.
+    int4xla: `weight` int8 [in, out] holding nibble values in [-7, 7] (the
+    JAX kernel's layout) and a group-wise `scale` [in/g, out].  The JAX
+    package's order: a per-group product in x.dtype, then the contraction
+    with the scales in x.dtype (two einsums; no Pallas kernel there, so
+    none here).  The JAX package's cast to its native int4 type is an XLA
+    layout trick and has no counterpart."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  quant: str = "none", group: int = 128):
         super().__init__()
-        if quant not in ("none", "int8", "int4"):
-            raise ValueError(f"quant {quant!r} is not ported yet (none|int8|int4)")
+        if quant not in ("none", "int8", "int4", "int4xla"):
+            raise ValueError(f"unknown quant {quant!r} (none|int8|int4|int4xla)")
         self.quant = quant
         if quant == "int8":
             self.register_buffer("weight", torch.zeros(out_features, in_features,
@@ -93,6 +102,11 @@ class QDense(nn.Module):
         elif quant == "int4":
             g = min(group, in_features)
             self.register_buffer("weight", torch.zeros(in_features // 2, out_features,
+                                                       dtype=torch.int8))
+            self.register_buffer("scale", torch.ones(in_features // g, out_features))
+        elif quant == "int4xla":
+            g = min(group, in_features)
+            self.register_buffer("weight", torch.zeros(in_features, out_features,
                                                        dtype=torch.int8))
             self.register_buffer("scale", torch.ones(in_features // g, out_features))
         else:
@@ -105,6 +119,12 @@ class QDense(nn.Module):
             x2 = x.reshape(-1, x.shape[-1])
             mm = int4_matmul if x2.shape[0] <= 512 else int4_matmul_plain
             y = mm(x2.contiguous(), self.weight, self.scale).reshape(*x.shape[:-1], -1)
+        elif self.quant == "int4xla":
+            G, out = self.scale.shape
+            w = self.weight.to(x.dtype).reshape(G, -1, out)
+            p = torch.einsum("bgi,gio->bgo", x.reshape(-1, G, w.shape[1]), w)
+            y = torch.einsum("bgo,go->bo", p, self.scale.to(x.dtype))
+            y = y.reshape(*x.shape[:-1], out)
         else:
             y = F.linear(x, self.weight.to(x.dtype))
             if self.quant == "int8":

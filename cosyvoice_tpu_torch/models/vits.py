@@ -352,18 +352,16 @@ class VitsConfig:
         return self.sample_rate // self.frame_rate // self.token_upsample_ratio
 
 
-# examples/tts_vc/cosyvoice2/conf/cosyvoice2_vits_tts.yaml's `vits:` section
-# (25 Hz tokens, two 2x conformers, 240x to 24 kHz: 960 samples a token); the
-# conformers' dropout has no inference counterpart here
-RECIPE = VitsConfig(
-    n_vocab=6561, spec_channels=513, inter_channels=512, hidden_channels=512,
-    filter_channels=1024, n_heads=4, n_layers=8, kernel_size=3,
-    resblock_kernel_sizes=(3, 7, 11), resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
-    upsample_rates=(8, 5, 3, 2), upsample_initial_channel=512,
-    upsample_kernel_sizes=(16, 11, 7, 2), segment_size=9600, gin_channels=512,
-    sample_rate=24000, frame_rate=25, token_upsample_ratio=4,
-    up_enc1=ConformerConfig(dim=512, heads=8, linear_units=2048, num_blocks=3, input_size=512),
-    up_enc2=ConformerConfig(dim=512, heads=8, linear_units=2048, num_blocks=3, input_size=512))
+def __getattr__(name: str):
+    """RECIPE: examples/tts_vc/cosyvoice2/conf/cosyvoice2_vits_tts.yaml's
+    `vits:` section (25 Hz tokens, two 2x conformers, 240x to 24 kHz: 960
+    samples a token), read from the recipe by config.recipe_config on first
+    use."""
+    if name == "RECIPE":
+        from cosyvoice_tpu_torch.config import recipe_config
+
+        return recipe_config("cosyvoice2/conf/cosyvoice2_vits_tts.yaml", "vits")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class TextEncoder(nn.Module):
@@ -421,11 +419,12 @@ class VitsDecoder(nn.Module):
         return self.dec(z * mask[..., None].to(z.dtype), g3)
 
 
-def load_vits(cfg: VitsConfig = RECIPE, state_dict: Optional[dict] = None,
+def load_vits(cfg: Optional[VitsConfig] = None, state_dict: Optional[dict] = None,
               device=None) -> VitsDecoder:
-    """A VitsDecoder in eval mode on `device` (default: the GPU), with a
-    reference-named state_dict loaded strictly when one is given."""
-    model = VitsDecoder(cfg)
+    """A VitsDecoder (default: RECIPE) in eval mode on `device` (default:
+    the GPU), with a reference-named state_dict loaded strictly when one is
+    given."""
+    model = VitsDecoder(cfg or __getattr__("RECIPE"))
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     return model.to(resolve_device(device)).eval()

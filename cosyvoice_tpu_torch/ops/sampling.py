@@ -16,21 +16,23 @@ def nucleus_mask(sorted_probs: torch.Tensor, top_p: float, top_k: int) -> torch.
 
 
 def _categorical(gen: torch.Generator, probs: torch.Tensor) -> torch.Tensor:
-    """One draw per row of probs [B, K]; the draw happens on the generator's
-    device so a CPU generator gives the same ids on every device."""
-    draw = torch.multinomial(probs.to(gen.device), 1, generator=gen)
-    return draw[:, 0].to(probs.device)
+    """One draw per row of probs [..., K] -> [...]; the draw happens on the
+    generator's device so a CPU generator gives the same ids on every device."""
+    flat = probs.reshape(-1, probs.shape[-1])
+    draw = torch.multinomial(flat.to(gen.device), 1, generator=gen)
+    return draw[:, 0].to(probs.device).reshape(probs.shape[:-1])
 
 
 def nucleus_sample(gen: torch.Generator, logits: torch.Tensor, top_p: float = 0.8,
                    top_k: int = 25) -> torch.Tensor:
-    """logits [B, V] -> [B] ids drawn from the top-p/top-k nucleus."""
+    """logits [..., V] -> [...] ids drawn from the top-p/top-k nucleus (the
+    multi-codebook LMs draw [B, C, V] in one call)."""
     probs = torch.softmax(logits.float(), dim=-1)
     k = min(int(top_k), logits.shape[-1])
     top_probs, top_idx = torch.topk(probs, k, dim=-1)
     keep = nucleus_mask(top_probs, top_p, top_k)
     choice = _categorical(gen, torch.where(keep, top_probs, torch.zeros_like(top_probs)))
-    return torch.gather(top_idx, -1, choice[:, None])[:, 0]
+    return torch.gather(top_idx, -1, choice[..., None])[..., 0]
 
 
 def random_sample(gen: torch.Generator, logits: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """The port (and chip_smoke.py) stands alone: it imports neither JAX nor
 the JAX package (nor `transformers` / `tokenizers` / `tiktoken`: it reads
-tokenizer.json and the v1 ranks file itself), and its entry points do not
-fall back to the CPU unless asked to."""
+tokenizer.json and the v1 ranks file itself; nor `yaml`: config.py reads
+the recipes itself), and its entry points do not fall back to the CPU
+unless asked to."""
 import subprocess
 import sys
 from pathlib import Path
@@ -36,14 +37,20 @@ import cosyvoice_tpu_torch.tokenizer.polyphone
 import cosyvoice_tpu_torch.models.vits, cosyvoice_tpu_torch.models.speaker
 import cosyvoice_tpu_torch.ops.splines, cosyvoice_tpu_torch.bin.extract_speaker_vec
 from cosyvoice_tpu_torch.models.llm_v1_phoneme import TransformerLMPhonemeWithSpk
+import cosyvoice_tpu_torch.models.llm_multicode, cosyvoice_tpu_torch.ops.delay
+import cosyvoice_tpu_torch.models.decoder, cosyvoice_tpu_torch.config
+from cosyvoice_tpu_torch.config import build_from_yaml, recipe_config
+recipe_config("cosyvoice2/conf/cosyvoice2_multicode.yaml", "llm")
+from cosyvoice_tpu_torch.models.vits import RECIPE
 import chip_smoke
 from cosyvoice_tpu_torch.runtime.api import CosyVoice
 from cosyvoice_tpu_torch.runtime.model import CosyVoiceV1Model
 from cosyvoice_tpu_torch.tokenizer.text import WhisperTiktokenTokenizer
 bad = [m for m in sys.modules
-       if m in ("jax", "flax", "cosyvoice_tpu", "transformers", "tokenizers", "tiktoken")
+       if m in ("jax", "flax", "cosyvoice_tpu", "transformers", "tokenizers", "tiktoken",
+                "yaml")
        or m.startswith(("jax.", "flax.", "cosyvoice_tpu.", "transformers.", "tokenizers.",
-                        "tiktoken."))]
+                        "tiktoken.", "yaml."))]
 print(",".join(bad))
 """
 

@@ -276,5 +276,11 @@ def test_quant_decode_wrappers_reject_bad_input():
     assert not tllm.lm_step_supported(TQwen2Config(**STEP_QWEN, quant="int8"))
     assert tllm.lm_step_supported(TQwen2Config(quant="int8"))
     assert not tllm.lm_step_supported(TQwen2Config(quant="int4"))
-    with pytest.raises(ValueError):       # int4xla is not ported
-        tllm.Qwen2LM(tllm.LMConfig(**U.LM, qwen=TQwen2Config(**U.QWEN, quant="int4xla")))
+    # int4xla builds, its projections holding nibble values [in, out] and
+    # group scales [in/g, out] (tests/test_torch_int4xla.py holds it to JAX)
+    xla = tllm.Qwen2LM(tllm.LMConfig(**U.LM, qwen=TQwen2Config(**U.QWEN, quant="int4xla",
+                                                                quant_group=16)))
+    q = xla.body.layers[0].self_attn["q_proj"]
+    assert q.quant == "int4xla" and q.weight.dtype == torch.int8
+    assert q.weight.shape == (32, 32) and q.scale.shape == (2, 32)
+    assert not tllm.lm_step_supported(TQwen2Config(quant="int4xla"))
