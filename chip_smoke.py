@@ -162,7 +162,26 @@ Phases, each printing JSON lines:
      3 s prompt of 120 code rows, 200 greedy steps at B=1, then 4 ragged
      rows: prefix ms, ms a step, the reverted [B, 195, 6] shape, peak
      memory, K1 launches (exactly 24 x 199 a call, no other kernel);
- 19. timing  - at the main path's shapes: each kernel against its plain
+ 19. train   - training on the card, TF32 off, no kernel (the training path
+     reaches none; the phase gates on zero launches): (a) the small LM and
+     flow of tests/test_train_cli.py's widths, 3 steps on the card and on
+     the CPU from one init (each step's loss within 1e-4 relative); (b)
+     cosyvoice2.yaml's LM (the Qwen2-0.5B body, fp32) with the recipe's
+     train_conf (adam, warmuplr 2500, clip 5, accum_grad 2) on two seeded
+     batches of 8 examples (40 text ids, 250 speech tokens), 3 applied
+     updates a run: unpacked (naive attention), packed into rows of 2048
+     (naive, then block_attention, then block_attention with remat "all"):
+     s a micro-step (median; accumulating and applying apart), tokens/s,
+     loss and grad_norm a micro-step, peak memory (and a forward +
+     backward's alone); gates: packed = unpacked and block = naive = remat
+     loss within 1e-4 relative, grad_norm within 1e-3; (c) attention
+     forward + backward at the packed rows: block_attention, naive, SDPA
+     (a yardstick); (d) cosyvoice2.yaml's flow, fp32, 8 rows of 250 tokens
+     and 500 mel frames, 3 applied updates; (e) `python -m
+     cosyvoice_tpu_torch.bin.train` on its default device over a seeded
+     jsonl corpus at the small widths: one epoch, then a resumed one
+     (steps 1..4, every value finite);
+ 20. timing  - at the main path's shapes: each kernel against its plain
      version on the same inputs, then the kernel, the plain version and the
      one PyTorch call that computes the same function, timed (CUDA events);
      K1 also at the engine's shape (B = 8, cache 384, per-row frontiers)
@@ -3315,6 +3334,370 @@ def multicode_phase(kernels: dict, smi: str) -> dict:
     return res
 
 
+# ---- train: the LM's and the flow's training path ---------------------------
+
+TRAIN_RECIPE = "cosyvoice2/conf/cosyvoice2.yaml"
+TRAIN_ROWS, TRAIN_TEXT, TRAIN_SPEECH, TRAIN_ROW_LEN = 8, 40, 250, 2048
+TRAIN_FLOW_TOKENS, TRAIN_FLOW_MEL = 250, 500
+TRAIN_UPDATES = 3           # applied updates a configuration (accum_grad micro-steps each)
+TRAIN_LOSS_REL_TOL, TRAIN_GNORM_REL_TOL = 1e-4, 1e-3
+TRAIN_SEED = 1986
+# tests/test_train_cli.py's small widths (the port's tests hold them to JAX)
+TRAIN_SMALL = {
+    "qwen2lm": {"llm_input_size": 32, "llm_output_size": 32, "speech_token_size": 128,
+                "qwen": {"vocab_size": 300, "hidden_size": 32, "num_layers": 1,
+                         "num_heads": 4, "num_kv_heads": 2, "head_dim": 8,
+                         "intermediate_size": 64}},
+    "flow": {"input_size": 32, "output_size": 20, "spk_embed_dim": 512, "vocab_size": 128,
+             "encoder": {"dim": 32, "heads": 2, "linear_units": 48, "num_blocks": 1,
+                         "input_size": 32, "dropout_rate": 0.1,
+                         "attention_dropout_rate": 0.1},
+             "estimator": {"in_channels": 80, "out_channels": 20, "causal": True,
+                           "channels": [16], "n_blocks": 1, "num_mid_blocks": 1,
+                           "num_heads": 2, "attention_head_dim": 8},
+             "cfm": {"noise_frames": 2000}},
+}
+
+
+def train_lm_batch(vocab: int, speech_vocab: int, rng, rows: int, text: int, speech: int,
+                   row_len: int = 0, eos: int = 0) -> dict:
+    """`rows` seeded (text, speech) examples as an unpacked LM batch, or
+    packed into rows of row_len (train/packing.py)."""
+    from cosyvoice_tpu_torch.train.packing import pack_llm_examples
+
+    exs = [(rng.integers(0, vocab, text), rng.integers(0, speech_vocab, speech))
+           for _ in range(rows)]
+    if row_len:
+        packed = pack_llm_examples(exs, row_len, eos_token=eos)
+        packed.pop("n_tokens")
+        return packed
+    return {"text_token": np.stack([t for t, _ in exs]), "text_token_len": np.full(rows, text),
+            "speech_token": np.stack([s for _, s in exs]),
+            "speech_token_len": np.full(rows, speech)}
+
+
+def train_flow_batch(cfg, rng, rows: int, tokens: int, mel: int) -> dict:
+    return {"speech_token": rng.integers(0, cfg.vocab_size, (rows, tokens)),
+            "speech_token_len": np.full(rows, tokens),
+            "speech_feat": rng.standard_normal((rows, mel, cfg.output_size)).astype(np.float32),
+            "speech_feat_len": np.full(rows, mel),
+            "embedding": rng.standard_normal((rows, cfg.spk_embed_dim)).astype(np.float32)}
+
+
+def train_small_checks() -> dict:
+    """The small LM and flow (TRAIN_SMALL, the flow's encoder dropout on)
+    trained 3 steps on the card and on the CPU from one seeded init, each
+    step's generator a CPU one (the same dropout masks and flow draws on
+    both devices): each step's loss within TRAIN_LOSS_REL_TOL relative."""
+    from cosyvoice_tpu_torch.config import build_model
+    from cosyvoice_tpu_torch.train import optim
+    from cosyvoice_tpu_torch.train import step as tstep
+
+    res = {}
+    for kind, loss_fn in (("qwen2lm", tstep.llm_loss_fn), ("flow", tstep.flow_loss_fn)):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            torch.manual_seed(15)
+            model, cfg = build_model(kind, TRAIN_SMALL[kind])
+            model.to(dev)
+            tx, _ = optim.make_optimizer("adam", 1e-3, "warmuplr", {"warmup_steps": 3},
+                                         grad_clip=1.0)
+            st, fn = tstep.make_train_state(model, tx), tstep.make_train_step(loss_fn, tx)
+            rng, out = np.random.default_rng(16), []
+            for i in range(3):
+                b = (train_lm_batch(300, 128, rng, 3, 6, 9) if kind == "qwen2lm"
+                     else train_flow_batch(cfg, rng, 3, 10, 20))
+                st, m = fn(st, tstep.to_device(b, dev), tstep.step_generator(15, i, "cpu"))
+                out.append([m["loss"].item(), m["grad_norm"].item()])
+            runs[dev] = out
+        rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(runs["cuda"], runs["cpu"]))
+        res[kind] = {"loss_grad_norm_cuda": runs["cuda"], "loss_grad_norm_cpu": runs["cpu"],
+                     "max_loss_rel_err": rel, "tol": TRAIN_LOSS_REL_TOL,
+                     "ok": rel <= TRAIN_LOSS_REL_TOL}
+    return res
+
+
+def set_lm_route(llm, **fields) -> None:
+    """Switch the Qwen2 body's training route (block_attention, remat) in
+    place: the config the body and each layer read."""
+    cfg = dataclasses.replace(llm.body.cfg, **fields)
+    llm.body.cfg = cfg
+    for layer in llm.body.layers:
+        layer.cfg = cfg
+
+
+def train_run(model, init: dict, loss_fn, batches: list, train_conf: dict, items: int) -> dict:
+    """TRAIN_UPDATES applied updates (accum_grad micro-steps each) of the
+    recipe's optimizer from `init`, micro-step i on batches[i % 2]:
+    s a micro-step (median; also apart, the median of the micro-steps that
+    only accumulate and of those that apply the update), items / s, loss
+    and grad_norm a micro-step, the applied updates and the peak memory
+    (also the largest peak of an accumulating micro-step: its forward and
+    backward without the optimizer's update)."""
+    from cosyvoice_tpu_torch.train import optim
+    from cosyvoice_tpu_torch.train import step as tstep
+
+    model.load_state_dict(init)
+    tx, _ = optim.make_optimizer(
+        train_conf["optim"], train_conf["lr"], train_conf["scheduler"],
+        train_conf["scheduler_conf"], grad_clip=train_conf["grad_clip"],
+        accum_grad=train_conf["accum_grad"])
+    st, fn = tstep.make_train_state(model, tx), tstep.make_train_step(loss_fn, tx)
+    k = train_conf["accum_grad"]
+    secs, peaks, losses, norms = [], [], [], []
+    for i in range(TRAIN_UPDATES * k):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st, m = fn(st, batches[i % 2], tstep.step_generator(TRAIN_SEED, i, "cuda"))
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        secs.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    med = float(np.median(secs))
+    apply = [i % k == k - 1 for i in range(len(secs))]
+    res = {"s_per_micro_step": med, "items_per_s": items / med, "micro_step_s": secs,
+           "accumulate_s": float(np.median([t for t, a in zip(secs, apply) if not a])),
+           "apply_s": float(np.median([t for t, a in zip(secs, apply) if a])),
+           "loss": losses, "grad_norm": norms,
+           "applied_updates": optim.applied_updates(st.opt_state), "peak_gib": max(peaks),
+           "accumulate_peak_gib": max(p for p, a in zip(peaks, apply) if not a)}
+    del st
+    torch.cuda.empty_cache()
+    return res
+
+
+def rel_errs(a: list, b: list) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def attention_yardstick(batch: dict, cfg) -> dict:
+    """Attention forward + backward over the packed rows' block-diagonal
+    bias at the body's widths (q [2, 14, 2048, 64], k / v [2, 2, 2048, 64]),
+    fp32, CUDA events, the median of 5 after 2 warm-ups: block_attention,
+    the naive attention it replaces, and SDPA (enable_gqa, the float bias
+    as its mask; a yardstick only, the port trains on block_attention);
+    the peak memory of each and their outputs' distance."""
+    from cosyvoice_tpu_torch.ops.block_attention import block_attention, naive_attention
+    from cosyvoice_tpu_torch.ops.masks import NEG_INF
+
+    seg = torch.as_tensor(batch["seg"], device="cuda")
+    B, N = seg.shape
+    causal = torch.ones(N, N, dtype=torch.bool, device="cuda").tril()
+    keep = causal[None] & (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] > 0)
+    bias = torch.where(keep, 0.0, NEG_INF)[:, None]
+    H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn(B, H, N, D, generator=g, device="cuda", requires_grad=True)
+    k, v = (torch.randn(B, KH, N, D, generator=g, device="cuda", requires_grad=True)
+            for _ in range(2))
+    dout = torch.randn(B, H, N, D, generator=g, device="cuda")
+    scale = D ** -0.5
+    fns = {"block_attention": lambda: block_attention(q, k, v, bias, scale, cfg.attention_block),
+           "naive": lambda: naive_attention(q, k, v, bias, scale),
+           "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale,
+                                                          enable_gqa=True)}
+    res, outs = {}, {}
+    for name, fn in fns.items():
+        def fwd_bwd():
+            out = fn()
+            torch.autograd.grad(out, (q, k, v), dout)
+            return out
+        for _ in range(2):
+            fwd_bwd()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(5):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            outs[name] = fwd_bwd().detach()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        res[name] = {"fwd_bwd_ms": float(np.median(times)),
+                     "peak_extra_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+    live = keep.any(-1)[:, None, :, None]
+    for name in ("naive", "sdpa"):
+        res[name]["max_abs_diff_to_block"] = float(
+            ((outs[name] - outs["block_attention"]).abs() * live).max())
+    return {"shape": {"q": [B, H, N, D], "kv": [B, KH, N, D]}, **res}
+
+
+def train_cli_drive() -> dict:
+    """`python -m cosyvoice_tpu_torch.bin.train` on the card (its default
+    device) over a seeded jsonl corpus of 6 inline 0.65 s utterances at the
+    small LM widths (TRAIN_SMALL): one epoch, then a second run that
+    resumes from its checkpoint.  Both write under build/ (deleted after):
+    seconds a run, the logged steps (must be 1..4), every value finite,
+    the newest checkpoint at step 4."""
+    import os
+    import shutil
+    import tempfile
+
+    from cosyvoice_tpu_torch.train.checkpoint import latest_step
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_cli_", dir=root)
+    try:
+        rng = np.random.default_rng(7)
+        corpus = os.path.join(tmp, "data.jsonl")
+        with open(corpus, "w") as f:
+            for i in range(6):
+                f.write(json.dumps({
+                    "utt": f"u{i}", "text": "hello world", "sample_rate": 24000,
+                    "speech": (rng.standard_normal(15600) * 0.1).round(5).tolist(),
+                    "speech_token": rng.integers(0, 100, 30).tolist(),
+                    "embedding": rng.standard_normal(512).round(5).tolist()}) + "\n")
+        lst = os.path.join(tmp, "train.list")
+        with open(lst, "w") as f:
+            f.write(corpus + "\n")
+        conf = {"llm": dict(TRAIN_SMALL["qwen2lm"], kind="qwen2lm"),
+                "data": {"filter": {"max_length": 99999, "token_max_length": 300},
+                         "fbank": {"n_fft": 192, "hop": 48, "n_mels": 20},
+                         "max_frames_in_batch": 1000, "shuffle_buf": 4, "sort_buf": 2},
+                "train_conf": {"lr": 0.0001, "log_interval": 1,
+                               "scheduler_conf": {"warmup_steps": 10}}}
+        cfg = os.path.join(tmp, "conf.yaml")
+        with open(cfg, "w") as f:      # one flow mapping a section (the recipes' YAML subset)
+            f.writelines(f"{k}: {json.dumps(v)}\n" for k, v in conf.items())
+        model_dir = os.path.join(tmp, "exp")
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", "cosyvoice_tpu_torch.bin.train",
+                                  "--config", cfg, "--model", "llm", "--train_data", lst,
+                                  "--model_dir", model_dir, "--epochs", "1"],
+                                 cwd=here, capture_output=True, text=True, timeout=300)
+            if out.returncode != 0:
+                raise AssertionError(f"bin.train failed: {out.stderr[-3000:]}")
+            runs.append(time.perf_counter() - t0)
+        recs = [json.loads(line) for line in open(os.path.join(model_dir, "metrics.jsonl"))]
+        return {"run_s": runs, "steps": [r["step"] for r in recs],
+                "loss": [r["loss"] for r in recs],
+                "finite": all(np.isfinite(v) for r in recs for k, v in r.items() if k != "tag"),
+                "latest_step": latest_step(model_dir)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_phase(kernels: dict, smi: str) -> dict:
+    """Training on the card: (a) train_small_checks; (b) the recipe's LM
+    (examples/tts_vc/cosyvoice2/conf/cosyvoice2.yaml `llm`: the Qwen2-0.5B
+    body) in fp32 with its train_conf (adam, warmuplr 2500, clip 5,
+    accum_grad 2) on seeded weights and two seeded batches of TRAIN_ROWS
+    examples (TRAIN_TEXT text ids, TRAIN_SPEECH speech tokens), TRAIN_UPDATES
+    applied updates each: unpacked with naive attention, packed into rows of
+    TRAIN_ROW_LEN with naive attention, packed with block_attention, and
+    packed with block_attention and remat "all"; (c) attention_yardstick at
+    the packed rows; (d) the recipe's flow in fp32 (encoder dropout 0.1 on
+    the step's generator) on 8 rows of 250 tokens / 500 mel frames,
+    TRAIN_UPDATES applied updates; (e) train_cli_drive.  Gates: the small
+    runs' losses card = CPU; at full width every micro-step's loss equal
+    packed vs unpacked and block vs naive vs remat (TRAIN_LOSS_REL_TOL) and
+    grad_norm block vs naive vs remat (TRAIN_GNORM_REL_TOL); every loss and
+    grad_norm finite; TRAIN_UPDATES updates applied in every run; the CLI's
+    steps 1..4, finite, resumed at step 2; no kernel launched (the training
+    path reaches none: the kernels have no backward)."""
+    from cosyvoice_tpu_torch.config import load_config, recipe_config
+    from cosyvoice_tpu_torch.config import RECIPES
+    from cosyvoice_tpu_torch.models.flow import CausalMaskedDiffWithXvec
+    from cosyvoice_tpu_torch.models.llm import Qwen2LM
+    from cosyvoice_tpu_torch.train import step as tstep
+    from cosyvoice_tpu_torch.train.packing import packed_llm_loss_fn
+
+    t_phase = time.perf_counter()
+    for mod in kernels.values():
+        mod.launches = 0
+    with torch.enable_grad():
+        small = train_small_checks()
+        train_conf = load_config(RECIPES / TRAIN_RECIPE)["train_conf"]
+        cfg = recipe_config(TRAIN_RECIPE, "llm")
+        t0 = time.perf_counter()
+        with torch.device("cuda"):
+            llm = Qwen2LM(cfg)
+        rand_init_(llm, 1500)
+        init = {k: v.clone() for k, v in llm.state_dict().items()}
+        setup_s = time.perf_counter() - t0
+        rng = np.random.default_rng(1501)
+        ex = [dict(vocab=cfg.qwen.vocab_size, speech_vocab=cfg.speech_token_size,
+                   rows=TRAIN_ROWS, text=TRAIN_TEXT, speech=TRAIN_SPEECH) for _ in range(2)]
+        seeds = [int(s) for s in rng.integers(0, 2 ** 31, 2)]
+        unpacked = [tstep.to_device(train_lm_batch(rng=np.random.default_rng(s), **e), "cuda")
+                    for s, e in zip(seeds, ex)]
+        packed_np = [train_lm_batch(rng=np.random.default_rng(s), row_len=TRAIN_ROW_LEN,
+                                    eos=cfg.eos_token, **e) for s, e in zip(seeds, ex)]
+        packed = [tstep.to_device(b, "cuda") for b in packed_np]
+        tokens = TRAIN_ROWS * (2 + TRAIN_TEXT + TRAIN_SPEECH)
+        lm = {}
+        for name, batches, route in (
+                ("unpacked_naive", unpacked, {}),
+                ("packed_naive", packed, {}),
+                ("packed_block", packed, {"block_attention": True}),
+                ("packed_block_remat", packed, {"block_attention": True, "remat": True,
+                                                "remat_policy": "all"})):
+            set_lm_route(llm, **dict({"block_attention": False, "remat": False}, **route))
+            fn = packed_llm_loss_fn if batches is packed else tstep.llm_loss_fn
+            lm[name] = train_run(llm, init, fn, batches, train_conf, tokens)
+        set_lm_route(llm, block_attention=False, remat=False)
+        yard = attention_yardstick(packed_np[0], llm.body.cfg)
+        del llm, init, unpacked, packed
+        torch.cuda.empty_cache()
+
+        fcfg = recipe_config(TRAIN_RECIPE, "flow")
+        with torch.device("cuda"):
+            flow = CausalMaskedDiffWithXvec(fcfg)
+        rand_init_(flow, 1510)
+        finit = {k: v.clone() for k, v in flow.state_dict().items()}
+        frng = np.random.default_rng(1511)
+        fb = [tstep.to_device(train_flow_batch(fcfg, frng, TRAIN_ROWS, TRAIN_FLOW_TOKENS,
+                                               TRAIN_FLOW_MEL), "cuda") for _ in range(2)]
+        flow_run = train_run(flow, finit, tstep.flow_loss_fn, fb, train_conf,
+                             TRAIN_ROWS * TRAIN_FLOW_MEL)
+        del flow, finit, fb
+        torch.cuda.empty_cache()
+    launches = {k: mod.launches for k, mod in kernels.items()}
+    cli = train_cli_drive()
+    base, pk = lm["unpacked_naive"], lm["packed_naive"]
+    checks = {
+        "packed_vs_unpacked_loss": rel_errs(pk["loss"], base["loss"]),
+        "block_vs_naive_loss": rel_errs(lm["packed_block"]["loss"], pk["loss"]),
+        "block_vs_naive_grad_norm": rel_errs(lm["packed_block"]["grad_norm"], pk["grad_norm"]),
+        "remat_vs_block_loss": rel_errs(lm["packed_block_remat"]["loss"],
+                                        lm["packed_block"]["loss"]),
+        "remat_vs_block_grad_norm": rel_errs(lm["packed_block_remat"]["grad_norm"],
+                                             lm["packed_block"]["grad_norm"])}
+    res = {"phase": "train", "card": smi, "small": small,
+           "lm_config": f"{TRAIN_RECIPE} llm (config.recipe_config) fp32, train_conf "
+                        f"{train_conf}", "lm_setup_s": setup_s,
+           "lm_batch": {"rows": TRAIN_ROWS, "text": TRAIN_TEXT, "speech": TRAIN_SPEECH,
+                        "tokens": tokens, "packed_rows": list(packed_np[0]["ids"].shape)},
+           "lm": lm, "attention_fwd_bwd": yard,
+           "flow_config": f"{TRAIN_RECIPE} flow fp32", "flow_batch": {
+               "rows": TRAIN_ROWS, "tokens": TRAIN_FLOW_TOKENS, "mel": TRAIN_FLOW_MEL},
+           "flow": flow_run, "checks": checks, "cli": cli, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    runs = list(lm.values()) + [flow_run]
+    gates = [all(s["ok"] for s in small.values()),
+             checks["packed_vs_unpacked_loss"] <= TRAIN_LOSS_REL_TOL,
+             checks["block_vs_naive_loss"] <= TRAIN_LOSS_REL_TOL,
+             checks["remat_vs_block_loss"] <= TRAIN_LOSS_REL_TOL,
+             checks["block_vs_naive_grad_norm"] <= TRAIN_GNORM_REL_TOL,
+             checks["remat_vs_block_grad_norm"] <= TRAIN_GNORM_REL_TOL,
+             all(np.isfinite(r["loss"]).all() and np.isfinite(r["grad_norm"]).all()
+                 for r in runs),
+             all(r["applied_updates"] == TRAIN_UPDATES for r in runs),
+             cli["steps"] == [1, 2, 3, 4], cli["finite"], cli["latest_step"] == 4,
+             all(v == 0 for v in launches.values())]
+    if not all(gates):
+        raise AssertionError(f"train phase failed: {gates} {res}")
+    return res
+
+
 def profile_request(run) -> None:
     """One more request under torch.profiler: device kernel time by name and
     the device's busy share of the wall time."""
@@ -3737,6 +4120,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # inference throughout; the train phase turns gradients on for itself
+    # (a kernel launch refuses tensors that want a gradient)
+    torch.set_grad_enabled(False)
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "name": name,
@@ -3777,6 +4163,7 @@ def main() -> int:
     pho = phoneme_phase(res, kernels, smi)
     lam = lam_phase(kernels, smi)
     mc = multicode_phase(kernels, smi)
+    train_phase(kernels, smi)
     flow = res["stack"][1]
     del res["stack"]
     rows = timing(K1, K2, K3, K4, K5, K6, K7, res["last_decode"], flow, batched["block_shape"])

@@ -10,8 +10,9 @@ without memory).  The recipes' training-only keys (dropout rates, loss
 settings) are fields of the port's configs that no inference code reads.
 
 The recipes are read by a small YAML reader of the subset they use (block
-mappings by indentation, flow lists and mappings, plain and quoted
-scalars, comments), so the port needs no YAML package;
+mappings by indentation, flow lists and mappings, block sequences of those,
+plain and quoted scalars, comments; anything else raises), so the port
+needs no YAML package;
 tests/test_torch_config.py holds it equal to yaml.safe_load on every
 recipe.
 """
@@ -233,20 +234,38 @@ def _strip_comment(line: str) -> str:
     return line.rstrip()
 
 
+def _block_item(blocks: list, item: str, n: int) -> None:
+    """Append `item` (a scalar or a flow collection) to the block sequence
+    of the last key opened with nothing after it."""
+    if not item or item.startswith("-") or (item[0] not in "[{'\"" and (
+            ": " in item or item.endswith(":"))):
+        raise ValueError(f"YAML line {n}: a block sequence of sequences or mappings is not "
+                         f"read here; write it as a flow list")
+    holder, key = blocks[-1]
+    if holder[key] == {}:
+        holder[key] = []
+    if not isinstance(holder[key], list):
+        raise ValueError(f"YAML line {n}: a sequence item under a mapping")
+    holder[key].append(_flow(item)[0])
+
+
 def parse_yaml(text: str) -> dict:
     """Block mappings nested by indentation whose values are scalars, flow
-    lists / mappings, or further block mappings (a key with nothing under
-    it is null)."""
+    lists / mappings, block sequences of those, or further block mappings
+    (a key with nothing under it is null).  Any other YAML raises."""
     root: dict = {}
     stack = [(-1, root)]
     blocks = []
-    for raw in text.splitlines():
+    for n, raw in enumerate(text.splitlines(), start=1):
         line = _strip_comment(raw)
         if not line.strip():
             continue
         indent = len(line) - len(line.lstrip(" "))
         while stack[-1][0] >= indent:
             stack.pop()
+        if line.strip() == "-" or line.strip().startswith("- "):
+            _block_item(blocks, line.strip()[1:].strip(), n)
+            continue
         key, _, rest = line.strip().partition(":")
         parent, rest = stack[-1][1], rest.strip()
         if rest:

@@ -13,7 +13,8 @@ kernel (transposed) and fp32 scale [out]; packed-int4 QDense leaves (kernel
 [K, Cin, Cout] become [Cout, Cin, K]; weight-norm (g, v) pairs become
 weight_g / weight_v, and a weight-normed transposed conv (stored k-flipped,
 in forward-correlation form) becomes torch's [Cin, Cout, K], as does a
-plain transposed conv's kernel.
+plain transposed conv's kernel.  `train_state_from_jax` carries a
+training run's trees (params, gradients) by registry kind.
 """
 from __future__ import annotations
 
@@ -644,3 +645,19 @@ def with_spk_state_from_jax(variables: dict) -> dict:
         "batch_stats": variables["batch_stats"]["speaker_embed"]})
     sd.update((f"speaker_embed.{k}", v) for k, v in spk.items())
     return sd
+
+
+# the registry kinds whose training the port runs (bin/train.py)
+TRAIN_CONVERTERS = {"qwen2lm": lm_state_from_jax,
+                    "transformer_lm": transformer_lm_state_from_jax,
+                    "flow": flow_state_from_jax, "flow_stream": flow_state_from_jax,
+                    "flow_v1": flow_v1_state_from_jax}
+
+
+def train_state_from_jax(kind: str, tree: dict) -> dict:
+    """A JAX training tree of a registry `kind` -> the port module's
+    parameter names: its params (a state dict to load), or a tree of the
+    same layout, such as its gradients or an optimizer moment.  Every
+    converter is a linear rearrangement, so a gradient tree carries across
+    as the parameters do."""
+    return TRAIN_CONVERTERS[kind](tree)

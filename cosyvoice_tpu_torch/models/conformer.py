@@ -24,8 +24,11 @@ other users take, and two kinds of incremental step:
     Like the JAX decode, both keep the macaron FFN and skip the conv module
     (it spans time and would need its own history); `.chunk` refuses either
     option, as the JAX one does.
-Dropout rates and the other training fields of ConformerConfig do nothing
-here.  Parameter names follow the reference checkpoint (`encoders.{i}.self_attn.linear_q`,
+Dropout (the attention probabilities at attention_dropout_rate; the FFN's
+hidden layer, each residual branch and the input embedding at dropout_rate)
+acts in train() mode inside an nn/dropout.dropout_generator block (a
+training step), its masks drawn from that generator, at the JAX package's
+places.  Parameter names follow the reference checkpoint (`encoders.{i}.self_attn.linear_q`,
 `encoders.{i}.feed_forward.w_1`, `embed.out.0`, ...; wenet's
 TransformerEncoderLayer, the v1 LM body's, names its norms `norm1` / `norm2`).
 """
@@ -43,6 +46,7 @@ import torch.nn.functional as F
 
 from cosyvoice_tpu_torch.nn.conv import Conv1d
 from cosyvoice_tpu_torch.nn.dense import Dense
+from cosyvoice_tpu_torch.nn.dropout import Dropout, training_step
 from cosyvoice_tpu_torch.nn.norm import LayerNorm
 from cosyvoice_tpu_torch.ops.activations import swish
 from cosyvoice_tpu_torch.ops.masks import (NEG_INF, add_chunk_mask, anchored_chunk_mask,
@@ -62,7 +66,7 @@ class ConformerConfig:
     input_layer: str = "linear"   # linear | linear_legacy (a ReLU after the norm)
     spk_adapt: bool = False       # per-layer speaker injection (full forward only)
     spk_emb_size: int = 512
-    # training only: read by no port code
+    # training only (train() mode): nn/dropout.py
     dropout_rate: float = 0.1
     attention_dropout_rate: float = 0.1
     # the layer's options (the CosyVoice recipes set none of them)
@@ -102,9 +106,11 @@ def rel_shift(x: torch.Tensor) -> torch.Tensor:
 
 
 class RelPositionAttention(nn.Module):
-    def __init__(self, heads: int, dim: int, key_bias: bool = True):
+    def __init__(self, heads: int, dim: int, key_bias: bool = True,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.heads, self.dim = heads, dim
+        self.attn_dropout = Dropout(dropout_rate)
         self.linear_q = Dense(dim, dim)
         self.linear_k = Dense(dim, dim, bias=key_bias)
         self.linear_v = Dense(dim, dim)
@@ -126,6 +132,7 @@ class RelPositionAttention(nn.Module):
         scores = (ac + rel_shift(bd)) / math.sqrt(D)
         m = mask[:, None]
         attn = torch.softmax(scores.masked_fill(~m, NEG_INF), dim=-1).masked_fill(~m, 0.0)
+        attn = self.attn_dropout(attn)
         out = torch.einsum("bhij,bjhd->bihd", attn, v).reshape(B, T, self.dim)
         return self.linear_out(out)
 
@@ -201,14 +208,16 @@ _ACTIVATIONS = {"swish": swish, "relu": F.relu, "gelu": _gelu}
 
 
 class PositionwiseFeedForward(nn.Module):
-    def __init__(self, dim: int, hidden: int, activation: str = "swish"):
+    def __init__(self, dim: int, hidden: int, activation: str = "swish",
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.w_1 = Dense(dim, hidden)
         self.w_2 = Dense(hidden, dim)
         self.act = _ACTIVATIONS[activation]
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x):
-        return self.w_2(self.act(self.w_1(x)))
+        return self.w_2(self.dropout(self.act(self.w_1(x))))
 
 
 class MoEFFNLayer(nn.Module):
@@ -259,6 +268,10 @@ class ConvolutionModule(nn.Module):
 
     def forward(self, x, pad_mask: Optional[torch.Tensor] = None):
         """x [B, T, C]; pad_mask [B, T] bool (True = valid)."""
+        if self.training and isinstance(self.norm, nn.BatchNorm1d) and training_step():
+            raise NotImplementedError("training a conv module with batch_norm needs batch "
+                                      "statistics (no recipe sets use_cnn_module); use "
+                                      "cnn_norm='layer_norm' or eval()")
         if pad_mask is not None:
             x = x.masked_fill(~pad_mask[..., None], 0.0)
         a, b = self.pointwise_conv1(x).chunk(2, dim=-1)
@@ -289,17 +302,20 @@ class ConformerEncoderLayer(nn.Module):
         for name in self.NORMS:
             self.add_module(name, LayerNorm(cfg.dim, 1e-5 if cfg.spk_adapt else 1e-12))
         self.spk_linear = Dense(cfg.spk_emb_size, cfg.dim) if cfg.spk_adapt else None
-        self.self_attn = RelPositionAttention(cfg.heads, cfg.dim, cfg.key_bias)
+        self.res_dropout = Dropout(cfg.dropout_rate)
+        self.self_attn = RelPositionAttention(cfg.heads, cfg.dim, cfg.key_bias,
+                                              cfg.attention_dropout_rate)
         if cfg.ffn_type == "moe":
             self.feed_forward = MoEFFNLayer(cfg.dim, cfg.linear_units, cfg.n_expert,
                                             cfg.n_expert_per_token, cfg.activation)
         else:
             self.feed_forward = PositionwiseFeedForward(cfg.dim, cfg.linear_units,
-                                                        cfg.activation)
+                                                        cfg.activation, cfg.dropout_rate)
         if cfg.macaron_style:
             self.norm_ff_macaron = LayerNorm(cfg.dim, 1e-12)
             self.feed_forward_macaron = PositionwiseFeedForward(cfg.dim, cfg.linear_units,
-                                                                cfg.activation)
+                                                                cfg.activation,
+                                                                cfg.dropout_rate)
         if cfg.use_cnn_module:
             self.norm_conv = LayerNorm(cfg.dim, 1e-12)
             self.norm_final = LayerNorm(cfg.dim, 1e-12)
@@ -312,7 +328,8 @@ class ConformerEncoderLayer(nn.Module):
 
     def _macaron(self, x):
         if self.cfg.macaron_style:
-            x = x + self.ff_scale * self.feed_forward_macaron(self.norm_ff_macaron(x))
+            x = x + self.ff_scale * self.res_dropout(
+                self.feed_forward_macaron(self.norm_ff_macaron(x)))
         return x
 
     def forward(self, x, pos_emb, attn_mask, spk_emb: Optional[torch.Tensor] = None,
@@ -322,11 +339,12 @@ class ConformerEncoderLayer(nn.Module):
         norm_mha, norm_ff = self._norms()
         if spk_emb is not None and self.spk_linear is not None:
             x = x + self.spk_linear(spk_emb)[:, None, :].to(x.dtype)
+        drop = self.res_dropout
         x = self._macaron(x)
-        x = x + self.self_attn(norm_mha(x), pos_emb, attn_mask)
+        x = x + drop(self.self_attn(norm_mha(x), pos_emb, attn_mask))
         if self.cfg.use_cnn_module:
-            x = x + self.conv_module(self.norm_conv(x), pad_mask)
-        x = x + self.ff_scale * self.feed_forward(norm_ff(x))
+            x = x + drop(self.conv_module(self.norm_conv(x), pad_mask))
+        x = x + self.ff_scale * drop(self.feed_forward(norm_ff(x)))
         return self.norm_final(x) if self.cfg.use_cnn_module else x
 
     def chunk(self, x, layer_k, layer_v, pos, bias):
@@ -365,14 +383,16 @@ class LinearEmbed(nn.Module):
     `legacy`, LegacyLinearNoSubsampling's ReLU after the norm (the v1 LM
     body's input layer)."""
 
-    def __init__(self, in_dim: int, dim: int, legacy: bool = False):
+    def __init__(self, in_dim: int, dim: int, legacy: bool = False,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.out = nn.ModuleList([Dense(in_dim, dim), LayerNorm(dim, 1e-5)])
         self.scale = float(np.sqrt(dim))
         self.legacy = legacy
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x):
-        h = self.out[1](self.out[0](x))
+        h = self.dropout(self.out[1](self.out[0](x)))
         return (F.relu(h) if self.legacy else h) * self.scale
 
 
@@ -542,12 +562,12 @@ class UpsampleConformerEncoder(nn.Module):
                  chunk_always: bool = True):
         super().__init__()
         self.cfg, self.up_stride, self.chunk_always = cfg, up_stride, chunk_always
-        self.embed = LinearEmbed(cfg.input_size, cfg.dim)
+        self.embed = LinearEmbed(cfg.input_size, cfg.dim, dropout_rate=cfg.dropout_rate)
         self.pre_lookahead_layer = PreLookaheadLayer(cfg.dim, pre_lookahead_len)
         self.encoders = nn.ModuleList(ConformerEncoderLayer(cfg)
                                       for _ in range(cfg.num_blocks))
         self.up_layer = Upsample1D(cfg.dim, up_stride)
-        self.up_embed = LinearEmbed(cfg.dim, cfg.dim)
+        self.up_embed = LinearEmbed(cfg.dim, cfg.dim, dropout_rate=cfg.dropout_rate)
         self.up_encoders = nn.ModuleList(ConformerEncoderLayer(cfg)
                                          for _ in range(up_blocks))
         self.after_norm = LayerNorm(cfg.dim, 1e-5)
@@ -616,7 +636,8 @@ class ConformerEncoder(nn.Module):
         self.cfg = cfg
         layer = TransformerEncoderLayer if transformer_layer else ConformerEncoderLayer
         self.embed = LinearEmbed(cfg.input_size, cfg.dim,
-                                 legacy=cfg.input_layer == "linear_legacy")
+                                 legacy=cfg.input_layer == "linear_legacy",
+                                 dropout_rate=cfg.dropout_rate)
         self.encoders = nn.ModuleList(layer(cfg) for _ in range(cfg.num_blocks))
         self.after_norm = LayerNorm(cfg.dim, 1e-5)
 

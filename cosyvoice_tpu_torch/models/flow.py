@@ -48,6 +48,14 @@ tokens on their own) -> ConditionalCFM, whose noise is fresh each call (the
 caller's draw: runtime/model.py's CosyVoiceV1Model takes it from the
 session's generator) and whose `flow_cache` pins the prompt's and the last
 34 frames' noise and mu across streamed chunks.
+
+Training: `CausalConditionalCFM.compute_loss` (the masked OT-CFM loss at a
+cosine-scheduled t, with CFG dropout at training_cfg_rate) and the two
+flows' `forward` (the loss, with a 0-30% prompt prefix as conditioning in
+half the rows).  Their random draws come from a torch.Generator, or from a
+`FlowDraws` given by the caller (tests pin the JAX package's draws with
+it).  The kernels have no backward, so a grad-enabled estimator call on a
+route through K2/K3/K4 raises.
 """
 from __future__ import annotations
 
@@ -370,6 +378,11 @@ class ConditionalDecoder(nn.Module):
         [B, T, out_channels] fp32.  chunk_anchor [B] (mel rows) anchors the
         stream family's streaming chunk grid."""
         cfg = self.cfg
+        if torch.is_grad_enabled() and (cfg.fused_attention or cfg.fused_norm
+                                        or cfg.fused_block):
+            raise RuntimeError("the estimator's fused route (K2/K3/K4) has no backward: "
+                               "train with fused_attention, fused_norm and fused_block "
+                               "off, or call it under torch.no_grad()")
         cdt = _DTYPES[cfg.dtype]
         x, mu, spks, cond, mask = (v.to(cdt) for v in (x, mu, spks, cond, mask))
         t_emb = self.time_embed(t, cdt)
@@ -413,7 +426,8 @@ class ConditionalDecoder(nn.Module):
 
 @dataclass(frozen=True)
 class CFMConfig:
-    # training only (the flow-matching loss); read by no port code
+    # the training loss (compute_loss): the OT path's floor, t's schedule and
+    # the share of rows trained without conditioning
     sigma_min: float = 1e-6
     t_scheduler: str = "cosine"
     training_cfg_rate: float = 0.2
@@ -436,6 +450,41 @@ def reference_rand_noise(frames: int = 15000, channels: int = 80) -> torch.Tenso
 def cosine_t_span(n_timesteps: int, dtype=torch.float32, device=None) -> torch.Tensor:
     ts = torch.linspace(0.0, 1.0, n_timesteps + 1, dtype=dtype, device=device)
     return 1.0 - torch.cos(ts * 0.5 * math.pi)
+
+
+@dataclass
+class FlowDraws:
+    """The random draws of one flow training loss: use_cond [B] bool (rows
+    conditioned on a prompt prefix), frac [B] (the prefix's share of 30%),
+    t [B] uniform (before the cosine schedule), z [B, T, C] noise, keep [B]
+    bool (rows that keep their conditioning under CFG dropout)."""
+
+    use_cond: torch.Tensor
+    frac: torch.Tensor
+    t: torch.Tensor
+    z: torch.Tensor
+    keep: torch.Tensor
+
+    @staticmethod
+    def draw(gen: torch.Generator, B: int, T: int, C: int, cfg_rate: float) -> "FlowDraws":
+        """The JAX draws' distributions, from `gen` on its device."""
+        dev = gen.device
+        rand = lambda *shape: torch.rand(shape, generator=gen, device=dev)
+        use_cond, frac, t = rand(B) < 0.5, rand(B), rand(B)
+        z = torch.randn((B, T, C), generator=gen, device=dev)
+        keep = rand(B) > cfg_rate if cfg_rate > 0 else torch.ones(B, dtype=torch.bool,
+                                                                   device=dev)
+        return FlowDraws(use_cond, frac, t, z, keep)
+
+
+def prompt_prefix_cond(feat, feat_len, draws: FlowDraws) -> torch.Tensor:
+    """The flows' training conditioning: in the use_cond rows the first
+    int(frac * 0.3 * feat_len) mel frames of feat [B, T, C], zeros elsewhere."""
+    dev = feat.device
+    idx = (draws.frac.to(dev) * 0.3 * feat_len).to(torch.int32)
+    pos = torch.arange(feat.shape[1], device=dev)[None, :]
+    keep = (pos < idx[:, None]) & draws.use_cond.to(dev)[:, None]
+    return torch.where(keep[..., None], feat, torch.zeros_like(feat))
 
 
 class CausalConditionalCFM(nn.Module):
@@ -480,6 +529,30 @@ class CausalConditionalCFM(nn.Module):
             x = x + dt * ((1.0 + r) * v[:B] - r * v[B:])
         return x
 
+    def compute_loss(self, x1, mask, mu, spks, cond, draws: FlowDraws,
+                     streaming: bool = False):
+        """Masked OT-CFM MSE: x1 / mu / cond [B, T, C] (x1 the target mel),
+        mask [B, T] float, spks [B, C] -> (loss, y), the loss divided by
+        sum(mask) * C."""
+        cfg = self.cfg
+        B, T, C = mu.shape
+        dev, dt = mu.device, mu.dtype
+        t = draws.t.to(device=dev, dtype=dt)[:, None, None]
+        if cfg.t_scheduler == "cosine":
+            t = 1.0 - torch.cos(t * 0.5 * math.pi)
+        z = draws.z.to(device=dev, dtype=x1.dtype)
+        y = (1.0 - (1.0 - cfg.sigma_min) * t) * z + t * x1
+        u = x1 - (1.0 - cfg.sigma_min) * z
+        if cfg.training_cfg_rate > 0:
+            keep = draws.keep.to(device=dev, dtype=dt)
+            mu = mu * keep[:, None, None]
+            spks = spks * keep[:, None]
+            cond = cond * keep[:, None, None]
+        pred = self.estimator(y, mask, mu, t[:, 0, 0], spks, cond, streaming)
+        m = mask[..., None]
+        loss = torch.sum(((pred - u) * m) ** 2) / (torch.sum(mask) * C)
+        return loss, y
+
 
 @dataclass(frozen=True)
 class FlowConfig:
@@ -519,6 +592,25 @@ class CausalMaskedDiffWithXvec(nn.Module):
         h, pad2 = self.encoder(emb.to(_DTYPES[self.cfg.encoder_dtype]), token_len, streaming,
                                chunk_anchor)
         return self.encoder_proj(h.float()), pad2
+
+    def forward(self, token, token_len, feat, feat_len, embedding,
+                gen: Optional[torch.Generator] = None, draws: Optional[FlowDraws] = None,
+                streaming: bool = False) -> dict:
+        """Training loss: token [B, Tt], feat [B, Tf, 80] the target mel
+        (Tf >= ratio * Tt; cut to the encoder's rows), embedding [B, spk] ->
+        {"loss"}.  Draws from `gen`, or the given `draws`."""
+        spks = embedding / embedding.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        spks = self.spk_embed_affine_layer(spks)
+        h, _ = self._encode(token, token_len, streaming)
+        B, T2, C = h.shape
+        feat = feat[:, :T2]
+        feat_len = feat_len.clamp_max(T2)
+        if draws is None:
+            draws = FlowDraws.draw(gen, B, T2, C, self.cfg.cfm.training_cfg_rate)
+        conds = prompt_prefix_cond(feat, feat_len, draws)
+        mask = make_non_pad_mask(feat_len, T2).to(h.dtype)
+        loss, _ = self.decoder.compute_loss(feat, mask, h, spks, conds, draws, streaming)
+        return {"loss": loss}
 
     @torch.no_grad()
     def inference(self, token, token_len, prompt_feat, embedding, n_timesteps: int = 10,
@@ -664,6 +756,26 @@ class MaskedDiffWithXvec(nn.Module):
         self.encoder_proj = Dense(cfg.encoder.dim, cfg.output_size)
         self.length_regulator = InterpolateRegulator(cfg.output_size, cfg.regulator_stages)
         self.decoder = ConditionalCFM(cfg.cfm, cfg.estimator)
+
+    def forward(self, token, token_len, feat, feat_len, embedding,
+                gen: Optional[torch.Generator] = None,
+                draws: Optional[FlowDraws] = None) -> dict:
+        """Training loss: token [B, Tt], feat [B, Tf, 80] the target mel,
+        embedding [B, spk] -> {"loss"}; the encoder's rows interpolated to
+        Tf.  Draws from `gen`, or the given `draws`."""
+        spks = embedding / embedding.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        spks = self.spk_embed_affine_layer(spks)
+        mask = make_non_pad_mask(token_len, token.shape[1])
+        emb = self.input_embedding(token.clamp_min(0)) * mask[..., None]
+        h, _ = self.encoder(emb, token_len)
+        h = self.length_regulator(self.encoder_proj(h), feat_len, feat.shape[1])
+        B, T2, C = h.shape
+        if draws is None:
+            draws = FlowDraws.draw(gen, B, T2, C, self.cfg.cfm.training_cfg_rate)
+        conds = prompt_prefix_cond(feat, feat_len, draws)
+        fmask = make_non_pad_mask(feat_len, T2).to(h.dtype)
+        loss, _ = self.decoder.compute_loss(feat, fmask, h, spks, conds, draws)
+        return {"loss": loss}
 
     @torch.no_grad()
     def inference(self, token, token_len, prompt_feat, embedding, noise: torch.Tensor,

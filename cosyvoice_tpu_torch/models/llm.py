@@ -26,6 +26,7 @@ the Qwen2 body, `llm_embedding`, `speech_embedding`, `llm_decoder`; v1's
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -40,7 +41,9 @@ from cosyvoice_tpu_torch.nn.dense import Dense
 from cosyvoice_tpu_torch.ops import sampling as samp
 from cosyvoice_tpu_torch.ops.kernels.lm_step import (StepWeights, cache_to_step_layout,
                                                      lm_step)
-from cosyvoice_tpu_torch.ops.masks import NEG_INF
+from cosyvoice_tpu_torch.ops.masks import NEG_INF, make_non_pad_mask
+
+IGNORE_ID = -1
 
 
 @dataclass(frozen=True)
@@ -58,7 +61,8 @@ class LMConfig:
     llm_input_size: int = 896
     llm_output_size: int = 896
     speech_token_size: int = 6561
-    # training only (the CE loss); read by no port code
+    # the training loss (masked_ce_loss): divide by the target count (else by
+    # the batch's example count), and the label-smoothing weight
     length_normalized_loss: bool = True
     lsm_weight: float = 0.0
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
@@ -139,6 +143,109 @@ class Qwen2LM(nn.Module):
 
     def speech_emb(self, tokens):
         return self.speech_embedding(tokens)
+
+    # ---- training -----------------------------------------------------------
+
+    def _trainable(self) -> None:
+        if self.cfg.qwen.quant != "none":
+            raise ValueError(f"training takes float weights; this LM is quantized "
+                             f"({self.cfg.qwen.quant!r})")
+
+    def forward(self, text, text_len, speech, speech_len) -> dict:
+        """Training loss over [IGNORE x (1 + text_len), speech, EOS]: text
+        [B, Tt], speech [B, Ts] (right-padded) -> {"loss", "acc"}.  Attention
+        is causal + padding, as HF Qwen2 applies it to the reference's pad
+        mask."""
+        self._trainable()
+        cfg = self.cfg
+        emb, seq_len = self.prefill_embeds(text, text_len, speech, speech_len)
+        B, N, _ = emb.shape
+        dev = emb.device
+        ar = torch.arange(N, device=dev)
+        pad = make_non_pad_mask(seq_len, N)
+        causal = ar[None, :] <= ar[:, None]
+        bias = torch.where(causal[None, None] & pad[:, None, None, :], 0.0,
+                           NEG_INF).to(emb.dtype)
+        hidden, _ = self.body(emb, ar[None].expand(B, N), bias)
+        logits = self.llm_decoder(hidden)
+        target = _speech_targets(speech, text_len, speech_len, N, 1, cfg.eos_token)
+        return {"loss": masked_ce_loss(logits, target, cfg.lsm_weight,
+                                       cfg.length_normalized_loss),
+                "acc": masked_accuracy(logits, target)}
+
+    def packed_call(self, ids, types, positions, seg, target) -> dict:
+        """Sequence-packed training loss (train/packing.py builds the
+        arrays): each row holds several [sos, text, task, speech] examples
+        back to back.  ids [B, N] per-type embedding indices; types [B, N]
+        0 pad, 1 text, 2 sos/task, 3 speech; positions [B, N] restart at
+        each example; seg [B, N] example id (1-based, 0 pad); target [B, N]
+        next-token labels, IGNORE_ID elsewhere.  Attention is block-diagonal
+        causal, so the loss equals forward() on the same examples; with
+        length_normalized_loss False the divisor is the example count."""
+        self._trainable()
+        cfg = self.cfg
+        B, N = ids.shape
+        zero = torch.zeros_like(ids)
+        te = self.body.embed_tokens(torch.where(types == 1, ids, zero))
+        le = self.llm_embedding(torch.where(types == 2, ids.clamp_max(1), zero))
+        se = self.speech_embedding(torch.where(types == 3, ids, zero))
+        emb = torch.where((types == 1)[..., None], te,
+              torch.where((types == 2)[..., None], le,
+              torch.where((types == 3)[..., None], se, torch.zeros_like(te))))
+        ar = torch.arange(N, device=ids.device)
+        causal = ar[None, :] <= ar[:, None]
+        same = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] > 0)
+        bias = torch.where(causal[None] & same, 0.0, NEG_INF).to(emb.dtype)[:, None]
+        hidden, _ = self.body(emb, positions, bias)
+        logits = self.llm_decoder(hidden)
+        denom = None if cfg.length_normalized_loss else seg.amax(dim=1).sum()
+        return {"loss": masked_ce_loss(logits, target, cfg.lsm_weight,
+                                       cfg.length_normalized_loss, denom=denom),
+                "acc": masked_accuracy(logits, target)}
+
+
+def _speech_targets(speech, text_len, speech_len, N: int, first: int, eos: int):
+    """Next-token labels [B, N] of a packed prefix whose speech tokens start
+    at position first + 1 + text_len: position p predicts token p + 1, so
+    the speech targets start at first + text_len and EOS follows the last;
+    IGNORE_ID elsewhere."""
+    B, Ts = speech.shape
+    pos = torch.arange(N, device=speech.device)[None, :]
+    tl, sl = text_len[:, None], speech_len[:, None]
+    tgt = torch.gather(speech, 1, (pos - first - tl).clamp(0, Ts - 1).expand(B, N))
+    is_speech = (pos >= first + tl) & (pos < first + tl + sl)
+    ignore = torch.full_like(tgt, IGNORE_ID)
+    return torch.where(is_speech, tgt,
+                       torch.where(pos == first + tl + sl, torch.full_like(tgt, eos), ignore))
+
+
+def masked_ce_loss(logits, target, smoothing: float = 0.0, length_normalized: bool = True,
+                   denom=None) -> torch.Tensor:
+    """wenet's LabelSmoothingLoss with IGNORE_ID masking, in fp32: KL to the
+    smoothed target (confidence 1 - smoothing at the target, smoothing /
+    (V - 1) elsewhere) in closed form, without a [.., V] target tensor.
+    Divided by the target count, or with length_normalized False by the
+    batch size (`denom` overrides either: a packed batch's example count)."""
+    V = logits.shape[-1]
+    valid = target != IGNORE_ID
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp_tgt = torch.gather(logp, -1, target.clamp_min(0)[..., None])[..., 0]
+    if smoothing > 0.0:
+        conf, sm = 1.0 - smoothing, smoothing / (V - 1)
+        ent = conf * math.log(conf) + (V - 1) * sm * math.log(sm)
+        nll = ent - conf * logp_tgt - sm * (logp.sum(dim=-1) - logp_tgt)
+    else:
+        nll = -logp_tgt
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    if denom is None:
+        denom = valid.sum() if length_normalized else logits.shape[0]
+    return nll.sum() / torch.clamp(torch.as_tensor(denom, device=nll.device), min=1)
+
+
+def masked_accuracy(logits, target) -> torch.Tensor:
+    valid = target != IGNORE_ID
+    hit = (logits.argmax(dim=-1) == target) & valid
+    return hit.sum() / valid.sum().clamp_min(1)
 
 
 @dataclass
@@ -436,7 +543,7 @@ class TransformerLMConfig:
     text_token_size: int = 60515
     speech_token_size: int = 4096
     spk_embed_dim: int = 192
-    # training only (the CE loss); read by no port code
+    # the training loss, as LMConfig's
     length_normalized_loss: bool = True
     lsm_weight: float = 0.0
     sampling: SamplingConfig = field(default_factory=lambda: SamplingConfig(
@@ -523,6 +630,21 @@ class TransformerLM(nn.Module):
             spk = self.spk_embed_affine_layer(spk.to(text_h.dtype))[:, None, :]
             emb = torch.where(pos[..., None] == 1, spk, emb)
         return emb, n_fixed + 1 + text_len + prompt_speech_len
+
+    def forward(self, text, text_len, speech, speech_len, embedding) -> dict:
+        """Training loss over [IGNORE x (2 + text_len), speech, EOS]: the
+        targets assume the speaker slot, as the JAX package's do, so pass
+        an embedding.  -> {"loss", "acc"}.  The body is causal by its static
+        chunk of 1; the conformers' dropout follows train() / eval()."""
+        cfg = self.cfg
+        emb, seq_len = self.prefill_embeds(text, text_len, speech, speech_len, embedding)
+        hidden, _ = self.llm(emb, seq_len)
+        logits = self.llm_decoder(hidden)
+        target = _speech_targets(speech, text_len, speech_len, emb.shape[1], 2,
+                                 cfg.eos_token)
+        return {"loss": masked_ce_loss(logits, target, cfg.lsm_weight,
+                                       cfg.length_normalized_loss),
+                "acc": masked_accuracy(logits, target)}
 
     def llm_prefill(self, embeds, cache: ConformerKVCache):
         return self.llm.prefill(embeds, cache)

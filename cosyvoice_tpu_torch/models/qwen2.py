@@ -12,6 +12,10 @@ the new K/V to the cache in place (at one shared position, or at per-row
 positions for the continuous-batching engine).  Without it the cache is head-major
 [B, KH, T_max, D] and attention is plain PyTorch.  Cache writes are in place
 (the JAX package returns new buffers).
+
+Training forwards (no cache, grad on) take the config's `block_attention`
+route (ops/block_attention.py) and its `remat` policy through
+torch.utils.checkpoint, as the JAX package's flax remat does.
 """
 from __future__ import annotations
 
@@ -24,6 +28,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
+from cosyvoice_tpu_torch.ops.block_attention import block_attention
 from cosyvoice_tpu_torch.ops.kernels.int4_matmul import int4_matmul, int4_matmul_plain
 from cosyvoice_tpu_torch.ops.kernels.lm_decode_attention import lm_decode_attention
 from cosyvoice_tpu_torch.ops.masks import NEG_INF
@@ -49,6 +56,16 @@ class Qwen2Config:
     quant_group: int = 128  # int4 / int4xla scale group size along the input dim
     # packed [B, T, KH*D] cache + the lm_decode_attention kernel for decode
     fused_cache_update: bool = False
+    # training (cache-less forwards with grad): recompute in the backward
+    # through torch.utils.checkpoint, either the attention-score chain only
+    # ("scores": the [.., T, T] scores and probabilities are not kept) or the
+    # whole layer ("all", or any other value, as in the JAX package)
+    remat: bool = False
+    remat_policy: str = "scores"
+    # cache-less T > 1 forwards through ops/block_attention.py (the flash
+    # recurrence over key blocks; nothing quadratic in T kept for backward)
+    block_attention: bool = False
+    attention_block: int = 256
 
 
 class KVCache:
@@ -233,16 +250,32 @@ class Qwen2Layer(nn.Module):
                     ck[:, :, cache_pos:cache_pos + T] = kt.to(ck.dtype)
                     cv[:, :, cache_pos:cache_pos + T] = vt.to(cv.dtype)
                 k_all, v_all = ck.to(x.dtype), cv.to(x.dtype)
-            qg = q.reshape(B, T, KH, g, HD)
-            scores = torch.einsum("bikgd,bkjd->bkgij", qg.float(),
-                                  k_all.float()) / math.sqrt(HD)
-            scores = scores + bias[:, :, None, :, :].float()
-            attn = torch.softmax(scores, dim=-1).to(x.dtype)
-            o = torch.einsum("bkgij,bkjd->bikgd", attn, v_all).reshape(B, T, H * HD)
+            if cfg.block_attention and layer_cache is None and T > 1:
+                o = block_attention(q.transpose(1, 2), k_all, v_all, bias,
+                                    1.0 / math.sqrt(HD), cfg.attention_block)
+                o = o.transpose(1, 2).reshape(B, T, H * HD)
+            elif (cfg.remat and cfg.remat_policy == "scores" and layer_cache is None
+                  and torch.is_grad_enabled()):
+                # the backward recomputes the score chain from q, k, v, bias
+                o = checkpoint(_attend, q, k_all, v_all, bias, use_reentrant=False)
+            else:
+                o = _attend(q, k_all, v_all, bias)
         x = x + att["o_proj"](o)
         h = self.post_attention_layernorm(x)
         mlp = self.mlp
         return x + mlp["down_proj"](F.silu(mlp["gate_proj"](h)) * mlp["up_proj"](h))
+
+
+def _attend(q, k_all, v_all, bias):
+    """Materialized-softmax GQA attention: q [B, T, H, HD], k_all / v_all
+    [B, KH, Tk, HD], bias [B, 1, T, Tk] -> [B, T, H * HD]; fp32 scores."""
+    B, T, H, HD = q.shape
+    KH = k_all.shape[1]
+    qg = q.reshape(B, T, KH, H // KH, HD)
+    scores = torch.einsum("bikgd,bkjd->bkgij", qg.float(), k_all.float()) / math.sqrt(HD)
+    scores = scores + bias[:, :, None, :, :].float()
+    attn = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bkgij,bkjd->bikgd", attn, v_all).reshape(B, T, H * HD)
 
 
 class Qwen2Model(nn.Module):
@@ -269,7 +302,12 @@ class Qwen2Model(nn.Module):
             raise ValueError("packed-cache prefill must be the cache's first write")
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, embeds.dtype)
         x = embeds
+        remat_all = (cfg.remat and cfg.remat_policy != "scores" and cache is None
+                     and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
+            if remat_all:
+                x = checkpoint(layer, x, cos, sin, attn_bias, use_reentrant=False)
+                continue
             lc = (cache.k[i], cache.v[i]) if cache is not None else None
             x = layer(x, cos, sin, attn_bias, lc, cache.pos if cache is not None else None)
         if cache is not None:

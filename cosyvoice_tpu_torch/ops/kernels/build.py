@@ -154,6 +154,12 @@ def check_launch(rc: int, name: str) -> None:
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """The launch's tensors on one CUDA device, contiguous, and none of
+    them wanting a gradient: the kernels have no backward, so a launch
+    inside autograd would hand back an output cut off from the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; call it under "
+                           "torch.no_grad() (training takes the plain PyTorch routes)")
     index = tensors[0].get_device()            # -1 on the CPU
     for t in tensors:
         if index < 0 or t.get_device() != index:

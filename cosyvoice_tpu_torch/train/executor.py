@@ -1,0 +1,118 @@
+"""Training executor: the epoch loop, periodic CV and checkpoints, metric
+logging.  Port of cosyvoice_tpu/train/executor.py's Executor (the GAN
+executor comes with the vocoders' training).
+
+Each step draws from its own generator, a function of (rng_seed, step)
+alone (train/step.step_generator), so a resumed run repeats the draws an
+unbroken one makes.  Metrics go to `metrics.jsonl` in the model directory
+(one JSON object a line: tag, epoch, step and the values) and to the log.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from dataclasses import dataclass
+from typing import Callable, Iterable, Optional
+
+import torch
+
+from cosyvoice_tpu_torch.nn.dropout import dropout_generator
+from cosyvoice_tpu_torch.train.checkpoint import save_checkpoint
+from cosyvoice_tpu_torch.train.step import TrainState, step_generator
+
+logger = logging.getLogger(__name__)
+
+
+def arrays_only(batch: dict) -> dict:
+    """Drop non-array metadata (utterance ids, text strings)."""
+    return {k: v for k, v in batch.items()
+            if not isinstance(v, (str, bytes))
+            and not (isinstance(v, list) and v and isinstance(v[0], str))}
+
+
+def all_hosts_have_data(has_batch: bool) -> bool:
+    """Every process stops together when one runs out of data; one process
+    here (more than one card is ROADMAP Queue 1 item 11)."""
+    if torch.distributed.is_available() and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        raise NotImplementedError("multi-process training is ROADMAP Queue 1 item 11")
+    return has_batch
+
+
+@dataclass
+class Executor:
+    train_step: Callable            # (state, batch, gen) -> (state, metrics)
+    model_dir: str
+    device: object = "cuda"         # where the step generators draw
+    save_per_step: int = -1
+    log_interval: int = 100
+    rng_seed: int = 1986
+    cv_step: Optional[Callable] = None  # (model, batch, gen) -> loss dict
+    metrics_path: Optional[str] = None
+    step: int = 0
+    epoch: int = 0
+
+    def __post_init__(self):
+        os.makedirs(self.model_dir, exist_ok=True)
+        self.metrics_path = self.metrics_path or os.path.join(self.model_dir,
+                                                              "metrics.jsonl")
+
+    def _log(self, tag: str, metrics: dict):
+        rec = {"tag": tag, "epoch": self.epoch, "step": self.step,
+               **{k: float(v) for k, v in metrics.items()}}
+        with open(self.metrics_path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        if tag == "CV" or self.step % self.log_interval == 0:
+            logger.info("%s %s", tag, rec)
+
+    def train_one_epoch(self, state: TrainState, train_data: Iterable,
+                        cv_data: Optional[Iterable] = None,
+                        to_device: Callable = lambda b: b) -> TrainState:
+        logger.info("Epoch %d begin", self.epoch)
+        t0, n_since = time.time(), 0
+        it = iter(train_data)
+        while True:
+            batch = next(it, None)
+            if not all_hosts_have_data(batch is not None):
+                break
+            gen = step_generator(self.rng_seed, self.step, self.device)
+            state, metrics = self.train_step(state, to_device(arrays_only(batch)), gen)
+            self.step += 1
+            n_since += 1
+            if self.step % self.log_interval == 0:
+                dt = (time.time() - t0) / max(n_since, 1)
+                self._log("TRAIN", dict(metrics, sec_per_step=dt))
+                t0, n_since = time.time(), 0
+            if self.save_per_step > 0 and self.step % self.save_per_step == 0:
+                if cv_data is not None:
+                    self.cv(state, cv_data, to_device)
+                save_checkpoint(self.model_dir, state, self.step, {"epoch": self.epoch})
+        if cv_data is not None:
+            self.cv(state, cv_data, to_device)
+        save_checkpoint(self.model_dir, state, self.step,
+                        {"epoch": self.epoch, "whole": True})
+        self.epoch += 1
+        return state
+
+    @torch.no_grad()
+    def cv(self, state: TrainState, cv_data: Iterable,
+           to_device: Callable = lambda b: b) -> dict:
+        """The example-weighted mean of cv_step's values over cv_data; batch
+        i runs on the generator of (i, 0), as the JAX executor takes
+        PRNGKey(i), in the training forward's mode."""
+        assert self.cv_step is not None
+        tot, w = {}, 0
+        for i, batch in enumerate(cv_data):
+            n = len(batch.get("utts", [1]))
+            gen = step_generator(i, 0, self.device)
+            state.model.train()
+            with dropout_generator(gen):
+                out = self.cv_step(state.model, to_device(arrays_only(batch)), gen)
+            for k, v in out.items():
+                tot[k] = tot.get(k, 0.0) + float(v) * n
+            w += n
+        avg = {k: v / max(w, 1) for k, v in tot.items()}
+        self._log("CV", avg)
+        return avg

@@ -507,3 +507,15 @@ def test_grouped_vocoders_equal_per_session_loop(cuda, deterministic_cudnn):
             for i, (s, n) in enumerate([(10, 64), (20, 45), (30, 100)])]
     errs += [float(np.abs(a - b).max()) for a, b in zip(got, want)]
     assert max(errs) == 0.0, errs
+
+
+@pytest.mark.gpu
+def test_train_steps_card_equal_cpu(cuda):
+    """chip_smoke.py's small training check: the small LM and flow (flow
+    encoder dropout on) take 3 steps on the card and on the CPU from one
+    init, every step's generator a CPU one (the same masks and flow draws
+    on both): each step's loss within 1e-4 relative."""
+    import chip_smoke
+
+    for kind, r in chip_smoke.train_small_checks().items():
+        assert r["ok"], (kind, r)

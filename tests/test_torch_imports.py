@@ -1,5 +1,6 @@
 """The port (and chip_smoke.py) stands alone: it imports neither JAX nor
-the JAX package (nor `transformers` / `tokenizers` / `tiktoken`: it reads
+the JAX package (nor optax / orbax: the training path keeps optax's
+semantics in its own optimizer and saves with torch; nor `transformers` / `tokenizers` / `tiktoken`: it reads
 tokenizer.json and the v1 ranks file itself; nor `yaml`: config.py reads
 the recipes itself), and its entry points do not fall back to the CPU
 unless asked to."""
@@ -46,11 +47,16 @@ import chip_smoke
 from cosyvoice_tpu_torch.runtime.api import CosyVoice
 from cosyvoice_tpu_torch.runtime.model import CosyVoiceV1Model
 from cosyvoice_tpu_torch.tokenizer.text import WhisperTiktokenTokenizer
+import cosyvoice_tpu_torch.ops.block_attention, cosyvoice_tpu_torch.nn.dropout
+import cosyvoice_tpu_torch.train.optim, cosyvoice_tpu_torch.train.ema
+import cosyvoice_tpu_torch.train.step, cosyvoice_tpu_torch.train.packing
+import cosyvoice_tpu_torch.train.checkpoint, cosyvoice_tpu_torch.train.executor
+import cosyvoice_tpu_torch.data.pipeline, cosyvoice_tpu_torch.bin.train
 bad = [m for m in sys.modules
        if m in ("jax", "flax", "cosyvoice_tpu", "transformers", "tokenizers", "tiktoken",
-                "yaml")
+                "yaml", "optax", "orbax")
        or m.startswith(("jax.", "flax.", "cosyvoice_tpu.", "transformers.", "tokenizers.",
-                        "tiktoken.", "yaml."))]
+                        "tiktoken.", "yaml.", "optax.", "orbax."))]
 print(",".join(bad))
 """
 

@@ -1,0 +1,102 @@
+"""`python -m cosyvoice_tpu_torch.bin.train` on the CPU (its main() with
+--device cpu) at the small widths of tests/test_train_cli.py's recipe:
+qwen2lm, transformer_lm and the flow each train one epoch on a seeded
+jsonl corpus, write metrics.jsonl with finite values and a checkpoint, and
+a second run resumes from that checkpoint; the branches that wait for later
+slices raise NotImplementedError naming their ROADMAP item; the default
+device is the card, with no fallback.  Also the recipe reader's block
+sequences (the train configs below are written by yaml.safe_dump)."""
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from torch_port_util import (one_torch_thread, train_section,  # noqa: F401 (autouse)
+                             write_train_corpus)
+from cosyvoice_tpu_torch.bin import train as train_cli
+from cosyvoice_tpu_torch.config import parse_yaml
+from cosyvoice_tpu_torch.train.checkpoint import latest_step
+
+DATA = {"filter": {"max_length": 99999, "token_max_length": 300},
+        "fbank": {"n_fft": 192, "hop": 48, "n_mels": 20},
+        "max_frames_in_batch": 1000, "shuffle_buf": 4, "sort_buf": 2}
+
+
+def _config(tmp_path, model: str, kind: str, **train_conf) -> str:
+    conf = {model: dict(train_section(kind), kind=kind), "data": DATA,
+            "train_conf": dict({"lr": 1e-4, "log_interval": 1,
+                                "scheduler_conf": {"warmup_steps": 10}}, **train_conf)}
+    path = tmp_path / f"{kind}.yaml"
+    path.write_text(yaml.safe_dump(conf, default_flow_style=False))
+    return str(path)
+
+
+def _metrics(model_dir: str) -> list:
+    return [json.loads(line) for line in open(os.path.join(model_dir, "metrics.jsonl"))]
+
+
+@pytest.mark.parametrize("model,kind", [("llm", "qwen2lm"), ("llm", "transformer_lm"),
+                                        ("flow", "flow")])
+def test_train_cli_trains_and_resumes(tmp_path, model, kind):
+    """One epoch (6 utterances, two batches), then a second run of one epoch
+    that resumes at the saved step: every logged value finite, the TRAIN
+    steps 1..4 in order, the newest checkpoint at step 4."""
+    lst = write_train_corpus(tmp_path, n=6)
+    cfg = _config(tmp_path, model, kind)
+    model_dir = str(tmp_path / f"exp_{kind}")
+    argv = ["--config", cfg, "--model", model, "--train_data", lst, "--model_dir", model_dir,
+            "--epochs", "1", "--device", "cpu"]
+    train_cli.main(argv)
+    first = _metrics(model_dir)
+    assert latest_step(model_dir) == len(first) == 2
+    train_cli.main(argv)
+    recs = _metrics(model_dir)
+    assert [r["step"] for r in recs] == [1, 2, 3, 4]
+    for r in recs:
+        assert all(np.isfinite(v) for k, v in r.items() if k != "tag"), r
+    assert "acc" in recs[-1] if model == "llm" else "loss" in recs[-1]
+    assert latest_step(model_dir) == 4
+    assert os.path.exists(os.path.join(model_dir, "info_4.json"))
+
+
+@pytest.mark.parametrize("args,conf,item", [
+    (["--model", "hift"], {}, "GAN vocoders"),
+    (["--model", "llm"], {"llm": {"kind": "qwen2lm_phoneme_src2"}}, "phoneme"),
+    (["--model", "llm", "--lora"], {}, "phoneme"),
+    (["--model", "llm", "--data_format", "parquet"], {}, "phoneme"),
+    (["--model", "llm", "--mesh_data", "2"], {}, "item 11"),
+], ids=["gan", "phoneme_lm", "lora", "parquet", "mesh"])
+def test_train_cli_refuses_waiting_branches(tmp_path, args, conf, item):
+    cfg = tmp_path / "c.yaml"
+    base = {"llm": dict(train_section("qwen2lm"), kind="qwen2lm"), "hift": {"kind": "hift"}}
+    cfg.write_text(yaml.safe_dump(dict(base, **conf), default_flow_style=False))
+    with pytest.raises(NotImplementedError, match=item):
+        train_cli.main(["--config", str(cfg), "--train_data", "x", "--model_dir",
+                        str(tmp_path / "m"), "--device", "cpu", *args])
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="the CPU-only check of the default")
+def test_train_cli_defaults_to_the_card(tmp_path):
+    """Without --device the CLI asks for CUDA and raises where there is none."""
+    cfg = _config(tmp_path, "llm", "qwen2lm")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--config", cfg, "--model", "llm", "--train_data", "x",
+                        "--model_dir", str(tmp_path / "m")])
+
+
+def test_yaml_reader_block_sequences():
+    """The recipe reader takes block sequences of scalars and flow lists (as
+    yaml.safe_dump writes lists) equal to yaml.safe_load, and raises on a
+    block sequence of sequences or mappings (before this it read either as
+    null keys without a word)."""
+    conf = {"a": {"b": [16, 32], "c": [[1, 3], [2]], "d": {"e": ["x", 1.5, True]}}}
+    txt = yaml.safe_dump(conf, default_flow_style=None)
+    assert parse_yaml(txt) == yaml.safe_load(txt) == conf
+    txt = "a:\n  b:\n    - 1\n    - [2, 3]\n  c: 2\n"
+    assert parse_yaml(txt) == yaml.safe_load(txt)
+    for bad in ("a:\n- - 1\n- - 2\n", "a:\n- k: v\n"):
+        with pytest.raises(ValueError, match="block sequence"):
+            parse_yaml(bad)

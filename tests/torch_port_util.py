@@ -281,3 +281,83 @@ def seeded_state(module: torch.nn.Module, seed: int) -> dict:
             a = z / np.sqrt(max(int(np.prod(shape[1:])), 1))
         out[name] = torch.from_numpy(np.asarray(a, np.float32))
     return out
+
+
+# ---- training (tests/test_torch_train.py, tests/test_torch_train_cli.py) ----
+# the small widths of tests/test_train_cli.py's LM and flow recipe, plus the
+# v1 LM and v1 flow at the same widths; registry sections of both packages
+
+TRAIN_SECTIONS = {
+    "qwen2lm": {"llm_input_size": 32, "llm_output_size": 32, "speech_token_size": 128,
+                "qwen": {"vocab_size": 300, "hidden_size": 32, "num_layers": 1,
+                         "num_heads": 4, "num_kv_heads": 2, "head_dim": 8,
+                         "intermediate_size": 64}},
+    "transformer_lm": {"text_encoder_input_size": 16, "llm_input_size": 32,
+                       "llm_output_size": 32, "text_token_size": 300,
+                       "speech_token_size": 128, "spk_embed_dim": 512,
+                       "text_encoder": {"dim": 32, "heads": 2, "linear_units": 48,
+                                        "num_blocks": 1, "input_size": 16,
+                                        "static_chunk_size": 1,
+                                        "attention_dropout_rate": 0.0},
+                       "llm": {"dim": 32, "heads": 2, "linear_units": 48, "num_blocks": 1,
+                               "input_size": 32, "static_chunk_size": 1,
+                               "input_layer": "linear_legacy", "activation": "relu",
+                               "attention_dropout_rate": 0.0}},
+    "flow": {"input_size": 32, "output_size": 20, "spk_embed_dim": 512, "vocab_size": 128,
+             "encoder": {"dim": 32, "heads": 2, "linear_units": 48, "num_blocks": 1,
+                         "input_size": 32, "dropout_rate": 0.0,
+                         "attention_dropout_rate": 0.0},
+             "estimator": {"in_channels": 80, "out_channels": 20, "causal": True,
+                           "channels": [16], "n_blocks": 1, "num_mid_blocks": 1,
+                           "num_heads": 2, "attention_head_dim": 8},
+             "cfm": {"noise_frames": 2000}},
+    "flow_v1": {"input_size": 32, "output_size": 20, "spk_embed_dim": 512, "vocab_size": 128,
+                "encoder": {"dim": 32, "heads": 2, "linear_units": 48, "num_blocks": 1,
+                            "input_size": 32},
+                "estimator": {"in_channels": 80, "out_channels": 20, "causal": False,
+                              "channels": [16, 16], "n_blocks": 1, "num_mid_blocks": 1,
+                              "num_heads": 2, "attention_head_dim": 8},
+                "regulator_stages": 2},
+}
+
+
+def train_section(kind: str, **overrides) -> dict:
+    """A deep copy of TRAIN_SECTIONS[kind] with top-level overrides and
+    {"qwen": {...}} style nested ones merged in."""
+    sec = json.loads(json.dumps(TRAIN_SECTIONS[kind]))
+    for k, v in overrides.items():
+        if isinstance(v, dict):
+            sec[k] = dict(sec.get(k, {}), **v)
+        else:
+            sec[k] = v
+    return sec
+
+
+def write_train_corpus(dirpath, n: int = 3, seconds: float = 0.65, sr: int = 24000,
+                       seed: int = 7) -> str:
+    """A seeded jsonl corpus as tests/test_train_cli.py writes it (inline
+    waveforms, 30 speech tokens, a 512-d embedding) and its shard list."""
+    rng = np.random.default_rng(seed)
+    jsonl = dirpath / "data.jsonl"
+    with open(jsonl, "w") as f:
+        for i in range(n):
+            wav = (rng.standard_normal(int(sr * seconds)) * 0.1).tolist()
+            f.write(json.dumps({"utt": f"u{i}", "text": "hello world", "speech": wav,
+                                "sample_rate": sr,
+                                "speech_token": rng.integers(0, 100, 30).tolist(),
+                                "embedding": rng.standard_normal(512).tolist()}) + "\n")
+    lst = dirpath / "train.list"
+    lst.write_text(str(jsonl) + "\n")
+    return str(lst)
+
+
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def quick_jit(fn, *args):
+    """`fn` jitted and compiled for `args` at XLA's lowest backend
+    optimization level: a test's reference program runs once or a few
+    times, so its compile is most of its cost (a tiny flow's value and
+    gradient: 4.5 s at the default level, 2.5 s here; equal losses)."""
+    jitted = fn if hasattr(fn, "lower") else jax.jit(fn)
+    return jitted.lower(*args).compile(FAST_COMPILE)
