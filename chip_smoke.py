@@ -181,7 +181,28 @@ Phases, each printing JSON lines:
      cosyvoice_tpu_torch.bin.train` on its default device over a seeded
      jsonl corpus at the small widths: one epoch, then a resumed one
      (steps 1..4, every value finite);
- 20. timing  - at the main path's shapes: each kernel against its plain
+ 20. gan     - GAN training of the three vocoders on the card, no kernel (the
+     phase gates on zero launches; K7 refuses gradients): (a) the three
+     generators at small widths against MPD + MRD, two D + G pairs on the
+     card and on the CPU from one init (every loss term within 1e-4
+     relative); (b) cosyvoice2_hift_tts.yaml, cosyvoice2_bigvgan_tts.yaml
+     and cosyvoice2_vits_tts.yaml at full width with their gan_conf
+     discriminator (MPD + MRD) and train_conf optimizers, on a seeded batch
+     (HiFT and VITS: 4 rows of 10 s, the recipes' 2000-frame cap; BigVGAN
+     2 rows of 2 s, GAN_BATCH): one warm D + G pair, then 4: s a pair
+     (median), peak memory, every loss term finite; (c) `python -m
+     cosyvoice_tpu_torch.bin.train --model hift|bigvgan|vits` on its
+     default device at the small widths (steps 1, 2, both nets saved);
+ 21. deploy  - finetune -> average -> assemble -> serve at full width:
+     train/checkpoint.save_checkpoint of a seeded LM, flow and HiFT (twice
+     each), bin/average_model.py, bin/ckpt_resave.py --out_dir (with a
+     --ref_audio speaker), from_pretrained (fp16, int8, greedy, K1 and K3
+     on) and one zero-shot request, against the same weights written
+     straight to a model directory: the tokens equal, K1-K3 launched;
+     seconds of each step, RTF, peak memory; then
+     bin/export_serving_lm.py of the averaged LM, its model.safetensors
+     equal to the re-headed tensors;
+ 22. timing  - at the main path's shapes: each kernel against its plain
      version on the same inputs, then the kernel, the plain version and the
      one PyTorch call that computes the same function, timed (CUDA events);
      K1 also at the engine's shape (B = 8, cache 384, per-row frontiers)
@@ -214,8 +235,10 @@ continuous phase's windowed and incremental runs, launches_checkpoint, its
 launches in the checkpoint phase's int8 and int4 requests, launches_v1,
 its launches in the v1 phase's four requests, launches_phoneme, its
 launches in the phoneme phase's three full-width runs, launches_lam, its
-launches in the lam phase's chain, and launches_multicode, its launches
-in the multicode phase's B=1 and B=4 decodes; the K2 and K3 rows
+launches in the lam phase's chain, launches_multicode, its launches in
+the multicode phase's B=1 and B=4 decodes, launches_gan, its launches in
+the gan phase (all zero), and launches_deploy, its launches in the deploy
+phase's request from the assembled directory; the K2 and K3 rows
 add v1_shapes, their times at the v1 estimator's two levels.  The line
 before the card's line gives the whole run's seconds.
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero.
@@ -3698,6 +3721,424 @@ def train_phase(kernels: dict, smi: str) -> dict:
     return res
 
 
+# the GAN phase: each vocoder recipe trained at full width against MPD + MRD
+GAN_RECIPES = {"hift": "cosyvoice2/conf/cosyvoice2_hift_tts.yaml",
+               "bigvgan": "cosyvoice2/conf/cosyvoice2_bigvgan_tts.yaml",
+               "vits": "cosyvoice2/conf/cosyvoice2_vits_tts.yaml"}
+# (rows, mel frames a row) of each batch: the recipes' dynamic_batch cap of
+# 2000 frames (longest x rows), 4 rows of 10 s; BigVGAN's eager training
+# forward keeps ~0.4 GB of activations a token (its anti-aliased activations
+# unfused: ~4 GB for 10 tokens on the CPU), so its batch is cut to 2 rows of
+# 2 s (50 tokens)
+GAN_BATCH = {"hift": (4, 500), "bigvgan": (2, 100), "vits": (4, 500)}
+GAN_PAIRS = 5               # one warm D + G pair, then 4 timed
+GAN_SEED = 1986
+GAN_SMALL_TOL = 1e-4
+# small widths of the three generators (chip_smoke's card-vs-CPU check and
+# tests/test_torch_train_cli.py's CLI runs), MPD + MRD at two small FFTs
+GAN_ENC = {"dim": 16, "heads": 2, "linear_units": 16, "num_blocks": 1, "input_size": 16,
+           "dropout_rate": 0.1, "attention_dropout_rate": 0.1}
+GAN_SMALL = {
+    "hift": {"kind": "hift", "base_channels": 16, "nb_harmonics": 1, "f0_cond_channels": 8,
+             "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1]],
+             "source_resblock_kernel_sizes": [3, 3, 3],
+             "source_resblock_dilation_sizes": [[1], [1], [1]]},
+    "bigvgan": {"kind": "bigvgan", "vocab_size": 128, "input_size": 16, "output_size": 16,
+                "upsample_rates": [8, 5, 3, 2], "upsample_kernel_sizes": [16, 11, 7, 2],
+                "upsample_initial_channel": 16, "resblock_kernel_sizes": [3],
+                "resblock_dilation_sizes": [[1]], "speaker_embedding_dim": 512,
+                "encoder1": dict(GAN_ENC), "encoder2": dict(GAN_ENC)},
+    "vits": {"kind": "vits", "n_vocab": 128, "inter_channels": 8, "hidden_channels": 16,
+             "filter_channels": 16, "n_heads": 2, "n_layers": 1,
+             "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1]],
+             "upsample_rates": [8, 5, 3, 2], "upsample_initial_channel": 16,
+             "upsample_kernel_sizes": [16, 11, 7, 2], "segment_size": 2400,
+             "up_enc1": dict(GAN_ENC), "up_enc2": dict(GAN_ENC)},
+}
+GAN_SMALL_CONF = {"gan_conf": {"discriminator": "multiple",
+                               "discriminator_conf": {"periods": [2, 3], "fft_sizes": [256, 128]}},
+                  "data": {"sample_rate": 24000},
+                  "train_conf": {"optim": "adam", "lr": 1e-4, "lr_d": 1e-4}}
+
+
+def gan_batch(name: str, cfg, rows: int, frames: int, seed: int, device: str) -> dict:
+    """A seeded vocoder batch on `device`, as the pipeline's stages make it
+    (data/pipeline.py compute_fbank, compute_f0, padding(gan=True)): rows of
+    voiced audio (two harmonics of a row's f0 in 100-220 Hz, a slow
+    tremolo, noise) of frames x 480 samples, their log-mels, HiFT's pitch
+    targets (autocorr_f0 on the card, interpolated to the mel length), 25
+    Hz speech tokens and 512-d speaker vectors."""
+    from cosyvoice_tpu_torch.ops.f0 import autocorr_f0, interp_to_len
+    from cosyvoice_tpu_torch.ops.mel import log_mel_spectrogram
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    S = frames * 480
+    t = torch.arange(S, device=device) / 24000.0
+    f0 = 100.0 + 120.0 * torch.rand(rows, 1, generator=g, device=device)
+    speech = (0.3 * torch.sin(2 * math.pi * f0 * t) * (1 + 0.3 * torch.sin(2 * math.pi * 3 * t))
+              + 0.1 * torch.sin(4 * math.pi * f0 * t)
+              + 0.01 * torch.randn(rows, S, generator=g, device=device))
+    batch = {"speech": speech, "speech_len": torch.full((rows,), S, device=device),
+             "speech_feat": log_mel_spectrogram(speech).transpose(1, 2).contiguous(),
+             "speech_feat_len": torch.full((rows,), frames, device=device)}
+    if name == "hift":
+        batch["pitch_feat"] = torch.stack([interp_to_len(autocorr_f0(w), frames)
+                                           for w in speech])
+    else:
+        vocab = cfg.vocab_size if name == "bigvgan" else cfg.n_vocab
+        batch["speech_token"] = torch.randint(0, vocab, (rows, frames // 2), generator=g,
+                                              device=device)
+        batch["speech_token_len"] = torch.full((rows,), frames // 2, device=device)
+        batch["embedding"] = torch.randn(rows, 512, generator=g, device=device)
+    return batch
+
+
+def gan_pairs(g_step, d_step, gs, ds, batch: dict, pairs: int, gen_device: str) -> dict:
+    """`pairs` D + G step pairs on one batch, pair i's two steps each on a
+    generator of (GAN_SEED, i) on gen_device: s a pair, every loss term."""
+    from cosyvoice_tpu_torch.train.step import step_generator
+
+    secs, terms = [], []
+    for i in range(pairs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds, dm = d_step(ds, gs.model, batch, step_generator(GAN_SEED, i, gen_device))
+        gs, gm = g_step(gs, (ds.model, batch), step_generator(GAN_SEED, i, gen_device))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        terms.append({**{f"d_{k}": v.item() for k, v in dm.items()},
+                      **{k: v.item() for k, v in gm.items()}})
+    return {"pair_s": secs, "terms": terms}
+
+
+def gan_small_checks() -> dict:
+    """The three generators at small widths (GAN_SMALL) against MPD + MRD:
+    two D + G step pairs on the card and on the CPU from one init, every
+    step's generator a CPU one (the same noise, dropout masks and VITS
+    segment on both): every loss term of the first pair, and both steps'
+    losses of every pair, within GAN_SMALL_TOL relative (of at least
+    1e-2).  A term of a later pair is printed, not gated: adam's first
+    update moves an element whose gradient sign is set by rounding by
+    +-lr on one device and not the other, and the TPR term's selection
+    (dr < dg + median) is discontinuous: it moved 6.6e-5 on VITS on an H100."""
+    from cosyvoice_tpu_torch.bin.train import gan_training
+    from cosyvoice_tpu_torch.config import build_model
+
+    res = {}
+    for name, sec in GAN_SMALL.items():
+        sec = dict(sec)
+        kind = sec.pop("kind")
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            torch.manual_seed(16)
+            model, cfg = build_model(kind, sec)
+            steps = gan_training(name, model.to(dev), dict(GAN_SMALL_CONF), dev)
+            batch = gan_batch(name, cfg, 2, 16, 17, "cpu")
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            runs[dev] = gan_pairs(*steps, batch, 2, "cpu")["terms"]
+        rel = lambda a, b, k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-2)  # noqa: E731
+        pairs = list(zip(runs["cuda"], runs["cpu"]))
+        gated = [rel(*pairs[0], k) for k in pairs[0][1] if k != "grad_norm"] + \
+            [rel(a, b, k) for a, b in pairs for k in ("d_loss", "loss")]
+        res[name] = {"terms_cuda": runs["cuda"], "terms_cpu": runs["cpu"],
+                     "max_rel_err": max(gated),
+                     "max_rel_err_every_term": max(rel(a, b, k) for a, b in pairs for k in b),
+                     "tol": GAN_SMALL_TOL, "ok": max(gated) <= GAN_SMALL_TOL}
+    return res
+
+
+def gan_cli_drive() -> dict:
+    """`python -m cosyvoice_tpu_torch.bin.train --model hift|bigvgan|vits`
+    on the card (its default device), one process: GAN_SMALL's widths, a
+    seeded jsonl corpus of two 0.32 s utterances (one a batch), one epoch
+    each, under build/ (deleted after): seconds, the logged steps (must be
+    1, 2), every value finite, both nets' checkpoints at step 2."""
+    import os
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="gan_cli_", dir=os.path.join(here, "build"))
+    try:
+        rng = np.random.default_rng(7)
+        corpus = os.path.join(tmp, "data.jsonl")
+        with open(corpus, "w") as f:
+            for i in range(2):
+                f.write(json.dumps({
+                    "utt": f"u{i}", "text": "hello", "sample_rate": 24000,
+                    "speech": (rng.standard_normal(7680) * 0.1).round(5).tolist(),
+                    "speech_token": rng.integers(0, 100, 8).tolist(),
+                    "embedding": rng.standard_normal(512).round(5).tolist()}) + "\n")
+        lst = os.path.join(tmp, "train.list")
+        with open(lst, "w") as f:
+            f.write(corpus + "\n")
+        calls = []
+        for name, sec in GAN_SMALL.items():
+            conf = dict(GAN_SMALL_CONF, **{name: sec}, data={
+                "filter": {"max_length": 40960, "token_max_length": 300},
+                "max_frames_in_batch": 20},
+                train_conf={"lr": 1e-4, "lr_d": 1e-4, "log_interval": 1})
+            cfg = os.path.join(tmp, f"{name}.yaml")
+            with open(cfg, "w") as f:       # one flow mapping a section
+                f.writelines(f"{k}: {json.dumps(v)}\n" for k, v in conf.items())
+            calls.append(["--config", cfg, "--model", name, "--train_data", lst,
+                          "--model_dir", os.path.join(tmp, f"exp_{name}"), "--epochs", "1"])
+        script = ("import sys, json\nfrom cosyvoice_tpu_torch.bin.train import main\n"
+                  "for argv in json.loads(sys.argv[1]):\n    main(argv)\n")
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", script, json.dumps(calls)], cwd=here,
+                             capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"bin.train (GAN) failed: {out.stderr[-3000:]}")
+        from cosyvoice_tpu_torch.train.checkpoint import latest_step
+
+        res = {"run_s": time.perf_counter() - t0}
+        for name in GAN_SMALL:
+            d = os.path.join(tmp, f"exp_{name}")
+            recs = [json.loads(line) for line in open(os.path.join(d, "metrics.jsonl"))]
+            res[name] = {"steps": [r["step"] for r in recs], "loss": [r["loss"] for r in recs],
+                         "finite": all(np.isfinite(v) for r in recs for k, v in r.items()
+                                       if k != "tag"),
+                         "latest_step": [latest_step(d), latest_step(d + "_disc")]}
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def gan_phase(kernels: dict, smi: str) -> dict:
+    """GAN training of the three vocoders on the card, TF32 off, no kernel
+    (a training forward reaches none: BigVGAN's recipe keeps
+    use_pallas_act off, and K7 refuses gradients): (a) gan_small_checks;
+    (b) each recipe of GAN_RECIPES at its full width with its gan_conf
+    discriminator (multiple: MPD + MRD at the default periods and FFTs) and
+    train_conf optimizers (bin/train.gan_training), on the port's seeded
+    constructor init and a seeded batch (GAN_BATCH, gan_batch): GAN_PAIRS
+    D + G pairs: s a pair (median after the warm one), peak memory, every
+    loss term; (c) gan_cli_drive.  Gates: the small runs' losses card =
+    CPU; every full-width loss term finite; the CLI's steps 1, 2, finite,
+    both nets at step 2; no kernel launched."""
+    from cosyvoice_tpu_torch.bin.train import gan_training
+    from cosyvoice_tpu_torch.config import RECIPES, build_model, load_config
+
+    t_phase = time.perf_counter()
+    for mod in kernels.values():
+        mod.launches = 0
+    with torch.enable_grad():
+        small = gan_small_checks()
+        full = {}
+        for name, recipe in GAN_RECIPES.items():
+            conf = load_config(RECIPES / recipe)
+            sec = dict(conf[name])
+            kind = sec.pop("kind")
+            t0 = time.perf_counter()
+            torch.manual_seed(GAN_SEED)
+            model, cfg = build_model(kind, sec, device="cuda")
+            if name == "vits":
+                # the prior's and the posterior's (m, logs) projections at a
+                # tenth of the init, so exp(logs) starts near 1 as a trained
+                # model's (at full scale the KL grew 1.4e7 -> 9.2e10 over
+                # the 5 pairs on an H100)
+                with torch.no_grad():
+                    model.enc_p.proj.weight.mul_(0.1)
+                    model.enc_q.proj.weight.mul_(0.1)
+            steps = gan_training(name, model, conf, "cuda")
+            rows, frames = GAN_BATCH[name]
+            batch = gan_batch(name, cfg, rows, frames, GAN_SEED + 1, "cuda")
+            setup_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            run = gan_pairs(*steps, batch, GAN_PAIRS, "cuda")
+            full[name] = {
+                "recipe": recipe, "rows": rows, "mel_frames": frames,
+                "audio_s": rows * frames * 480 / 24000.0,
+                "generator_params": sum(p.numel() for p in model.parameters()),
+                "discriminator_params": sum(p.numel() for p in steps[3].model.parameters()),
+                "setup_s": setup_s, "warm_pair_s": run["pair_s"][0],
+                "pair_s_median": float(np.median(run["pair_s"][1:])), "pair_s": run["pair_s"],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "terms": run["terms"],
+                "finite": all(np.isfinite(v) for t in run["terms"] for v in t.values())}
+            del model, steps, batch
+            torch.cuda.empty_cache()
+    launches = {k: mod.launches for k, mod in kernels.items()}
+    cli = gan_cli_drive()
+    res = {"phase": "gan", "card": smi, "small": small, "full_width": full, "cli": cli,
+           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    gates = [all(s["ok"] for s in small.values()), all(r["finite"] for r in full.values()),
+             all(cli[n]["steps"] == [1, 2] and cli[n]["finite"]
+                 and cli[n]["latest_step"] == [2, 2] for n in GAN_SMALL),
+             all(v == 0 for v in launches.values())]
+    if not all(gates):
+        raise AssertionError(f"gan phase failed: {gates} {res}")
+    return res
+
+
+DEPLOY_SEED = 1600
+DEPLOY_TEXT = "The port serves the voice it was trained on."
+
+
+def deploy_phase(kernels: dict, smi: str) -> dict:
+    """Finetune -> average -> assemble -> serve on the card, with the
+    port's CLIs at full width (LMConfig, FlowConfig, HiFTConfig on seeded
+    random weights; CAMPPlus and the S3 tokenizer as the checkpoint phase
+    builds them): (1) train/checkpoint.save_checkpoint of each net, the same
+    state at steps 1 and 2 (its adam state too, as the trainer writes it);
+    (2) `bin/average_model.py` over each; (3) `bin/ckpt_resave.py --out_dir`
+    over the three, the ONNX and tokenizer files of a directory written
+    straight from the modules (write_model_dir), and a --ref_audio speaker;
+    (4) from_pretrained (fp16, int8, greedy, K1's fused cache update, K3's
+    fused LayerNorm) of the assembled directory and of the direct one: one
+    zero-shot request each from a 3 s 16 kHz prompt (200-token cap): load
+    and request seconds, RTF, peak memory, K1-K3 launches; (5)
+    `bin/export_serving_lm.py` of the averaged LM.  Gates: the tokens of
+    the two requests equal (an average of equal states is exact), finite
+    wavs, K1, K2 and K3 launched in the assembled directory's request, the
+    registered speaker listed, the export's model.safetensors read back by
+    utils/safetensors_io equal to rehead_state_dict of the averaged LM.
+    Everything lives under build/ and is deleted at the end."""
+    import os
+    import shutil
+    import tempfile
+    import wave
+
+    from cosyvoice_tpu_torch.bin import average_model, ckpt_resave, export_serving_lm
+    from cosyvoice_tpu_torch.models.campplus import CAMPPlusConfig
+    from cosyvoice_tpu_torch.models.flow import CausalMaskedDiffWithXvec, FlowConfig
+    from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
+    from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LM, SamplingConfig
+    from cosyvoice_tpu_torch.models.s3tokenizer import S3Config
+    from cosyvoice_tpu_torch.runtime.api import from_pretrained
+    from cosyvoice_tpu_torch.train import optim
+    from cosyvoice_tpu_torch.train import step as tstep
+    from cosyvoice_tpu_torch.train.checkpoint import save_checkpoint
+    from cosyvoice_tpu_torch.utils.safetensors_io import load_safetensors
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="deploy_", dir=os.path.join(here, "build"))
+    k3 = ("lm_decode_attention", "dit_attention", "fused_layer_norm")
+    steps = {}
+
+    def timed_step(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[key] = time.perf_counter() - t0
+        return out
+
+    try:
+        def build():
+            with torch.device("cuda"):
+                nets = {"llm": Qwen2LM(LMConfig()), "flow": CausalMaskedDiffWithXvec(FlowConfig()),
+                        "hift": HiFTGenerator(HiFTConfig())}
+            for i, m in enumerate(nets.values()):
+                rand_init_(m, DEPLOY_SEED + i)
+            camp, s3 = seeded_frontend_models(CAMPPlusConfig(), S3Config(), DEPLOY_SEED + 10)
+            write_model_dir(os.path.join(tmp, "direct"), *nets.values(), camp, s3, 192,
+                            DEPLOY_SEED + 20)
+            return nets
+        nets = timed_step("build_and_direct_dir_s", build)
+
+        def checkpoints():
+            tx, _ = optim.make_optimizer("adam", 1e-4, "constantlr", {})
+            for stem, m in nets.items():
+                st = tstep.make_train_state(m, tx)
+                for s in (1, 2):
+                    st.step = s
+                    save_checkpoint(os.path.join(tmp, f"exp_{stem}"), st, s)
+        timed_step("save_checkpoints_s", checkpoints)
+        del nets
+        torch.cuda.empty_cache()
+        avg = {stem: os.path.join(tmp, f"{stem}.pt") for stem in ("llm", "flow", "hift")}
+        timed_step("average_model_s", lambda: [average_model.main(
+            ["--src_dir", os.path.join(tmp, f"exp_{stem}"), "--dst_path", path, "--num", "2"])
+            for stem, path in avg.items()])
+        ref = os.path.join(tmp, "spk1.wav")
+        with wave.open(ref, "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(16000)
+            f.writeframes((prompt_16k(4.0, DEPLOY_SEED + 30) * 32767).astype("<i2").tobytes())
+        direct, deployed = os.path.join(tmp, "direct"), os.path.join(tmp, "deploy")
+        timed_step("ckpt_resave_s", lambda: ckpt_resave.main([
+            "--out_dir", deployed, "--llm_pt", avg["llm"], "--flow_pt", avg["flow"],
+            "--hift_pt", avg["hift"], "--campplus_onnx", os.path.join(direct, "campplus.onnx"),
+            "--s3_onnx", os.path.join(direct, "speech_tokenizer_v2.onnx"),
+            "--tokenizer_dir", os.path.join(direct, "CosyVoice-BlankEN"),
+            "--ref_audio", f"spk1={ref}"]))
+
+        lm_cfg = LMConfig()
+        lm_cfg = dataclasses.replace(lm_cfg, sampling=SamplingConfig(method="greedy"),
+                                     qwen=dataclasses.replace(lm_cfg.qwen,
+                                                              fused_cache_update=True))
+        fcfg = FlowConfig()
+        fcfg = dataclasses.replace(fcfg, estimator=dataclasses.replace(fcfg.estimator,
+                                                                       fused_norm=True))
+        prompt = prompt_16k(3.0, DEPLOY_SEED + 31)
+
+        def serve(d: str) -> dict:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cv = from_pretrained(d, fp16=True, quant="int8", max_decode_tokens=200,
+                                 lm_cfg=lm_cfg, flow_cfg=fcfg, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            tokens = recording_generate(cv)
+            for name in k3:
+                kernels[name].launches = 0
+            t0 = time.perf_counter()
+            wav = np.concatenate([o["tts_speech"] for o in cv.inference_zero_shot(
+                DEPLOY_TEXT, "A short prompt.", prompt, gen=torch.Generator().manual_seed(0))])
+            torch.cuda.synchronize()
+            latency = time.perf_counter() - t0
+            out = {"load_s": load_s, "latency_s": latency, "tokens": tokens[-1],
+                   "speech_tokens": len(tokens[-1]), "wav_samples": len(wav),
+                   "finite": bool(np.isfinite(wav).all()),
+                   "rtf": latency / max(len(wav) / cv.sample_rate, 1e-9),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "launches": {k: kernels[k].launches for k in k3},
+                   "speakers": cv.list_available_spks()}
+            del cv
+            torch.cuda.empty_cache()
+            return out
+
+        served = timed_step("serve_assembled_s", lambda: serve(deployed))
+        ref_run = timed_step("serve_direct_s", lambda: serve(direct))
+        hf = os.path.join(tmp, "llm_hf")
+        timed_step("export_serving_lm_s", lambda: export_serving_lm.main(
+            ["--ckpt", avg["llm"], "--out", hf]))
+        got = load_safetensors(os.path.join(hf, "model.safetensors"))
+        want, hf_cfg = export_serving_lm.rehead_state_dict(
+            torch.load(avg["llm"], map_location="cpu", weights_only=True), LMConfig())
+        export_equal = set(got) == set(want) and all(torch.equal(got[k], want[k])
+                                                     for k in want)
+        with open(os.path.join(hf, "config.json")) as f:
+            hf_conf = json.load(f)
+        files_gb = {f: os.path.getsize(os.path.join(deployed, f)) / 2**30
+                    for f in sorted(os.listdir(deployed))
+                    if os.path.isfile(os.path.join(deployed, f))}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tokens_equal = bool(np.array_equal(served["tokens"], ref_run["tokens"]))
+    for r in (served, ref_run):
+        r.pop("tokens")
+    res = {"phase": "deploy", "card": smi, "steps_s": steps, "assembled": served,
+           "direct": ref_run, "tokens_equal": tokens_equal, "files_gib": files_gb,
+           "export": {"tensors": len(got), "equal": export_equal,
+                      "vocab_size": hf_conf["vocab_size"],
+                      "architectures": hf_conf["architectures"]},
+           "launches": served["launches"], "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    gates = [tokens_equal, served["finite"], ref_run["finite"], served["speech_tokens"] > 0,
+             all(served["launches"][k] > 0 for k in k3), "spk1" in served["speakers"],
+             export_equal, hf_conf["vocab_size"] % 64 == 0]
+    if not all(gates):
+        raise AssertionError(f"deploy phase failed: {gates} {res}")
+    return res
+
+
 def profile_request(run) -> None:
     """One more request under torch.profiler: device kernel time by name and
     the device's busy share of the wall time."""
@@ -4164,6 +4605,8 @@ def main() -> int:
     lam = lam_phase(kernels, smi)
     mc = multicode_phase(kernels, smi)
     train_phase(kernels, smi)
+    gan = gan_phase(kernels, smi)
+    deploy = deploy_phase(kernels, smi)
     flow = res["stack"][1]
     del res["stack"]
     rows = timing(K1, K2, K3, K4, K5, K6, K7, res["last_decode"], flow, batched["block_shape"])
@@ -4197,6 +4640,8 @@ def main() -> int:
         # the multicode phase's full-width B=1 and B=4 decodes
         row["launches_multicode"] = {run: mc["launches"][run][row["name"]]
                                      for run in ("b1", "b4_ragged")}
+        row["launches_gan"] = gan["launches"][row["name"]]
+        row["launches_deploy"] = deploy["launches"].get(row["name"], 0)
         row.update(edge_max_abs_err=errs[row["name"]],
                    tolerance=tolerance.get(row["name"], CHECK_TOL[torch.bfloat16]),
                    kernel_ms=row["ms"])

@@ -9,12 +9,12 @@ raises KeyError; lists become tuples) and constructs the module, under
 without memory).  The recipes' training-only keys (dropout rates, loss
 settings) are fields of the port's configs that no inference code reads.
 
-The recipes are read by a small YAML reader of the subset they use (block
-mappings by indentation, flow lists and mappings, block sequences of those,
-plain and quoted scalars, comments; anything else raises), so the port
-needs no YAML package;
-tests/test_torch_config.py holds it equal to yaml.safe_load on every
-recipe.
+The recipes are read by a small YAML reader (block mappings by
+indentation, flow lists and mappings, block sequences of those, plain,
+quoted and !!-tagged scalars resolved by PyYAML's YAML 1.1 rules, literal
+and folded block scalars, comments; anything else raises ValueError), so
+the port needs no YAML package; tests/test_torch_config.py holds it equal
+to yaml.safe_load on every recipe and on each scalar form.
 """
 from __future__ import annotations
 
@@ -173,27 +173,124 @@ def recipe_config(recipe: str, section: str):
 
 
 # ---- the YAML subset of the recipes --------------------------------------
+# Plain scalars resolve by PyYAML's YAML 1.1 rules (its implicit resolvers
+# and constructors), so safe_load and this reader agree on every form they
+# both read; any other form raises ValueError.
 
-_INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)$")
-_FLOAT = re.compile(r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
+_BOOL = {"yes": True, "Yes": True, "YES": True, "true": True, "True": True, "TRUE": True,
+         "on": True, "On": True, "ON": True, "no": False, "No": False, "NO": False,
+         "false": False, "False": False, "FALSE": False, "off": False, "Off": False,
+         "OFF": False}
+_NULL = ("", "~", "null", "Null", "NULL")
+_INT = re.compile(r"[-+]?0b[0-1_]+$|[-+]?0[0-7_]+$|[-+]?(0|[1-9][0-9_]*)$"
+                  r"|[-+]?0x[0-9a-fA-F_]+$|[-+]?[1-9][0-9_]*(:[0-5]?[0-9])+$")
+_FLOAT = re.compile(r"[-+]?[0-9][0-9_]*\.[0-9_]*([eE][-+][0-9]+)?$"
+                    r"|\.[0-9][0-9_]*([eE][-+][0-9]+)?$"
+                    r"|[-+]?[0-9][0-9_]*(:[0-5]?[0-9])+\.[0-9_]*$"
+                    r"|[-+]?\.(inf|Inf|INF)$|\.(nan|NaN|NAN)$")
+_TIMESTAMP = re.compile(r"[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}")
+_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t", "n": "\n", "v": "\v",
+            "f": "\f", "r": "\r", "e": "\x1b", " ": " ", '"': '"', "/": "/", "\\": "\\",
+            "N": "\x85", "_": "\xa0", "L": "\u2028", "P": "\u2029"}
+_HEX_ESCAPES = {"x": 2, "u": 4, "U": 8}
+
+
+def _sexagesimal(digits: str, cast):
+    value = 0
+    for part in digits.split(":"):
+        value = value * 60 + cast(part)
+    return value
+
+
+def _yaml_int(s: str) -> int:
+    """PyYAML's construct_yaml_int: binary, octal (a leading 0), hex and
+    base-60 forms, underscores dropped."""
+    v = s.replace("_", "")
+    sign = -1 if v[0] == "-" else 1
+    v = v[1:] if v[0] in "+-" else v
+    if v == "0":
+        return 0
+    if v.startswith("0b"):
+        return sign * int(v[2:], 2)
+    if v.startswith("0x"):
+        return sign * int(v[2:], 16)
+    if v[0] == "0":
+        return sign * int(v, 8)
+    if ":" in v:
+        return sign * _sexagesimal(v, int)
+    return sign * int(v)
+
+
+def _yaml_float(s: str) -> float:
+    """PyYAML's construct_yaml_float."""
+    v = s.replace("_", "").lower()
+    sign = -1.0 if v[0] == "-" else 1.0
+    v = v[1:] if v[0] in "+-" else v
+    if v == ".inf":
+        return sign * float("inf")
+    if v == ".nan":
+        return float("nan")
+    if ":" in v:
+        return sign * _sexagesimal(v, float)
+    return sign * float(v)
+
+
+def _plain(s: str):
+    """A plain scalar resolved as PyYAML's safe_load resolves it."""
+    if s in _NULL:
+        return None
+    if s in _BOOL:
+        return _BOOL[s]
+    if _INT.match(s):
+        return _yaml_int(s)
+    if _FLOAT.match(s):
+        return _yaml_float(s)
+    if _TIMESTAMP.match(s):
+        raise ValueError(f"YAML timestamp {s!r} is not read here; quote it")
+    if s[:1] in "&*!|>%@`" or s.startswith(("<<", "? ")):
+        raise ValueError(f"YAML form {s!r} is not read here")
+    return s
+
+
+def _double_quoted(body: str) -> str:
+    out, i = [], 0
+    while i < len(body):
+        c = body[i]
+        if c != "\\":
+            out.append(c)
+            i += 1
+            continue
+        e = body[i + 1] if i + 1 < len(body) else ""
+        if e in _ESCAPES:
+            out.append(_ESCAPES[e])
+            i += 2
+        elif e in _HEX_ESCAPES:
+            n = _HEX_ESCAPES[e]
+            out.append(chr(int(body[i + 2:i + 2 + n], 16)))
+            i += 2 + n
+        else:
+            raise ValueError(f"YAML escape \\{e} is not read here")
+    return "".join(out)
+
+
+_TAGS = {"!!str": str, "!!int": _yaml_int, "!!float": _yaml_float,
+         "!!bool": lambda s: _BOOL[s], "!!null": lambda s: None}
 
 
 def _scalar(s: str):
-    """A plain or quoted scalar, resolved as YAML 1.1 (PyYAML's safe_load) does."""
-    if len(s) >= 2 and s[0] == s[-1] and s[0] in "'\"":
-        return s[1:-1]
-    low = s.lower()
-    if low in ("true", "yes", "on"):
-        return True
-    if low in ("false", "no", "off"):
-        return False
-    if low in ("null", "~", ""):
-        return None
-    if _INT.match(s):
-        return int(s.replace("_", ""))
-    if _FLOAT.match(s) and s not in (".", "+.", "-."):
-        return float(s.replace("_", ""))
-    return s
+    """A plain, quoted or !!-tagged scalar, resolved as YAML 1.1 (PyYAML's
+    safe_load) does."""
+    if len(s) >= 2 and s[0] == s[-1] == "'":
+        return s[1:-1].replace("''", "'")
+    if len(s) >= 2 and s[0] == s[-1] == '"':
+        return _double_quoted(s[1:-1])
+    if s.startswith("!!"):
+        tag, _, value = s.partition(" ")
+        if tag not in _TAGS:
+            raise ValueError(f"YAML tag {tag} is not read here")
+        value = value.strip()
+        return _TAGS[tag](_scalar(value) if value[:1] in "'\"" else value)
+    return _plain(s)
 
 
 def _flow(s: str, i: int = 0):
@@ -203,8 +300,10 @@ def _flow(s: str, i: int = 0):
     if s[i] in "[{":
         close, items, i = "]" if s[i] == "[" else "}", [], i + 1
         while True:
-            while s[i] in " ,":
+            while i < len(s) and s[i] in " ,":
                 i += 1
+            if i >= len(s):
+                raise ValueError(f"YAML flow collection {s!r} does not close on its line")
             if s[i] == close:
                 break
             if close == "}":
@@ -216,6 +315,11 @@ def _flow(s: str, i: int = 0):
                 val, i = _flow(s, i)
                 items.append(val)
         return (dict(items) if close == "}" else items), i + 1
+    if s[i] in "'\"":
+        j = i + 1
+        while j < len(s) and (s[j] != s[i] or (s[i] == "'" and s[j + 1:j + 2] == "'")):
+            j += 2 if s[i] == "'" and s[j:j + 2] == "''" else 1 + (s[j] == "\\")
+        return _scalar(s[i:j + 1]), j + 1
     j = i
     while j < len(s) and s[j] not in ",]}":
         j += 1
@@ -249,31 +353,101 @@ def _block_item(blocks: list, item: str, n: int) -> None:
     holder[key].append(_flow(item)[0])
 
 
+_BLOCK_SCALAR = re.compile(r"([|>])([-+]?)$")
+
+
+def _block_scalar(style: str, chomp: str, lines: list, n: int) -> str:
+    """The text of a literal (|) or folded (>) block scalar from its raw
+    lines (each indented past its key, or empty), with clip, strip (-) or
+    keep (+) chomping; a folded scalar with more-indented lines raises."""
+    body = list(lines)
+    while body and not body[-1].strip():
+        body.pop()
+    trailing = len(lines) - len(body)
+    if not body:
+        return "\n" * trailing if chomp == "+" else ""
+    depth = [len(ln) - len(ln.lstrip(" ")) for ln in body if ln.strip()]
+    indent = depth[0]
+    if min(depth) < indent:
+        raise ValueError(f"YAML line {n}: a block scalar line indented less than its first")
+    text = [ln[indent:] if ln.strip() else "" for ln in body]
+    if style == "|":
+        out = "\n".join(text)
+    else:
+        if any(t[:1] in (" ", "\t") for t in text):
+            raise ValueError(f"YAML line {n}: more-indented lines of a folded scalar are not "
+                             f"read here")
+        out, blanks = text[0], 0
+        for t in text[1:]:
+            if not t:
+                blanks += 1
+                continue
+            out += ("\n" * blanks if blanks else " ") + t
+            blanks = 0
+    if chomp == "-":
+        return out
+    return out + "\n" + ("\n" * trailing if chomp == "+" else "")
+
+
 def parse_yaml(text: str) -> dict:
-    """Block mappings nested by indentation whose values are scalars, flow
-    lists / mappings, block sequences of those, or further block mappings
-    (a key with nothing under it is null).  Any other YAML raises."""
+    """Block mappings nested by indentation whose values are scalars (plain,
+    quoted, !!-tagged or | / > block scalars), flow lists / mappings, block
+    sequences of those, or further block mappings (a key with nothing under
+    it is null).  Any other YAML raises ValueError."""
     root: dict = {}
     stack = [(-1, root)]
     blocks = []
-    for n, raw in enumerate(text.splitlines(), start=1):
+    raw_lines = text.splitlines()
+    n = 0
+    while n < len(raw_lines):
+        raw = raw_lines[n]
+        n += 1
         line = _strip_comment(raw)
         if not line.strip():
             continue
+        if "\t" in line[:len(line) - len(line.lstrip())]:
+            raise ValueError(f"YAML line {n}: tab indentation")
         indent = len(line) - len(line.lstrip(" "))
         while stack[-1][0] >= indent:
             stack.pop()
         if line.strip() == "-" or line.strip().startswith("- "):
             _block_item(blocks, line.strip()[1:].strip(), n)
             continue
-        key, _, rest = line.strip().partition(":")
-        parent, rest = stack[-1][1], rest.strip()
-        if rest:
-            parent[_scalar(key)] = _flow(rest)[0]
+        if line.strip() in ("---", "...") or line.startswith("%"):
+            raise ValueError(f"YAML line {n}: documents and directives are not read here")
+        stripped = line.strip()
+        if stripped[:1] in "'\"":
+            key_end = _flow(stripped)[1]
+            key, rest = stripped[:key_end], stripped[key_end:]
+            if not rest.startswith(":"):
+                raise ValueError(f"YAML line {n}: a quoted key without ':'")
+            rest = rest[1:]
         else:
-            parent[_scalar(key)] = child = {}
+            key, colon, rest = stripped.partition(": ")
+            if not colon:
+                if not stripped.endswith(":"):
+                    raise ValueError(f"YAML line {n}: {stripped!r} is neither a key nor a "
+                                     f"sequence item (multi-line plain scalars are not read "
+                                     f"here)")
+                key, rest = stripped[:-1], ""
+        key, parent, rest = _scalar(key.strip()), stack[-1][1], rest.strip()
+        m = _BLOCK_SCALAR.match(rest)
+        if m:
+            lines = []
+            while n < len(raw_lines) and (not raw_lines[n].strip() or (
+                    len(raw_lines[n]) - len(raw_lines[n].lstrip(" ")) > indent)):
+                lines.append(raw_lines[n].rstrip())
+                n += 1
+            parent[key] = _block_scalar(m.group(1), m.group(2), lines, n)
+        elif rest:
+            value, end = _flow(rest)
+            if rest[end:].strip():
+                raise ValueError(f"YAML line {n}: {rest!r} is not one value")
+            parent[key] = value
+        else:
+            parent[key] = child = {}
             stack.append((indent, child))
-            blocks.append((parent, _scalar(key)))
+            blocks.append((parent, key))
     for parent, key in reversed(blocks):
         if parent[key] == {}:
             parent[key] = None

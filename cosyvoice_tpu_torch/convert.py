@@ -1,7 +1,7 @@
 """JAX parameter trees -> the port's state_dicts (CosyVoice2's modules,
 CosyVoice v1's TransformerLM and MaskedDiffWithXvec, the phoneme LMs and the
 multi-code LM, the conformer's options and front ends, the wenet decoders,
-VITS, CAMPPlus and the LAM speaker embedding).
+VITS, CAMPPlus, the LAM speaker embedding and the GAN discriminators).
 
 Each function takes a flax param tree (nested dicts of numpy or JAX arrays,
 with or without the top-level "params" key) and returns a state_dict that the
@@ -647,11 +647,66 @@ def with_spk_state_from_jax(variables: dict) -> dict:
     return sd
 
 
+# ---- the GAN discriminators --------------------------------------------------
+
+def _wn_conv2d(sd, name, p):
+    """A weight-normed flax Conv2d (v [kh, kw, in, out], g [1, 1, 1, out])
+    -> torch's weight_g [out, 1, 1, 1] / weight_v [out, in, kh, kw]."""
+    sd[f"{name}.weight_g"] = _t(np.asarray(p["g"]).reshape(-1, 1, 1, 1))
+    sd[f"{name}.weight_v"] = _t(np.asarray(p["v"]).transpose(3, 2, 0, 1))
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _disc_conv1d(sd, name, p):
+    if "sn_u" in p:          # spectral norm: weight_orig + the power-iteration buffers
+        sd[f"{name}.weight_orig"] = _t(np.asarray(p["kernel"]).transpose(2, 1, 0))
+        sd[f"{name}.weight_u"] = _t(p["sn_u"])
+        sd[f"{name}.weight_v"] = _t(p["sn_v"])
+        sd[f"{name}.bias"] = _t(p["bias"])
+    else:
+        _wn_conv(sd, name, p)
+
+
+def _discriminators(sd, pre, p):
+    """MultiPeriod / MultiResolution / MultiScale `discriminators_{i}`."""
+    for i in _indices(p, "discriminators_"):
+        d, name = p[f"discriminators_{i}"], f"{pre}discriminators.{i}"
+        if any(k.startswith("band_convs_") for k in d):          # DiscriminatorR
+            for key in d:
+                if key.startswith("band_convs_"):
+                    b, j = key[len("band_convs_"):].split("_")
+                    _wn_conv2d(sd, f"{name}.band_convs.{b}.{j}", d[key])
+            _wn_conv2d(sd, f"{name}.conv_post", d["conv_post"])
+        elif np.ndim(d["conv_post"].get("v", d["conv_post"].get("kernel"))) == 4:  # P
+            for j in _indices(d, "convs_"):
+                _wn_conv2d(sd, f"{name}.convs.{j}", d[f"convs_{j}"])
+            _wn_conv2d(sd, f"{name}.conv_post", d["conv_post"])
+        else:                                                       # DiscriminatorS
+            for j in _indices(d, "convs_"):
+                _disc_conv1d(sd, f"{name}.convs.{j}", d[f"convs_{j}"])
+            _disc_conv1d(sd, f"{name}.conv_post", d["conv_post"])
+
+
+def discriminator_state_from_jax(params: dict) -> dict:
+    """models/discriminator.py params (MultipleDiscriminator's `mpd` / `mrd`,
+    or one Multi{Period,Resolution,Scale}Discriminator) -> port (and
+    reference checkpoint) state_dict."""
+    p = _root(params)
+    sd: dict = {}
+    if "mpd" in p:
+        _discriminators(sd, "mpd.", p["mpd"])
+        _discriminators(sd, "mrd.", p["mrd"])
+    else:
+        _discriminators(sd, "", p)
+    return sd
+
+
 # the registry kinds whose training the port runs (bin/train.py)
 TRAIN_CONVERTERS = {"qwen2lm": lm_state_from_jax,
                     "transformer_lm": transformer_lm_state_from_jax,
                     "flow": flow_state_from_jax, "flow_stream": flow_state_from_jax,
-                    "flow_v1": flow_v1_state_from_jax}
+                    "flow_v1": flow_v1_state_from_jax, "hift": hift_state_from_jax,
+                    "vits": vits_state_from_jax}
 
 
 def train_state_from_jax(kind: str, tree: dict) -> dict:

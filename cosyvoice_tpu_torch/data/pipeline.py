@@ -6,9 +6,10 @@ path (bin/train.py --data_format jsonl), over the port's own log-mel
 A pipeline is a source iterable and a chain of stages, each a function
 from an iterator of samples to an iterator; the last stages batch the
 samples and pad them into numpy arrays whose lengths round up to a bucket
-multiple.  The parquet and speaker-JSON sources, the phoneme stages and
-the vocoders' waveform padding come with the training slices that use
-them (ROADMAP Queue 1 item 10).
+multiple.  The vocoders' stages are here too: `compute_f0` (HiFT's pitch
+targets, ops/f0.py) and `padding(gan=...)`'s waveform rows.  The parquet
+and speaker-JSON sources and the phoneme stages come with the phoneme
+LMs' training (ROADMAP Queue 1 item 10c).
 """
 from __future__ import annotations
 
@@ -125,6 +126,22 @@ def compute_fbank(n_fft=1920, hop=480, n_mels=80, sr=24000, win: Optional[int] =
     return stage
 
 
+def compute_f0(sr=24000, frame=1024, hop=480):
+    """Pitch targets: autocorr_f0 of the speech, interpolated to the mel
+    length -> pitch_feat [T_mel] float32."""
+    from cosyvoice_tpu_torch.ops.f0 import autocorr_f0, interp_to_len
+
+    def stage(it):
+        for s in it:
+            f0 = autocorr_f0(torch.as_tensor(np.asarray(s["speech"], np.float32)), sr=sr,
+                             frame=frame, hop=hop)
+            s["pitch_feat"] = interp_to_len(f0, s["speech_feat"].shape[0]).numpy().astype(
+                np.float32)
+            yield s
+
+    return stage
+
+
 def tokenize(tokenizer):
     def stage(it):
         for s in it:
@@ -210,11 +227,14 @@ def round_up(n, m):
     return ((n + m - 1) // m) * m
 
 
-def padding(bucket_multiple=32, static_lens: Optional[dict] = None):
+def padding(bucket_multiple=32, static_lens: Optional[dict] = None, gan=False):
     """A list of samples -> a padded numpy batch, longest mel first: mel
     rows round up to bucket_multiple, speech tokens to half of it, text to
     8; `static_lens` pins a key's padded length (a sample past its pin
-    raises)."""
+    raises).  `gan` (True, or a hop in samples; True is 480) adds the
+    waveform rows: speech cut or zero-padded to L * hop samples for L mel
+    rows, speech_len, and pitch_feat padded to L where the samples have
+    it."""
     static_lens = static_lens or {}
 
     def pad_len(key, longest, multiple):
@@ -248,6 +268,15 @@ def padding(bucket_multiple=32, static_lens: Optional[dict] = None):
             if "embedding" in samples[0]:
                 batch["embedding"] = np.stack(
                     [np.asarray(s["embedding"], np.float32) for s in samples])
+            if gan:
+                Ls = L * (480 if gan is True else int(gan))
+                batch["speech"] = _pad_to([np.asarray(s["speech"][:Ls], np.float32)
+                                           for s in samples], Ls)
+                batch["speech_len"] = np.minimum(
+                    np.asarray([len(s["speech"]) for s in samples], np.int32), Ls)
+                if "pitch_feat" in samples[0]:
+                    batch["pitch_feat"] = _pad_to(
+                        [np.asarray(s["pitch_feat"], np.float32) for s in samples], L)
             yield batch
 
     return stage

@@ -30,6 +30,7 @@ from cosyvoice_tpu_torch.device import resolve_device
 from cosyvoice_tpu_torch.models.conformer import ConformerConfig, UpsampleConformerEncoder
 from cosyvoice_tpu_torch.nn.conv import Conv1d, ConvTranspose1d
 from cosyvoice_tpu_torch.nn.dense import Dense
+from cosyvoice_tpu_torch.nn.dropout import dropout_generator
 from cosyvoice_tpu_torch.ops.kernels.snake_aa import snake_aa
 from cosyvoice_tpu_torch.ops.masks import make_non_pad_mask
 from cosyvoice_tpu_torch.ops.resample import anti_alias_activation
@@ -179,12 +180,22 @@ class BigVGAN(nn.Module):
         self.activation_post = AAAct(ch, cfg.activation, cfg.snake_logscale, cfg.use_pallas_act)
         self.conv_post = Conv1d(ch, 1, 7, padding=3, weight_norm=True)
 
-    @torch.no_grad()
     def forward(self, token: torch.Tensor, token_len: torch.Tensor,
-                speaker_embedding: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                speaker_embedding: torch.Tensor,
+                deterministic: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
         """token [B, T] (pad ids may be negative), token_len [B],
         speaker_embedding [B, spk_dim] -> (wav [B, T * prod(rates) * 2^n_enc],
-        aux mel [B, T', mel_bin])."""
+        aux mel [B, T', mel_bin]).  deterministic (inference): no gradients,
+        no dropout.  deterministic=False is the training forward: gradients
+        as the caller has them, the conformers' dropout on the step's
+        generator (nn/dropout.py); with use_pallas_act and gradients on, K7
+        raises (it has no backward)."""
+        if deterministic:
+            with torch.no_grad(), dropout_generator(None):
+                return self._forward(token, token_len, speaker_embedding)
+        return self._forward(token, token_len, speaker_embedding)
+
+    def _forward(self, token, token_len, speaker_embedding):
         cfg = self.cfg
         mask = make_non_pad_mask(token_len, token.shape[1])
         x = self.input_embedding(token.clamp_min(0)) * mask[..., None]

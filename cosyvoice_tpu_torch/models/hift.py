@@ -214,6 +214,13 @@ class HiFTGenerator(nn.Module):
                     (mag * torch.sin(phase)).transpose(1, 2), n_fft, hop, win, center=True)
         return wav.clamp(-cfg.audio_limit, cfg.audio_limit)
 
+    def forward(self, mel: torch.Tensor, gen: Optional[torch.Generator] = None):
+        """The training forward: mel [B, T, 80] -> (wav [B, T * upsample_scale],
+        predicted f0 [B, T]), with gradients as the caller has them and the
+        source's noise from `gen`."""
+        s, f0 = self._source(mel, gen)
+        return self.decode(mel, s), f0
+
     @torch.no_grad()
     def inference(self, mel: torch.Tensor, cache_source: Optional[torch.Tensor] = None,
                   gen: Optional[torch.Generator] = None):

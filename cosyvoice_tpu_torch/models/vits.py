@@ -21,10 +21,15 @@ torch.Generator.  Parameter names follow the reference checkpoint
 `dec.resblocks.{i*nk+j}.convs1.{d}`, ...), so a reference state_dict loads
 with strict=True (`load_vits`).
 
+`VitsDecoder.forward` is the training forward: the posterior sample of the
+linear spectrum through the flow, and the generator on a random segment of
+`segment_size // hop` frames of it (the start drawn per row, then clamped
+so the segment ends inside the frames, as jax.lax.dynamic_slice clamps);
+`vits_kl_loss` is its KL term.
+
 The stochastic-duration pieces (DDSConv, ConvFlow, ElementwiseAffine,
 flip_flow, log_flow) are ported for the module's surface; the shipped
-recipes do not run them.  Not ported: the training forward (its random
-segment) and `vits_kl_loss`, which belong to the training slice.
+recipes do not run them.
 """
 from __future__ import annotations
 
@@ -405,6 +410,29 @@ class VitsDecoder(nn.Module):
                                  cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes,
                                  cfg.gin_channels)
 
+    def forward(self, tokens: torch.Tensor, token_len: torch.Tensor, spec: torch.Tensor,
+                spec_len: torch.Tensor, g: torch.Tensor, gen: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None, ids: Optional[torch.Tensor] = None):
+        """The training forward: tokens [B, T], spec [B, T', spec_channels]
+        (T' = T * 2^(conformers)), g [B, gin] -> (wav segment [B,
+        segment_size], (ids, x_mask, y_mask, z, z_p, m_p, logs_p, m_q,
+        logs_q)).  The posterior's noise [B, T', inter] and the segment
+        starts ids [B] (in frames) are drawn from `gen` in that order, or
+        pinned by `noise` / `ids`."""
+        cfg = self.cfg
+        g3 = g[:, None, :]
+        _, m_p, logs_p, x_mask, _ = self.enc_p(tokens, token_len)
+        z, m_q, logs_q, y_mask = self.enc_q(spec, spec_len, g3, noise=noise, gen=gen)
+        z_p = self.flow(z, y_mask, g3, reverse=False)
+        frames = cfg.segment_size // cfg.hop_length
+        if ids is None:
+            max_start = torch.clamp(spec_len - frames, min=1)
+            u = torch.rand(z.shape[0], generator=gen,
+                           device=gen.device if gen is not None else z.device)
+            ids = (u.to(z.device) * max_start).long()
+        o = self.dec(segments(z, ids, frames), g3)
+        return o, (ids, x_mask, y_mask, z, z_p, m_p, logs_p, m_q, logs_q)
+
     @torch.no_grad()
     def inference(self, tokens: torch.Tensor, token_len: torch.Tensor, g: torch.Tensor,
                   noise: Optional[torch.Tensor] = None, gen: Optional[torch.Generator] = None,
@@ -417,6 +445,27 @@ class VitsDecoder(nn.Module):
         z_p = m_p + normal_noise(m_p, noise, gen) * torch.exp(logs_p) * noise_scale
         z = self.flow(z_p, mask, g3, reverse=True)
         return self.dec(z * mask[..., None].to(z.dtype), g3)
+
+
+def segments(x: torch.Tensor, starts: torch.Tensor, size: int) -> torch.Tensor:
+    """x [B, T, ...] -> x[b, s_b : s_b + size] for each row, each start
+    clamped to [0, T - size] (jax.lax.dynamic_slice_in_dim's clamp)."""
+    T = x.shape[1]
+    if size > T:
+        raise ValueError(f"a segment of {size} from {T} rows")
+    s = starts.to(x.device).long().clamp(0, T - size)
+    idx = s[:, None] + torch.arange(size, device=x.device)
+    idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(-1, -1, *x.shape[2:])
+    return torch.gather(x, 1, idx)
+
+
+def vits_kl_loss(z_p, logs_q, m_p, logs_p, mask) -> torch.Tensor:
+    """The masked KL between the flowed posterior and the prior, summed over
+    channels and frames, over the count of valid frames (mask [B, T])."""
+    m = mask[..., None].float()
+    kl = logs_p - logs_q - 0.5
+    kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
+    return torch.sum(kl * m) / torch.clamp(torch.sum(mask.float()), min=1.0)
 
 
 def load_vits(cfg: Optional[VitsConfig] = None, state_dict: Optional[dict] = None,

@@ -58,8 +58,10 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def _load(ckpt_dir: str, step: int) -> dict:
+    """Memory-mapped: only the tensors a caller touches are read (averaging
+    reads the parameters, not the optimizer's moments)."""
     return torch.load(os.path.join(ckpt_dir, str(step), STATE_FILE), map_location="cpu",
-                      weights_only=True)
+                      weights_only=True, mmap=True)
 
 
 def restore_checkpoint(ckpt_dir: str, state: TrainState,

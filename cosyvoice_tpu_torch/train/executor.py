@@ -1,6 +1,7 @@
 """Training executor: the epoch loop, periodic CV and checkpoints, metric
-logging.  Port of cosyvoice_tpu/train/executor.py's Executor (the GAN
-executor comes with the vocoders' training).
+logging.  Port of cosyvoice_tpu/train/executor.py: `Executor`, and
+`GanExecutor` for the vocoders (a discriminator step, then a generator
+step, each batch).
 
 Each step draws from its own generator, a function of (rng_seed, step)
 alone (train/step.step_generator), so a resumed run repeats the draws an
@@ -116,3 +117,44 @@ class Executor:
         avg = {k: v / max(w, 1) for k, v in tot.items()}
         self._log("CV", avg)
         return avg
+
+
+@dataclass
+class GanExecutor(Executor):
+    """Two-optimizer alternation: for each batch the discriminator step on
+    the current generator, then the generator step on the updated
+    discriminator, each with a generator of (rng_seed, step), so both
+    steps draw alike.  The generator checkpoints to model_dir, the
+    discriminator to model_dir + "_disc", every save_per_step steps and at
+    the end of an epoch."""
+
+    disc_step: Optional[Callable] = None   # (d_state, g_model, batch, gen)
+
+    def train_one_epoch_gan(self, g_state: TrainState, d_state: TrainState,
+                            train_data: Iterable, to_device: Callable = lambda b: b):
+        logger.info("Epoch %d begin (GAN)", self.epoch)
+        t0, n_since = time.time(), 0
+        it = iter(train_data)
+        while True:
+            batch = next(it, None)
+            if not all_hosts_have_data(batch is not None):
+                break
+            b = to_device(arrays_only(batch))
+            d_state, d_metrics = self.disc_step(
+                d_state, g_state.model, b, step_generator(self.rng_seed, self.step, self.device))
+            g_state, g_metrics = self.train_step(
+                g_state, (d_state.model, b), step_generator(self.rng_seed, self.step, self.device))
+            self.step += 1
+            n_since += 1
+            if self.step % self.log_interval == 0:
+                dt = (time.time() - t0) / max(n_since, 1)
+                self._log("TRAIN", {**{f"d_{k}": v for k, v in d_metrics.items()},
+                                    **g_metrics, "sec_per_step": dt})
+                t0, n_since = time.time(), 0
+            if self.save_per_step > 0 and self.step % self.save_per_step == 0:
+                save_checkpoint(self.model_dir, g_state, self.step, {"epoch": self.epoch})
+                save_checkpoint(self.model_dir + "_disc", d_state, self.step)
+        save_checkpoint(self.model_dir, g_state, self.step, {"epoch": self.epoch, "whole": True})
+        save_checkpoint(self.model_dir + "_disc", d_state, self.step)
+        self.epoch += 1
+        return g_state, d_state

@@ -149,3 +149,56 @@ def test_unknown_key_raises():
         tconfig.build_model("qwen2lm", {"qwen": {"hidden": 8}})
     assert len(tconfig._registry()[0]) == len(jconfig._registry()[0]) == 17
     assert set(tconfig._registry()[0]) == set(jconfig._registry()[0])
+
+
+# Each YAML form the recipe reader once read apart from yaml.safe_load
+# (ROADMAP Queue 3 F1), and its neighbours: block scalars, quote escapes,
+# tags, YAML 1.1 ints and floats, case-exact booleans.
+F1_FORMS = {
+    "literal": "a: |\n  hi\n  there\n\n  x\nb: 1\n",
+    "literal_strip": "a: |-\n  hi\n",
+    "literal_keep": "a: |+\n  x\n\nb: 1\n",
+    "literal_comment_text": "a: |\n  # not a comment\n  x\n",
+    "folded": "a: >\n  hi\n  there\n\n  x\nb: 1\n",
+    "folded_nested": "a:\n  b: >-\n    one\n    two\n  c: 3\n",
+    "single_quote_escape": "a: 'it''s'",
+    "double_quote_escape": 'a: "x\\ty\\"z"',
+    "tag_float": "a: !!float 1",
+    "tag_int_octal": "a: !!int 010",
+    "tag_str": "a: !!str 1",
+    "hex": "a: 0x10",
+    "octal": "a: 010",
+    "binary": "a: 0b101",
+    "base60": "a: 1:20",
+    "inf": "a: .inf",
+    "minus_inf": "a: -.inf",
+    "dot_float": "a: .5",
+    "signed_dot_string": "a: -.5",
+    "exponent_without_sign_string": "a: 1.0e3",
+    "exponent": "a: 1.0e+3",
+    "mixed_case_bool_string": "a: tRUE",
+    "flow_quoted": "a: ['x, y', 'it''s', \"q\\\"\"]",
+}
+F1_REFUSED = {
+    "timestamp": "a: 2001-12-14",
+    "anchor": "a: &x 1",
+    "alias": "a: *x",
+    "multi_line_plain": "a: hello\n  world\n",
+    "multi_line_flow": "a: [1,\n 2]\n",
+    "document_marker": "---\na: 1\n",
+    "local_tag": "a: !foo 1",
+    "folded_more_indented": "a: >\n  x\n    y\n",
+}
+
+
+@pytest.mark.parametrize("text", list(F1_FORMS.values()), ids=list(F1_FORMS))
+def test_yaml_reader_forms_match_safe_load(text):
+    assert tconfig.parse_yaml(text) == yaml.safe_load(text)
+
+
+@pytest.mark.parametrize("text", list(F1_REFUSED.values()), ids=list(F1_REFUSED))
+def test_yaml_reader_refuses_what_it_does_not_read(text):
+    """safe_load reads these (or fails on them); the reader raises rather
+    than read them some other way."""
+    with pytest.raises(ValueError):
+        tconfig.parse_yaml(text)

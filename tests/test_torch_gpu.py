@@ -519,3 +519,33 @@ def test_train_steps_card_equal_cpu(cuda):
 
     for kind, r in chip_smoke.train_small_checks().items():
         assert r["ok"], (kind, r)
+
+
+@pytest.mark.gpu
+def test_bigvgan_training_forward_refuses_k7(cuda):
+    """A BigVGAN training forward (gradients on) with use_pallas_act reaches
+    K7, which has no backward: it raises rather than hand back an output cut
+    off from the graph; the same forward without K7 keeps the graph, and
+    inference (deterministic) still takes K7."""
+    from cosyvoice_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
+
+    small = dict(vocab_size=30, input_size=16, output_size=16, mel_bin=8,
+                 upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
+                 upsample_initial_channel=32, resblock_kernel_sizes=(3,),
+                 resblock_dilation_sizes=((1, 3),), speaker_embedding_dim=8)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    token = torch.randint(0, 30, (2, 12), generator=g, device=cuda)
+    lens = torch.tensor([12, 9], device=cuda)
+    spk = torch.randn(2, 8, generator=g, device=cuda)
+    with torch.enable_grad():
+        torch.manual_seed(0)
+        model = BigVGAN(BigVGANConfig(**small, use_pallas_act=True)).to(cuda).train()
+        with pytest.raises(RuntimeError, match="no backward"):
+            model(token, lens, spk, deterministic=False)
+        plain = BigVGAN(BigVGANConfig(**small)).to(cuda).train()
+        plain.load_state_dict(model.state_dict())
+        wav, _ = plain(token, lens, spk, deterministic=False)
+        assert wav.requires_grad
+    before = K7.launches
+    wav_k7, _ = model(token, lens, spk)
+    assert K7.launches > before and not wav_k7.requires_grad

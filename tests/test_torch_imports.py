@@ -52,6 +52,10 @@ import cosyvoice_tpu_torch.train.optim, cosyvoice_tpu_torch.train.ema
 import cosyvoice_tpu_torch.train.step, cosyvoice_tpu_torch.train.packing
 import cosyvoice_tpu_torch.train.checkpoint, cosyvoice_tpu_torch.train.executor
 import cosyvoice_tpu_torch.data.pipeline, cosyvoice_tpu_torch.bin.train
+import cosyvoice_tpu_torch.ops.f0, cosyvoice_tpu_torch.models.discriminator
+import cosyvoice_tpu_torch.train.gan, cosyvoice_tpu_torch.utils.safetensors_io
+import cosyvoice_tpu_torch.bin.average_model, cosyvoice_tpu_torch.bin.ckpt_resave
+import cosyvoice_tpu_torch.bin.export_serving_lm
 bad = [m for m in sys.modules
        if m in ("jax", "flax", "cosyvoice_tpu", "transformers", "tokenizers", "tiktoken",
                 "yaml", "optax", "orbax")

@@ -2,7 +2,9 @@
 --device cpu) at the small widths of tests/test_train_cli.py's recipe:
 qwen2lm, transformer_lm and the flow each train one epoch on a seeded
 jsonl corpus, write metrics.jsonl with finite values and a checkpoint, and
-a second run resumes from that checkpoint; the branches that wait for later
+a second run resumes from that checkpoint; hift, bigvgan and vits each take
+two D + G step pairs against MPD + MRD and checkpoint both nets; adamw
+takes no weight decay, as the JAX CLI's; the branches that wait for later
 slices raise NotImplementedError naming their ROADMAP item; the default
 device is the card, with no fallback.  Also the recipe reader's block
 sequences (the train configs below are written by yaml.safe_dump)."""
@@ -63,7 +65,7 @@ def test_train_cli_trains_and_resumes(tmp_path, model, kind):
 
 
 @pytest.mark.parametrize("args,conf,item", [
-    (["--model", "hift"], {}, "GAN vocoders"),
+    (["--model", "hift", "--mesh_data", "2"], {}, "item 11"),
     (["--model", "llm"], {"llm": {"kind": "qwen2lm_phoneme_src2"}}, "phoneme"),
     (["--model", "llm", "--lora"], {}, "phoneme"),
     (["--model", "llm", "--data_format", "parquet"], {}, "phoneme"),
@@ -100,3 +102,71 @@ def test_yaml_reader_block_sequences():
     for bad in ("a:\n- - 1\n- - 2\n", "a:\n- k: v\n"):
         with pytest.raises(ValueError, match="block sequence"):
             parse_yaml(bad)
+
+
+def test_train_cli_adamw_takes_no_weight_decay(tmp_path):
+    """An adamw recipe with train_conf.weight_decay trains exactly as one
+    without it: the JAX CLI passes no weight decay to make_optimizer, so
+    its adamw decays by 0 (ROADMAP Queue 3 F2)."""
+    lst = write_train_corpus(tmp_path, n=3)
+    params = []
+    for wd in (None, 0.5):
+        extra = {"optim": "adamw"} if wd is None else {"optim": "adamw", "weight_decay": wd}
+        cfg = _config(tmp_path, "llm", "qwen2lm", **extra)
+        model_dir = str(tmp_path / f"exp_{wd}")
+        train_cli.main(["--config", cfg, "--model", "llm", "--train_data", lst, "--model_dir",
+                        model_dir, "--epochs", "1", "--device", "cpu"])
+        step = latest_step(model_dir)
+        params.append(torch.load(os.path.join(model_dir, str(step), "state.pt"),
+                                 weights_only=True)["params"])
+    assert params[0].keys() == params[1].keys()
+    for k in params[0]:
+        assert torch.equal(params[0][k], params[1][k]), k
+
+
+ENC = {"dim": 16, "heads": 2, "linear_units": 16, "num_blocks": 1, "input_size": 16}
+GAN_SECTIONS = {
+    "hift": {"kind": "hift", "base_channels": 16, "nb_harmonics": 1, "f0_cond_channels": 8,
+             "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1]],
+             "source_resblock_kernel_sizes": [3, 3, 3],
+             "source_resblock_dilation_sizes": [[1], [1], [1]]},
+    "bigvgan": {"kind": "bigvgan", "vocab_size": 128, "input_size": 16, "output_size": 16,
+                "upsample_rates": [8, 5, 3, 2], "upsample_kernel_sizes": [16, 11, 7, 2],
+                "upsample_initial_channel": 16, "resblock_kernel_sizes": [3],
+                "resblock_dilation_sizes": [[1]], "speaker_embedding_dim": 512,
+                "encoder1": dict(ENC), "encoder2": dict(ENC)},
+    "vits": {"kind": "vits", "n_vocab": 128, "inter_channels": 8, "hidden_channels": 16,
+             "filter_channels": 16, "n_heads": 2, "n_layers": 1,
+             "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1]],
+             "upsample_rates": [8, 5, 3, 2], "upsample_initial_channel": 16,
+             "upsample_kernel_sizes": [16, 11, 7, 2], "segment_size": 2400,
+             "up_enc1": dict(ENC), "up_enc2": dict(ENC)},
+}
+
+
+@pytest.mark.parametrize("model", list(GAN_SECTIONS))
+def test_train_cli_gan_vocoders(tmp_path, model):
+    """The recipes' layout at small widths (24 kHz, 480 samples a mel frame,
+    25 Hz tokens): two utterances of 0.32 s, one a batch, so one epoch is
+    two D + G step pairs against MPD + MRD; every logged value finite (the
+    f0 term only for HiFT), both nets checkpointed at step 2."""
+    lst = write_train_corpus(tmp_path, n=2, seconds=0.32, tokens=8)
+    conf = {model: GAN_SECTIONS[model],
+            "gan_conf": {"discriminator": "multiple",
+                         "discriminator_conf": {"periods": [2, 3], "fft_sizes": [256, 128]}},
+            "data": {"filter": {"max_length": 40960, "token_max_length": 300},
+                     "max_frames_in_batch": 20},
+            "train_conf": {"lr": 1e-4, "lr_d": 1e-4, "log_interval": 1}}
+    cfg = tmp_path / f"{model}.yaml"
+    cfg.write_text(yaml.safe_dump(conf, default_flow_style=None, width=1000))
+    model_dir = str(tmp_path / f"exp_{model}")
+    train_cli.main(["--config", str(cfg), "--model", model, "--train_data", lst,
+                    "--model_dir", model_dir, "--epochs", "1", "--device", "cpu"])
+    recs = _metrics(model_dir)
+    assert [r["step"] for r in recs] == [1, 2]
+    for r in recs:
+        assert all(np.isfinite(v) for k, v in r.items() if k != "tag"), r
+        assert {"d_loss_disc", "loss_gen", "loss_fm", "loss_mel", "loss_tpr"} <= set(r)
+    assert (recs[-1].get("loss_f0", 0.0) > 0) == (model == "hift")
+    assert ("loss_kl" in recs[-1]) == (model == "vits")
+    assert latest_step(model_dir) == latest_step(model_dir + "_disc") == 2
