@@ -12,8 +12,12 @@ Every anti-aliased activation (`AAAct`) runs the fused kernel
 (`ops/kernels/snake_aa.py`, K7) with `use_pallas_act`, else the composite
 `ops/resample.py::anti_alias_activation` (the kaiser-sinc filter and the 2x
 resamplers live there too); the two differ in the first and
-last ~6 samples of each activation by design.  The convolutions stay cuDNN,
-as the JAX package leaves them to XLA.  Parameter names follow the reference
+last ~6 samples of each activation by design.  With gradients on, the
+composite runs under torch.utils.checkpoint: the backward recomputes its
+2x-rate intermediates rather than keeping them, so a training forward
+keeps little more than the convolutions' inputs, and the recipe's batch
+fits on one card (the JAX package leaves this to XLA).  The convolutions
+stay cuDNN, as the JAX package leaves them to XLA.  Parameter names follow the reference
 checkpoint (`ups.{i}.0`, `resblocks.{i*nk+j}.convs1.{d}`,
 `resblocks.{...}.activations.{a}.act.alpha`, `encoder1.*`, ...), so a
 reference `bigvgan.pt` state_dict loads with strict=True.
@@ -25,6 +29,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from cosyvoice_tpu_torch.device import resolve_device
 from cosyvoice_tpu_torch.models.conformer import ConformerConfig, UpsampleConformerEncoder
@@ -102,6 +107,9 @@ class AAAct(nn.Module):
             # the conv outputs are channels-first in memory; K7 reads and
             # writes that layout as it is
             return snake_aa(x, alpha, beta, self.logscale)
+        if torch.is_grad_enabled():
+            return checkpoint(anti_alias_activation, x, alpha, beta, self.logscale,
+                              use_reentrant=False)
         return anti_alias_activation(x, alpha, beta, self.logscale)
 
 

@@ -3,8 +3,11 @@
 Port of cosyvoice_tpu/models/hift.py.  Parity notes kept from the JAX
 package: the activation before conv_post is leaky_relu with slope 0.01 (not
 lrelu_slope); reflection-pad (1, 0) follows the LAST upsample only; the
-magnitude is clipped at 1e2 before the iSTFT.  The f0 predictor, the sine
-source and the iSTFT head stay fp32; the conv stack runs in `dtype`.
+magnitude is clipped at 1e2 before the iSTFT (its log clamped at 5 first:
+the same values, but a log-magnitude past exp's fp32 range gets a zero
+gradient, where the JAX package's min(exp(x), 1e2) gets NaN).
+The f0 predictor, the sine source and the iSTFT head stay fp32; the conv
+stack runs in `dtype`.
 The NSF source's random phases and noise come from an explicit
 torch.Generator (drawn on that generator's device), or from one generator a
 row so that a batched call draws each row's noise as its own B=1 call would;
@@ -26,6 +29,10 @@ from cosyvoice_tpu_torch.ops.activations import snake
 from cosyvoice_tpu_torch.ops.stft import hann_window, istft, stft
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# log-magnitudes are clamped here before exp: exp(5) > the 1e2 clip, so the
+# clipped magnitude is unchanged, and exp never overflows to inf (whose
+# product with the clip's zero gradient is NaN)
+MAG_LOG_CAP = 5.0
 
 
 @dataclass(frozen=True)
@@ -208,7 +215,7 @@ class HiFTGenerator(nn.Module):
             x = xs / nk
         x = self.conv_post(F.leaky_relu(x, 0.01)).float()
         nb = n_fft // 2 + 1
-        mag = torch.exp(x[..., :nb]).clamp_max(1e2)
+        mag = torch.exp(x[..., :nb].clamp_max(MAG_LOG_CAP)).clamp_max(1e2)
         phase = torch.sin(x[..., nb:])
         wav = istft((mag * torch.cos(phase)).transpose(1, 2),
                     (mag * torch.sin(phase)).transpose(1, 2), n_fft, hop, win, center=True)

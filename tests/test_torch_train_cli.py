@@ -16,6 +16,7 @@ import pytest
 import torch
 import yaml
 
+import chip_smoke
 from torch_port_util import (one_torch_thread, train_section,  # noqa: F401 (autouse)
                              write_train_corpus)
 from cosyvoice_tpu_torch.bin import train as train_cli
@@ -124,43 +125,16 @@ def test_train_cli_adamw_takes_no_weight_decay(tmp_path):
         assert torch.equal(params[0][k], params[1][k]), k
 
 
-ENC = {"dim": 16, "heads": 2, "linear_units": 16, "num_blocks": 1, "input_size": 16}
-GAN_SECTIONS = {
-    "hift": {"kind": "hift", "base_channels": 16, "nb_harmonics": 1, "f0_cond_channels": 8,
-             "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1]],
-             "source_resblock_kernel_sizes": [3, 3, 3],
-             "source_resblock_dilation_sizes": [[1], [1], [1]]},
-    "bigvgan": {"kind": "bigvgan", "vocab_size": 128, "input_size": 16, "output_size": 16,
-                "upsample_rates": [8, 5, 3, 2], "upsample_kernel_sizes": [16, 11, 7, 2],
-                "upsample_initial_channel": 16, "resblock_kernel_sizes": [3],
-                "resblock_dilation_sizes": [[1]], "speaker_embedding_dim": 512,
-                "encoder1": dict(ENC), "encoder2": dict(ENC)},
-    "vits": {"kind": "vits", "n_vocab": 128, "inter_channels": 8, "hidden_channels": 16,
-             "filter_channels": 16, "n_heads": 2, "n_layers": 1,
-             "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1]],
-             "upsample_rates": [8, 5, 3, 2], "upsample_initial_channel": 16,
-             "upsample_kernel_sizes": [16, 11, 7, 2], "segment_size": 2400,
-             "up_enc1": dict(ENC), "up_enc2": dict(ENC)},
-}
-
-
-@pytest.mark.parametrize("model", list(GAN_SECTIONS))
+@pytest.mark.parametrize("model", list(chip_smoke.GAN_SMALL))
 def test_train_cli_gan_vocoders(tmp_path, model):
-    """The recipes' layout at small widths (24 kHz, 480 samples a mel frame,
-    25 Hz tokens): two utterances of 0.32 s, one a batch, so one epoch is
-    two D + G step pairs against MPD + MRD; every logged value finite (the
-    f0 term only for HiFT), both nets checkpointed at step 2."""
-    lst = write_train_corpus(tmp_path, n=2, seconds=0.32, tokens=8)
-    conf = {model: GAN_SECTIONS[model],
-            "gan_conf": {"discriminator": "multiple",
-                         "discriminator_conf": {"periods": [2, 3], "fft_sizes": [256, 128]}},
-            "data": {"filter": {"max_length": 40960, "token_max_length": 300},
-                     "max_frames_in_batch": 20},
-            "train_conf": {"lr": 1e-4, "lr_d": 1e-4, "log_interval": 1}}
-    cfg = tmp_path / f"{model}.yaml"
-    cfg.write_text(yaml.safe_dump(conf, default_flow_style=None, width=1000))
+    """chip_smoke.py's GAN CLI inputs (the recipes' layout at small widths:
+    24 kHz, 480 samples a mel frame, 25 Hz tokens; two utterances of 0.32
+    s, one a batch), so one epoch is two D + G step pairs against MPD +
+    MRD: every logged value finite (the f0 term only for HiFT), both nets
+    checkpointed at step 2."""
+    lst, recipes = chip_smoke.write_gan_cli_inputs(str(tmp_path))
     model_dir = str(tmp_path / f"exp_{model}")
-    train_cli.main(["--config", str(cfg), "--model", model, "--train_data", lst,
+    train_cli.main(["--config", recipes[model], "--model", model, "--train_data", lst,
                     "--model_dir", model_dir, "--epochs", "1", "--device", "cpu"])
     recs = _metrics(model_dir)
     assert [r["step"] for r in recs] == [1, 2]

@@ -334,7 +334,7 @@ def train_section(kind: str, **overrides) -> dict:
 
 
 def write_train_corpus(dirpath, n: int = 3, seconds: float = 0.65, sr: int = 24000,
-                       seed: int = 7, tokens: int = 30) -> str:
+                       seed: int = 7) -> str:
     """A seeded jsonl corpus as tests/test_train_cli.py writes it (inline
     waveforms, 30 speech tokens, a 512-d embedding) and its shard list."""
     rng = np.random.default_rng(seed)
@@ -344,7 +344,7 @@ def write_train_corpus(dirpath, n: int = 3, seconds: float = 0.65, sr: int = 240
             wav = (rng.standard_normal(int(sr * seconds)) * 0.1).tolist()
             f.write(json.dumps({"utt": f"u{i}", "text": "hello world", "speech": wav,
                                 "sample_rate": sr,
-                                "speech_token": rng.integers(0, 100, tokens).tolist(),
+                                "speech_token": rng.integers(0, 100, 30).tolist(),
                                 "embedding": rng.standard_normal(512).tolist()}) + "\n")
     lst = dirpath / "train.list"
     lst.write_text(str(jsonl) + "\n")
