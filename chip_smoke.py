@@ -203,7 +203,26 @@ Phases, each printing JSON lines:
      seconds of each step, RTF, peak memory; then
      bin/export_serving_lm.py of the averaged LM, its model.safetensors
      equal to the re-headed tensors;
- 22. timing  - at the main path's shapes: each kernel against its plain
+ 22. pho_train - phoneme-LM training on online labels, and LoRA to a served
+     model: (a) cosyvoice2_pho.yaml's Qwen2LMPhonemeSrc2 at full width,
+     random init, through bin/train.py --data_format spk_json (static
+     batches of 8, accum_grad 2) over a seeded 4-speaker x 4-utterance
+     corpus of 3-8 s clips with prosody-marked phonemes and MFA
+     durations, its speech tokens and speaker vectors labelled every batch
+     by the full-width S3 tokenizer and SpeakerEmbedding (random, frozen):
+     2 micro-steps, then 2 more resumed from the checkpoint; seconds a
+     micro-step and a batch's labels, peak memory; (b) cosyvoice2.yaml's
+     LM with --lora (r 8, alpha 16, q/k/v/o), 4 micro-steps, lora.npz
+     merged by ckpt_resave --lora_npz into a model directory that
+     from_pretrained serves one request from (K1-K3 counted around it),
+     its greedy tokens equal to those of an in-memory merge_lora; (c) at
+     small widths, card against CPU: the phoneme LM's loss, the multi-code
+     focal loss and TransformerLMPhonemeWithSpk's loss with VICReg (pinned
+     SpecAugment masks); (d) at small widths through the CLI:
+     qwen2lm_phoneme and qwen2lm_phoneme_src (spk_json, online labels),
+     transformer_lm (parquet) and the flow with lora_conf; no kernel
+     launched in any training;
+ 23. timing  - at the main path's shapes: each kernel against its plain
      version on the same inputs, then the kernel, the plain version and the
      one PyTorch call that computes the same function, timed (CUDA events);
      K1 also at the engine's shape (B = 8, cache 384, per-row frontiers)
@@ -238,10 +257,12 @@ its launches in the v1 phase's four requests, launches_phoneme, its
 launches in the phoneme phase's three full-width runs, launches_lam, its
 launches in the lam phase's chain, launches_multicode, its launches in
 the multicode phase's B=1 and B=4 decodes, launches_gan, its launches in
-the gan phase (all zero), and launches_deploy, its launches in the deploy
-phase's request from the assembled directory; the K2 and K3 rows
+the gan phase (all zero), launches_deploy, its launches in the deploy
+phase's request from the assembled directory, and launches_pho_train, its
+launches in the pho_train phase (the LoRA-merged request's alone); the K2
+and K3 rows
 add v1_shapes, their times at the v1 estimator's two levels.  The line
-before the card's line gives the whole run's seconds.
+before the card's line gives the whole run's seconds and each phase's.
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero.
 """
 from __future__ import annotations
@@ -1830,8 +1851,9 @@ def serve_phase(res_main: dict, smi: str) -> dict:
     llm, flow, hift, frontend = res_main["stack"]
     rng = np.random.default_rng(31)
     frontend.spk2info = {"speaker": {"embedding": rng.standard_normal(192).astype(np.float32)}}
+    # a 100-token cap a request (cut from 200 to keep the script inside its time)
     cv = CosyVoice2(frontend=frontend, model=CosyVoice2Model(
-        llm=llm, flow=flow, hift=hift, max_decode_tokens=200, device="cuda"))
+        llm=llm, flow=flow, hift=hift, max_decode_tokens=100, device="cuda"))
     prompt = {"prompt_wav_b64": base64.b64encode(
         res_main["prompt_wav"].astype("<f4").tobytes()).decode()}
     source = (0.3 * np.sin(2 * np.pi * 180 * np.arange(32000) / 16000.0)).astype("<f4")
@@ -2120,9 +2142,11 @@ def serve_cli_check(d: str, prompt: np.ndarray, timeout_s: float = 600.0) -> dic
     import os
     import threading
 
+    # a 60-token cap: the warm-up's rounds and the request decode up to it
+    # (cut from 200 to keep the script inside its time)
     cmd = [sys.executable, "-m", "cosyvoice_tpu_torch.bin.serve", "--model_dir", d, "--fp16",
            "--quant", "int8", "--continuous", "--host", "127.0.0.1", "--port", "0",
-           "--max-decode-tokens", "200"]
+           "--max-decode-tokens", "60"]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -3734,8 +3758,10 @@ GAN_BATCH = {"hift": (4, 500), "bigvgan": (4, 500), "vits": (4, 500)}
 # below where it started; the JAX package takes the same path
 # (tests/vits_kl_path.py at width 256, CPU).  HiFT runs 8: its largest
 # log-magnitude climbs ~10 a pair toward exp's fp32 range (~88.7), past
-# which the clip's gradient was NaN before models/hift.py MAG_LOG_CAP
-GAN_PAIRS = {"hift": 8, "bigvgan": 5, "vits": 10}
+# which the clip's gradient was NaN before models/hift.py MAG_LOG_CAP.
+# BigVGAN runs 3 (6.3 s a pair at the recipe's batch; cut from 5 to keep
+# the whole script inside its time)
+GAN_PAIRS = {"hift": 8, "bigvgan": 3, "vits": 10}
 GAN_SEED = 1986
 GAN_SMALL_TOL = 1e-4
 # small widths of the three generators (the card-vs-CPU check, and the CLI
@@ -4152,6 +4178,592 @@ def deploy_phase(kernels: dict, smi: str) -> dict:
              export_equal, hf_conf["vocab_size"] % 64 == 0]
     if not all(gates):
         raise AssertionError(f"deploy phase failed: {gates} {res}")
+    return res
+
+
+# the pho_train phase: the production phoneme LM (cosyvoice2_pho.yaml) trained
+# through bin/train.py on a speaker-JSON corpus labelled online, and a LoRA
+# finetune of cosyvoice2.yaml's LM merged by ckpt_resave into a served model
+PHO_TRAIN_RECIPE = "cosyvoice2/conf/cosyvoice2_pho.yaml"
+PHO_TRAIN_SEED = 1700
+PHO_TRAIN_SPEAKERS, PHO_TRAIN_UTTS, PHO_TRAIN_SECONDS = 4, 4, (3.0, 8.0)
+PHO_TRAIN_BATCH = 8                    # the recipe's static batch of 8 (its train_conf comment)
+LORA_UTTS, LORA_BATCH, LORA_SECONDS = 8, 2, 2.0
+PHO_TRAIN_SMALL_TOL = 1e-4             # card vs CPU, relative, fp32 with TF32 off
+PHO_TRAIN_SMALL = {
+    "llm_input_size": 32, "llm_output_size": 32, "speech_token_size": 24, "spk_embed_dim": 16,
+    "phoneme": {"text_token_size": 8, "text_token_dim": 16, "text_tone_size": 16,
+                "text_tone_dim": 8, "text_lang_size": 2, "text_lang_dim": 4,
+                "text_prsd_size": 6, "text_prsd_dim": 4},
+    "encoder": {"input_size": 32, "dim": 32, "heads": 2, "linear_units": 48, "num_blocks": 1,
+                "dropout_rate": 0.0, "attention_dropout_rate": 0.0},
+    "fusion_heads": 2, "fusion_ffn": 48,
+    "qwen": {"vocab_size": 300, "hidden_size": 32, "num_layers": 1, "num_heads": 4,
+             "num_kv_heads": 2, "head_dim": 8, "intermediate_size": 64}}
+
+
+def write_wav_file(path: str, wav: np.ndarray, sr: int) -> None:
+    import wave
+
+    with wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes((np.clip(wav, -1, 1) * 32767).astype("<i2").tobytes())
+
+
+def write_pho_corpus(dirpath: str, cfg, seed: int) -> tuple:
+    """A seeded speaker-JSON corpus under `dirpath`: PHO_TRAIN_SPEAKERS
+    speakers x PHO_TRAIN_UTTS utterances of PHO_TRAIN_SECONDS (uniform) at
+    24 kHz, each with ASCII text, a phoneme string (a phoneme every ~0.1 s
+    from a table the size of the recipe's phoneme table, tones 1-5 and 14,
+    #1 / #2 / #3 marks) and MFA durations that sum to the clip -> (shard
+    list, phoneme table path)."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    size = cfg.phoneme.text_token_size
+    names = ["sil"] + [f"p{chr(97 + i // 26)}{chr(97 + i % 26)}" for i in range(size - 1)]
+    table = os.path.join(dirpath, "phoneme2id.json")
+    with open(table, "w") as f:
+        json.dump({n: i for i, n in enumerate(names)}, f)
+    corpus, sr = {}, 24000
+    for s in range(PHO_TRAIN_SPEAKERS):
+        utts = []
+        for u in range(PHO_TRAIN_UTTS):
+            seconds = float(rng.uniform(*PHO_TRAIN_SECONDS))
+            n = int(seconds * 10)
+            pho, dur = ["sil"], []
+            for i in range(n):
+                tone = 14 if rng.random() < 0.1 else int(rng.integers(1, 6))
+                pho.append(f"{names[int(rng.integers(1, size))]}{tone}")
+                if i % 4 == 3 and i < n - 1:
+                    pho.append(("#1", "#2", "#3")[int(rng.integers(0, 3))])
+            pho.append("sil")
+            w = rng.uniform(0.5, 1.5, len(pho)) * np.array([p[0] != "#" for p in pho])
+            dur = (seconds * w / w.sum()).tolist()
+            t = np.arange(int(seconds * sr)) / sr
+            f0 = 120 + 40 * s
+            wav = (0.3 * np.sin(2 * np.pi * f0 * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
+                   + 0.05 * rng.standard_normal(len(t))).astype(np.float32)
+            path = os.path.join(dirpath, f"s{s}_u{u}.wav")
+            write_wav_file(path, wav, sr)
+            words = ["".join(chr(97 + int(c)) for c in rng.integers(0, 26, int(k)))
+                     for k in rng.integers(2, 7, max(n // 3, 1))]
+            utts.append({"utt": f"s{s}_u{u}", "wav": path, "duration": seconds,
+                         "text": " ".join(words)[:180], "phoneme": " ".join(pho),
+                         "durations": dur})
+        corpus[f"spk{s}"] = utts
+    path = os.path.join(dirpath, "corpus.json")
+    with open(path, "w") as f:
+        json.dump(corpus, f)
+    lst = os.path.join(dirpath, "train.list")
+    with open(lst, "w") as f:
+        f.write(path + "\n")
+    return lst, table
+
+
+def write_recipe(path: str, conf: dict) -> None:
+    """One flow mapping a section (the recipes' YAML subset)."""
+    with open(path, "w") as f:
+        f.writelines(f"{k}: {json.dumps(v)}\n" for k, v in conf.items())
+
+
+def pho_train_small_checks() -> dict:
+    """(c) At small widths (PHO_TRAIN_SMALL; dropout 0), one seeded init on the
+    card and on the CPU, every draw on a CPU generator: the Src2 phoneme
+    LM's training loss and acc; the multi-code LM's focal loss (3
+    codebooks, 2 fusion layers); TransformerLMPhonemeWithSpk's loss with
+    VICReg in a training step (the lam phase's small speaker stack, the
+    SpecAugment masks and both posterior samples pinned): each within
+    PHO_TRAIN_SMALL_TOL relative, card against CPU."""
+    import copy
+
+    from cosyvoice_tpu_torch.config import build_model
+    from cosyvoice_tpu_torch.nn.dropout import dropout_generator
+    from cosyvoice_tpu_torch.models.llm_v1_phoneme import spec_augment_masks
+
+    rng = np.random.default_rng(1701)
+    cfg_pho = PHO_TRAIN_SMALL["phoneme"]
+    pho = np.stack([rng.integers(0, cfg_pho[f"text_{t}_size"], (3, 9))
+                    for t in ("token", "tone", "lang", "prsd")], axis=-1)
+    base = {"text_token": rng.integers(0, 300, (3, 6)), "text_token_len": np.array([6, 3, 5]),
+            "pho_token": pho, "pho_token_len": np.array([9, 4, 7]),
+            "speech_token_len": np.array([8, 5, 6]),
+            "embedding": rng.standard_normal((3, 16)).astype(np.float32)}
+    args = ("text_token", "text_token_len", "pho_token", "pho_token_len", "speech_token",
+            "speech_token_len", "embedding")
+    cases = {"qwen2lm_phoneme_src2": dict(base, speech_token=rng.integers(0, 24, (3, 8))),
+             "qwen2lm_phoneme_multicode": dict(base, speech_token=rng.integers(0, 24, (3, 8, 3)))}
+    res = {}
+    for kind, b in cases.items():
+        sec = dict(PHO_TRAIN_SMALL, **({"codebooknum": 3, "src_attn_layers": 2}
+                                 if kind.endswith("multicode") else {}))
+        torch.manual_seed(1702)
+        model, _ = build_model(kind, sec)
+        out = {}
+        for dev, m in (("cuda", copy.deepcopy(model).to("cuda")), ("cpu", model)):
+            t = {k: torch.as_tensor(np.asarray(b[k])).to(dev) for k in args}
+            r = m.eval()(*(t[k] for k in args))
+            out[dev] = {k: float(v.detach()) for k, v in r.items()}
+        res[kind] = out
+    # TransformerLMPhonemeWithSpk: the lam phase's small stack, a training step
+    _, _, ws = lam_small_models("cpu")
+    cfg = ws.lm.cfg
+    fb = torch.randn(2, 150, 80, generator=torch.Generator().manual_seed(1703))
+    spec = torch.randn(2, 120, ws.speaker_embed.cfg.spec_channels,
+                       generator=torch.Generator().manual_seed(1704)).abs()
+    spec_len = torch.tensor([120, 90])
+    g = torch.Generator().manual_seed(1705)
+    inter = ws.speaker_embed.cfg.inter_channels
+    aug = {"fbank_masks": spec_augment_masks(2, 150, 80, g),
+           "spec_masks": spec_augment_masks(2, 120, spec.shape[2], g),
+           "noise": torch.randn(2, 120, inter, generator=g)}
+    noise = torch.randn(2, 120, inter, generator=g)
+    pho_v1 = np.stack([rng.integers(0, getattr(cfg.phoneme, f"text_{t}_size"), (2, 9))
+                       for t in ("token", "tone", "lang", "prsd")], axis=-1)
+    ins = [torch.as_tensor(pho_v1), torch.tensor([9, 6]),
+           torch.as_tensor(rng.integers(0, cfg.speech_token_size, (2, 7))), torch.tensor([7, 5]),
+           fb, spec, spec_len]
+    out = {}
+    for dev, m in (("cuda", copy.deepcopy(ws).to("cuda")), ("cpu", ws)):
+        m.train()
+        mv = lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x  # noqa: E731
+        with dropout_generator(torch.Generator().manual_seed(0)):
+            r = m(*(mv(x) for x in ins), noise=mv(noise),
+                  aug={k: (mv(v) if k == "noise" else [tuple(mv(a) for a in t) for t in v])
+                       for k, v in aug.items()})
+        out[dev] = {k: float(v.detach()) for k, v in r.items()}
+    res["transformer_lm_phoneme_with_spk"] = out
+    for r in res.values():
+        r["max_rel_err"] = max(abs(r["cuda"][k] - r["cpu"][k]) / max(abs(r["cpu"][k]), 1e-3)
+                               for k in r["cpu"])
+        r["tol"] = PHO_TRAIN_SMALL_TOL
+        r["ok"] = r["max_rel_err"] <= PHO_TRAIN_SMALL_TOL and all(
+            math.isfinite(v) for v in r["cpu"].values())
+    return res
+
+
+def pho_train_full(tmp: str, kernels: dict) -> dict:
+    """(a) cosyvoice2_pho.yaml through the port's recipe registry at full
+    width (Qwen2LMPhonemeSrc2 on the Qwen2-0.5B body, the 6 x 1024
+    phoneme conformer, the 512-d speaker section), random init, fp32:
+    `bin/train.py --model llm --data_format spk_json` in this process, its
+    labellers the full-width S3TokenizerV2 and SpeakerEmbedding at random
+    init (no --s3_ckpt / --spk_ckpt), over write_pho_corpus's 16
+    utterances in static batches of PHO_TRAIN_BATCH (the recipe's
+    accum_grad 2): one epoch (2 micro-steps), then a second run that
+    resumes from its checkpoint (2 more).  Timed: each micro-step and each
+    batch's labels (torch.cuda.synchronize on both sides), peak memory."""
+    import os
+
+    from cosyvoice_tpu_torch.bin import train as train_cli
+    from cosyvoice_tpu_torch.config import RECIPES, load_config, recipe_config
+    from cosyvoice_tpu_torch.train import online_codec
+    from cosyvoice_tpu_torch.train.checkpoint import latest_step
+
+    cfg = recipe_config(PHO_TRAIN_RECIPE, "llm")
+    lst, table = write_pho_corpus(tmp, cfg, PHO_TRAIN_SEED)
+    conf = load_config(RECIPES / PHO_TRAIN_RECIPE)
+    recipe = {"llm": conf["llm"], "speaker": conf["speaker"],
+              "data": dict(conf["data"], phoneme_dict=table, batch_type="static",
+                           batch_size=PHO_TRAIN_BATCH),
+              "train_conf": dict(conf["train_conf"], log_interval=1)}
+    path = os.path.join(tmp, "pho.yaml")
+    write_recipe(path, recipe)
+    model_dir = os.path.join(tmp, "exp_pho")
+    label_s, step_s, sums = [], [], {}
+    orig_label, orig_make = online_codec.OnlineCodecLabeler.label_batch, train_cli.make_train_step
+
+    def timed_label(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_label(self, *a, **k)
+        torch.cuda.synchronize()
+        label_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_make(loss_fn, tx, mesh=None):
+        step = orig_make(loss_fn, tx, mesh)
+
+        def run(state, batch, gen):
+            if not sums:
+                sums["before"] = {k: float(p.double().sum()) for k, p in state.params.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch, gen)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            sums["after"] = {k: float(p.double().sum()) for k, p in state.params.items()}
+            return out
+        return run
+
+    argv = ["--config", path, "--model", "llm", "--train_data", lst, "--model_dir", model_dir,
+            "--data_format", "spk_json", "--epochs", "1"]
+    online_codec.OnlineCodecLabeler.label_batch = timed_label
+    train_cli.make_train_step = timed_make
+    runs, latest = [], []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            train_cli.main(argv)
+            runs.append(time.perf_counter() - t0)
+            latest.append(latest_step(model_dir))
+            torch.cuda.empty_cache()
+    finally:
+        online_codec.OnlineCodecLabeler.label_batch = orig_label
+        train_cli.make_train_step = orig_make
+    recs = [json.loads(line) for line in open(os.path.join(model_dir, "metrics.jsonl"))]
+    changed = sum(sums["before"][k] != sums["after"][k] for k in sums["before"])
+    return {"recipe": PHO_TRAIN_RECIPE, "kind": conf["llm"]["kind"], "corpus": (lst, table),
+            "batch": PHO_TRAIN_BATCH, "utterances": PHO_TRAIN_SPEAKERS * PHO_TRAIN_UTTS,
+            "params": len(sums["before"]), "params_changed": changed,
+            "run_s": runs, "micro_step_s": step_s, "label_s": label_s,
+            "micro_step_s_median": float(np.median(step_s)),
+            "label_s_median": float(np.median(label_s)),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "steps": [r["step"] for r in recs], "loss": [r["loss"] for r in recs],
+            "acc": [r["acc"] for r in recs], "grad_norm": [r["grad_norm"] for r in recs],
+            "finite": all(math.isfinite(r[k]) for r in recs for k in ("loss", "grad_norm")),
+            "latest_step_by_run": latest}
+
+
+def pho_lora_serve(tmp: str, kernels: dict) -> dict:
+    """(b) cosyvoice2.yaml's qwen2lm at full width, `bin/train.py --lora`
+    (r 8, alpha 16, q/k/v/o: the CLI's defaults; the recipe's train_conf
+    with its lr held constant) in this process over a seeded jsonl corpus
+    (LORA_UTTS utterances of LORA_SECONDS, static batches of LORA_BATCH: 4
+    micro-steps); the base LM the CLI built is
+    kept, with a copy of its weights from before the first step; then
+    `bin/ckpt_resave.py --lora_npz` merges lora.npz into the base's llm.pt
+    beside a full-width flow, HiFT, CAMPPlus and S3 tokenizer (seeded) in
+    a model directory (every adapted weight moved, every other one kept);
+    from_pretrained (fp16, int8, greedy, K1's fused
+    cache update, K3's fused LayerNorm) serves one zero-shot request from
+    it, every kernel's count set to 0 just before and read just after; the
+    same request again with the served LM swapped for an in-memory
+    merge_lora of the base and lora.npz, quantized as from_pretrained
+    does."""
+    import os
+
+    from cosyvoice_tpu_torch.bin import ckpt_resave
+    from cosyvoice_tpu_torch.bin import train as train_cli
+    from cosyvoice_tpu_torch.config import RECIPES, load_config
+    from cosyvoice_tpu_torch.models.campplus import CAMPPlusConfig
+    from cosyvoice_tpu_torch.models.flow import CausalMaskedDiffWithXvec, FlowConfig
+    from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
+    from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LM, SamplingConfig
+    from cosyvoice_tpu_torch.models.s3tokenizer import S3Config
+    from cosyvoice_tpu_torch.runtime.api import from_pretrained
+    from cosyvoice_tpu_torch.train import lora as lora_mod
+    from cosyvoice_tpu_torch.utils.quant import quantize_qwen_int8
+
+    conf = load_config(RECIPES / TRAIN_RECIPE)
+    rng = np.random.default_rng(PHO_TRAIN_SEED + 1)
+    corpus = os.path.join(tmp, "lora.jsonl")
+    with open(corpus, "w") as f:
+        for i in range(LORA_UTTS):
+            wav = os.path.join(tmp, f"lora_{i}.wav")
+            write_wav_file(wav, lam_wav(LORA_SECONDS, PHO_TRAIN_SEED + 10 + i), 24000)
+            f.write(json.dumps({"utt": f"l{i}", "text": f"the voice number {i} speaks",
+                                "speech": wav, "speech_token": rng.integers(
+                                    0, 6561, int(25 * LORA_SECONDS)).tolist()}) + "\n")
+    lst = os.path.join(tmp, "lora.list")
+    with open(lst, "w") as f:
+        f.write(corpus + "\n")
+    path = os.path.join(tmp, "lora.yaml")
+    # the recipe's lr held constant (its warmup of 2500 steps would leave b
+    # near 0 over 4 micro-steps, and the merge below the weights' rounding)
+    write_recipe(path, {"llm": conf["llm"],
+                        "data": dict(conf["data"], batch_type="static", batch_size=LORA_BATCH),
+                        "train_conf": dict(conf["train_conf"], log_interval=1,
+                                           scheduler="constantlr",
+                                           scheduler_conf={"warmup_steps": 0})})
+    model_dir = os.path.join(tmp, "exp_lora")
+    held, orig_init = {}, lora_mod.init_lora
+
+    def init_lora(model, cfg, gen):
+        held["model"] = model
+        held["before"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        return orig_init(model, cfg, gen)
+
+    lora_mod.init_lora = init_lora
+    try:
+        t0 = time.perf_counter()
+        train_cli.main(["--config", path, "--model", "llm", "--lora", "--train_data", lst,
+                        "--model_dir", model_dir, "--epochs", "1"])
+        train_s = time.perf_counter() - t0
+    finally:
+        lora_mod.init_lora = orig_init
+    train_launches = {k: mod.launches for k, mod in kernels.items()}
+    base = held.pop("model")
+    base_equal = all(torch.equal(v, held["before"][k]) for k, v in base.state_dict().items())
+    del held
+    npz = os.path.join(model_dir, "lora.npz")
+    data = np.load(npz)
+    b_keys = [k for k in data.files if k.endswith(".lora_B")]
+    b_max = float(max(np.abs(data[k]).max() for k in b_keys))
+    recs = [json.loads(line) for line in open(os.path.join(model_dir, "metrics.jsonl"))]
+
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        flow, hift = CausalMaskedDiffWithXvec(FlowConfig()), HiFTGenerator(HiFTConfig())
+    rand_init_(flow, PHO_TRAIN_SEED + 2)
+    rand_init_(hift, PHO_TRAIN_SEED + 3)
+    camp, s3 = seeded_frontend_models(CAMPPlusConfig(), S3Config(), PHO_TRAIN_SEED + 4)
+    direct, deployed = os.path.join(tmp, "base_dir"), os.path.join(tmp, "lora_dir")
+    write_model_dir(direct, base, flow, hift, camp, s3, 192, PHO_TRAIN_SEED + 5)
+    del flow, hift, camp, s3
+    dir_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt_resave.main([
+        "--out_dir", deployed, "--llm_pt", os.path.join(direct, "llm.pt"),
+        "--flow_pt", os.path.join(direct, "flow.pt"), "--hift_pt", os.path.join(direct, "hift.pt"),
+        "--campplus_onnx", os.path.join(direct, "campplus.onnx"),
+        "--s3_onnx", os.path.join(direct, "speech_tokenizer_v2.onnx"),
+        "--tokenizer_dir", os.path.join(direct, "CosyVoice-BlankEN"),
+        "--lora_npz", npz, "--lora_r", "8", "--lora_alpha", "16"])
+    resave_s = time.perf_counter() - t0
+    before = torch.load(os.path.join(direct, "llm.pt"), map_location="cpu", weights_only=True,
+                        mmap=True)
+    after = torch.load(os.path.join(deployed, "llm.pt"), map_location="cpu", weights_only=True,
+                       mmap=True)
+    adapted = {k.rsplit(".lora_", 1)[0] for k in data.files}
+    merge_moved = sum(not torch.equal(after[k], before[k]) for k in adapted)
+    others_kept = all(torch.equal(after[k], before[k]) for k in after if k not in adapted)
+    del before, after
+
+    lm_cfg = LMConfig()
+    lm_cfg = dataclasses.replace(lm_cfg, sampling=SamplingConfig(method="greedy"),
+                                 qwen=dataclasses.replace(lm_cfg.qwen, fused_cache_update=True))
+    fcfg = FlowConfig()
+    fcfg = dataclasses.replace(fcfg, estimator=dataclasses.replace(fcfg.estimator,
+                                                                   fused_norm=True))
+    t0 = time.perf_counter()
+    cv = from_pretrained(deployed, fp16=True, quant="int8", max_decode_tokens=200,
+                         lm_cfg=lm_cfg, flow_cfg=fcfg, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    tokens = recording_generate(cv)
+    prompt = prompt_16k(3.0, PHO_TRAIN_SEED + 6)
+
+    def request():
+        t0 = time.perf_counter()
+        wav = np.concatenate([o["tts_speech"] for o in cv.inference_zero_shot(
+            DEPLOY_TEXT, "A short prompt.", prompt, gen=torch.Generator().manual_seed(0))])
+        torch.cuda.synchronize()
+        return wav, time.perf_counter() - t0
+
+    for mod in kernels.values():
+        mod.launches = 0
+    wav, latency = request()
+    launches = {k: mod.launches for k, mod in kernels.items()}
+    overlay = lora_mod.read_lora_npz(npz)
+    merged = lora_mod.merge_lora({k: v.detach() for k, v in base.state_dict().items()},
+                                 overlay, lora_mod.LoRAConfig(r=8, alpha=16))
+    del base
+    with torch.device("cuda"):
+        llm = Qwen2LM(lm_cfg)
+    llm.load_state_dict(merged, strict=True)
+    del merged
+    state = quantize_qwen_int8(llm.to(torch.bfloat16).state_dict())
+    with torch.device("cuda"):
+        llm = Qwen2LM(dataclasses.replace(lm_cfg, qwen=dataclasses.replace(lm_cfg.qwen,
+                                                                           quant="int8")))
+    llm.load_state_dict(state, strict=True, assign=True)
+    weights_equal = all(torch.equal(v, cv.model.llm.state_dict()[k]) for k, v in state.items())
+    cv.model.llm = llm.eval()
+    wav2, _ = request()
+    out = {"recipe": TRAIN_RECIPE, "lora": {"r": 8, "alpha": 16, "adapters": len(b_keys)},
+           "train_s": train_s, "steps": [r["step"] for r in recs],
+           "loss": [r["loss"] for r in recs],
+           "finite": all(math.isfinite(r[k]) for r in recs for k in ("loss", "grad_norm")),
+           "base_bit_identical": base_equal, "lora_b_max_abs": b_max,
+           "merged_weights_moved": merge_moved, "other_weights_kept": others_kept,
+           "model_dir_s": dir_s, "ckpt_resave_s": resave_s, "load_s": load_s,
+           "latency_s": latency, "speech_tokens": len(tokens[0]),
+           "rtf": latency / max(len(wav) / cv.sample_rate, 1e-9),
+           "finite_wav": bool(np.isfinite(wav).all()),
+           "tokens_equal_in_memory_merge": bool(np.array_equal(tokens[0], tokens[1])),
+           "served_weights_equal_in_memory_merge": weights_equal,
+           "wav_max_abs_diff": float(np.abs(wav - wav2).max()) if len(wav) == len(wav2)
+           else None, "train_launches": train_launches, "launches": launches}
+    del cv, llm, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def pho_cli_drive(tmp: str, table: str, pho_list: str) -> dict:
+    """(d) The rest of what the train CLI trains, on the card at small
+    widths, in this process, one epoch each: qwen2lm_phoneme and
+    qwen2lm_phoneme_src over (a)'s speaker-JSON corpus (the recipe's
+    phoneme tables at PHO_TRAIN_SMALL's widths, a 1-layer S3 labeller and
+    the lam phase's small speaker section); transformer_lm over parquet
+    shards (WAV bytes, 25 Hz tokens, utt / spk embeddings); the flow with
+    lora_conf.enabled (linear_q / linear_v) over a jsonl corpus.  Each:
+    its steps, every value finite, a checkpoint; the flow's lora.npz."""
+    import io
+    import os
+    import wave
+
+    from cosyvoice_tpu_torch.bin import train as train_cli
+    from cosyvoice_tpu_torch.data.parquet_io import write_parquet
+    from cosyvoice_tpu_torch.train.checkpoint import latest_step
+
+    rng = np.random.default_rng(PHO_TRAIN_SEED + 7)
+    small_data = {"fbank": {"n_fft": 192, "hop": 48, "n_mels": 20},
+                  "filter": {"max_length": 99999, "token_max_length": 300},
+                  "shuffle_buf": 8, "sort_buf": 4}
+    train_conf = {"lr": 1e-3, "log_interval": 1, "scheduler": "constantlr",
+                  "scheduler_conf": {"warmup_steps": 0}}
+    pho = dict(PHO_TRAIN_SMALL, spk_embed_dim=LAM_SMALL_SPK["speaker_emb_dim"],
+               phoneme=dict(PHO_TRAIN_SMALL["phoneme"], text_token_size=140))
+    speaker = dict(LAM_SMALL_SPK, kind="speaker_embedding", campplus=LAM_SMALL_CAMP)
+    s3 = {"kind": "s3tokenizer", "dim": 32, "heads": 2, "layers": 1, "fsq_dim": 2}
+    runs = {}
+    for kind in ("qwen2lm_phoneme", "qwen2lm_phoneme_src"):
+        runs[kind] = ({"llm": dict(pho, kind=kind), "speaker": speaker, "s3": s3,
+                       "data": dict(small_data, phoneme_dict=table, batch_size=8),
+                       "train_conf": train_conf}, pho_list, ["--data_format", "spk_json"])
+
+    def wav_bytes(wav):
+        buf = io.BytesIO()
+        with wave.open(buf, "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(24000)
+            f.writeframes((np.clip(wav, -1, 1) * 32767).astype("<i2").tobytes())
+        return buf.getvalue()
+
+    rows = [{"utt": f"p{i}", "text": "hello world", "audio_data": wav_bytes(lam_wav(1.0, 80 + i)),
+             "speech_token": rng.integers(0, 100, 25).tolist(),
+             "utt_embedding": rng.standard_normal(512).tolist(),
+             "spk_embedding": rng.standard_normal(512).tolist()} for i in range(4)]
+    shard = os.path.join(tmp, "shard0.parquet")
+    write_parquet(shard, rows, "snappy")
+    parquet_list = os.path.join(tmp, "parquet.list")
+    with open(parquet_list, "w") as f:
+        f.write(shard + "\n")
+    v1 = {"kind": "transformer_lm", "text_encoder_input_size": 16, "llm_input_size": 32,
+          "llm_output_size": 32, "text_token_size": 300, "speech_token_size": 128,
+          "spk_embed_dim": 512,
+          "text_encoder": {"dim": 32, "heads": 2, "linear_units": 48, "num_blocks": 1,
+                           "input_size": 16, "static_chunk_size": 1},
+          "llm": {"dim": 32, "heads": 2, "linear_units": 48, "num_blocks": 1, "input_size": 32,
+                  "static_chunk_size": 1, "input_layer": "linear_legacy",
+                  "activation": "relu"}}
+    runs["transformer_lm"] = ({"llm": v1, "data": dict(small_data, max_frames_in_batch=1000),
+                               "train_conf": train_conf}, parquet_list,
+                              ["--data_format", "parquet"])
+    corpus = os.path.join(tmp, "flow.jsonl")
+    with open(corpus, "w") as f:
+        for i in range(4):
+            f.write(json.dumps({"utt": f"f{i}", "text": "hello", "sample_rate": 24000,
+                                "speech": lam_wav(0.65, 90 + i).round(5).tolist(),
+                                "speech_token": rng.integers(0, 100, 30).tolist(),
+                                "embedding": rng.standard_normal(512).round(5).tolist()})
+                    + "\n")
+    flow_list = os.path.join(tmp, "flow.list")
+    with open(flow_list, "w") as f:
+        f.write(corpus + "\n")
+    runs["flow_lora"] = ({"flow": dict(TRAIN_SMALL["flow"], kind="flow"),
+                          "lora_conf": {"enabled": True, "rank": 4, "alpha": 8,
+                                        "patterns": ["linear_q", "linear_v"]},
+                          "data": dict(small_data, max_frames_in_batch=1000),
+                          "train_conf": train_conf}, flow_list, [])
+    res = {}
+    for name, (conf, lst, extra) in runs.items():
+        path = os.path.join(tmp, f"{name}.yaml")
+        write_recipe(path, conf)
+        model_dir = os.path.join(tmp, f"exp_{name}")
+        model = "flow" if name == "flow_lora" else "llm"
+        t0 = time.perf_counter()
+        train_cli.main(["--config", path, "--model", model, "--train_data", lst,
+                        "--model_dir", model_dir, "--epochs", "1", *extra])
+        recs = [json.loads(line) for line in open(os.path.join(model_dir, "metrics.jsonl"))]
+        res[name] = {"run_s": time.perf_counter() - t0, "steps": [r["step"] for r in recs],
+                     "loss": [r["loss"] for r in recs],
+                     "finite": bool(recs) and all(math.isfinite(v) for r in recs
+                                                  for k, v in r.items() if k != "tag"),
+                     "latest_step": latest_step(model_dir)}
+        npz = os.path.join(model_dir, "lora.npz")
+        if os.path.exists(npz):
+            data = np.load(npz)
+            res[name]["lora_b_max_abs"] = float(max(np.abs(data[k]).max() for k in data.files
+                                                    if k.endswith(".lora_B")))
+    return res
+
+
+def pho_train_phase(kernels: dict, smi: str) -> dict:
+    """Phoneme-LM training on online labels, and LoRA through to a served
+    model: (a) pho_train_full; (b) pho_lora_serve; (c) pho_train_small_checks;
+    (d) pho_cli_drive.  Everything lives under build/ and is deleted at the
+    end.  Gates: every
+    loss and grad_norm finite; the phoneme LM's parameters changed; its
+    steps 1..4, the first run's checkpoint at step 2, resumed to step 4; no
+    kernel launched in (a) or in (b)'s training; the LoRA base weights
+    bit-identical after training and lora.npz's b nonzero; the served
+    request's greedy tokens equal those of the in-memory merge; K1, K2 and
+    K3 each launched in the served request; (c) within PHO_TRAIN_SMALL_TOL;
+    (d) every run finite with a checkpoint at its last step, the flow's
+    lora.npz b nonzero, no kernel launched."""
+    import os
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="pho_train_", dir=os.path.join(here, "build"))
+    try:
+        with torch.enable_grad():
+            for mod in kernels.values():
+                mod.launches = 0
+            t0 = time.perf_counter()
+            full = pho_train_full(tmp, kernels)
+            full["phase_s"] = time.perf_counter() - t0
+            full["launches"] = {k: mod.launches for k, mod in kernels.items()}
+            for mod in kernels.values():
+                mod.launches = 0
+            t0 = time.perf_counter()
+            served = pho_lora_serve(tmp, kernels)
+            served["phase_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            small = pho_train_small_checks()
+            small_s = time.perf_counter() - t0
+            for mod in kernels.values():
+                mod.launches = 0
+            lst, table = full.pop("corpus")
+            cli = pho_cli_drive(tmp, table, lst)
+            cli_launches = {k: mod.launches for k, mod in kernels.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the training forwards reach no kernel; the served request reaches K1-K3
+    launches = {k: full["launches"][k] + served["train_launches"][k] + served["launches"][k]
+                + cli_launches[k] for k in kernels}
+    res = {"phase": "pho_train", "card": smi, "phoneme_lm": full, "lora_serve": served,
+           "small": small, "small_s": small_s, "cli": cli, "cli_launches": cli_launches,
+           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    k3 = ("lm_decode_attention", "dit_attention", "fused_layer_norm")
+    gates = [full["finite"], full["params_changed"] > 0, full["steps"] == [1, 2, 3, 4],
+             full["latest_step_by_run"] == [2, 4],
+             all(v == 0 for v in full["launches"].values()),
+             all(v == 0 for v in served["train_launches"].values()),
+             served["finite"], served["steps"] == [1, 2, 3, 4], served["base_bit_identical"],
+             served["lora_b_max_abs"] > 0, served["tokens_equal_in_memory_merge"],
+             served["merged_weights_moved"] == served["lora"]["adapters"],
+             served["other_weights_kept"],
+             served["served_weights_equal_in_memory_merge"],
+             served["speech_tokens"] > 0, served["finite_wav"],
+             all(served["launches"][k] > 0 for k in k3),
+             all(r["ok"] for r in small.values()),
+             all(r["finite"] and r["latest_step"] == len(r["steps"]) > 0 for r in cli.values()),
+             cli["flow_lora"].get("lora_b_max_abs", 0.0) > 0,
+             all(v == 0 for v in cli_launches.values())]
+    if not all(gates):
+        raise AssertionError(f"pho_train phase failed: {gates} {res}")
     return res
 
 
@@ -4592,40 +5204,51 @@ def main() -> int:
     emit({"phase": "build", "seconds": build.report["seconds"],
           "cached": build.report["cached"], "ptxas": ptxas})
 
-    errs = kernel_checks(K1, K2, K3)
-    errs.update(quant_kernel_checks(K5, K6))
-    errs["dit_block"] = block_checks(K4)
-    errs["snake_aa"] = snake_checks(K7)
-    reference_check()
-    res = main_path(K1, K2, K3, smi, profile="--profile" in sys.argv[1:])
+    seconds = {}                        # each phase's wall seconds, in order
+
+    def clocked(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    errs = clocked("kernels", kernel_checks, K1, K2, K3)
+    errs.update(clocked("quant_kernels", quant_kernel_checks, K5, K6))
+    errs["dit_block"] = clocked("block_kernel", block_checks, K4)
+    errs["snake_aa"] = clocked("snake_kernel", snake_checks, K7)
+    clocked("reference", reference_check)
+    res = clocked("main_path", main_path, K1, K2, K3, smi,
+                  profile="--profile" in sys.argv[1:])
     # later slices' paths: K6 from the fused_step phase, K5 from the int4
     # phase, K4 from the batched phase (the engine phase drives K1 per row),
     # K7 from the bigvgan phase (the stream phase drives K1-K3)
     launches = dict(res["launches"])
-    launches["lm_step"] = fused_step_phase(res["stack"][0], res["first_prompt"], K1, K6,
-                                           smi)["k6_launches"]
-    launches["int4_matmul"] = int4_phase(res, K1, K5, smi)["k5_launches"]
-    batched = batched_phase(res, K1, K4, smi)
+    launches["lm_step"] = clocked("fused_step", fused_step_phase, res["stack"][0],
+                                  res["first_prompt"], K1, K6, smi)["k6_launches"]
+    launches["int4_matmul"] = clocked("int4", int4_phase, res, K1, K5, smi)["k5_launches"]
+    batched = clocked("batched", batched_phase, res, K1, K4, smi)
     launches["dit_block"] = batched["k4_launches"]
-    k1_engine = engine_phase(res, K1, smi)["full_width_int8"]["k1_launches"]
-    vocoder = bigvgan_phase(K7, smi)
+    k1_engine = clocked("engine", engine_phase, res, K1, smi)["full_width_int8"]["k1_launches"]
+    vocoder = clocked("bigvgan", bigvgan_phase, K7, smi)
     launches["snake_aa"] = vocoder["k7_launches"]
-    b1 = stream_phase(res, K1, K2, K3, smi)["first_chunk_latency_s"]
-    cont = continuous_phase(res, b1, K1, K2, K3, smi)
-    serve_phase(res, smi)
-    ckpt = checkpoint_phase(res, K1, K2, K3, K5, smi)["full_width"]
+    b1 = clocked("stream", stream_phase, res, K1, K2, K3, smi)["first_chunk_latency_s"]
+    cont = clocked("continuous", continuous_phase, res, b1, K1, K2, K3, smi)
+    clocked("serve", serve_phase, res, smi)
+    ckpt = clocked("checkpoint", checkpoint_phase, res, K1, K2, K3, K5, smi)["full_width"]
     kernels = {"lm_decode_attention": K1, "dit_attention": K2, "fused_layer_norm": K3,
                "dit_block": K4, "int4_matmul": K5, "lm_step": K6, "snake_aa": K7}
-    v1 = v1_phase(kernels, smi)
-    pho = phoneme_phase(res, kernels, smi)
-    lam = lam_phase(kernels, smi)
-    mc = multicode_phase(kernels, smi)
-    train_phase(kernels, smi)
-    gan = gan_phase(kernels, smi)
-    deploy = deploy_phase(kernels, smi)
+    v1 = clocked("v1", v1_phase, kernels, smi)
+    pho = clocked("phoneme", phoneme_phase, res, kernels, smi)
+    lam = clocked("lam", lam_phase, kernels, smi)
+    mc = clocked("multicode", multicode_phase, kernels, smi)
+    clocked("train", train_phase, kernels, smi)
+    gan = clocked("gan", gan_phase, kernels, smi)
+    deploy = clocked("deploy", deploy_phase, kernels, smi)
+    pho_train = clocked("pho_train", pho_train_phase, kernels, smi)
     flow = res["stack"][1]
     del res["stack"]
-    rows = timing(K1, K2, K3, K4, K5, K6, K7, res["last_decode"], flow, batched["block_shape"])
+    rows = clocked("timing", timing, K1, K2, K3, K4, K5, K6, K7, res["last_decode"], flow,
+                   batched["block_shape"])
     tolerance = {"lm_step": K6_REL_TOL[torch.bfloat16],
                  "dit_block": {"bf16_ulps_at_max_plain": K4_BF16_ULPS},
                  "dit_attention": {"bf16_ulps_at_max_plain_per_row_head": K2_BF16_ULPS},
@@ -4658,10 +5281,11 @@ def main() -> int:
                                      for run in ("b1", "b4_ragged")}
         row["launches_gan"] = gan["launches"][row["name"]]
         row["launches_deploy"] = deploy["launches"][row["name"]]
+        row["launches_pho_train"] = pho_train["launches"][row["name"]]
         row.update(edge_max_abs_err=errs[row["name"]],
                    tolerance=tolerance.get(row["name"], CHECK_TOL[torch.bfloat16]),
                    kernel_ms=row["ms"])
-    emit({"phase": "run", "seconds": time.perf_counter() - t_run})
+    emit({"phase": "run", "seconds": time.perf_counter() - t_run, "phase_seconds": seconds})
     print(smi, flush=True)
     emit({"kernels": rows, "card": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

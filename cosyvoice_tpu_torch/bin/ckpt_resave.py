@@ -16,9 +16,12 @@ llm.pt, flow.pt and hift.pt (under `generator.`) in the reference names,
 which both packages' `from_pretrained` read; the copied ONNX files and
 tokenizer directory; and spk2info.npz (keys `<spk>/embedding`, the JAX
 CLI's) with a speaker vector for each --ref_audio from the directory's
-CAMPPlus.  The JAX CLI writes .npz parameter trees instead of .pt files;
-its --out_prefix (bare .npz exports) is not ported, and --lora_npz waits
-for the port's LoRA trainer (ROADMAP Queue 1 item 10c).
+CAMPPlus.  --lora_npz merges a LoRA overlay into the LLM before it is
+written: W += (lora_alpha / lora_r) * B @ A on each weight the overlay
+names (train/lora.merge_lora), from a lora.npz of the port's train CLI
+(port names) or of the JAX one (flax paths, mapped by
+convert.lora_overlay_from_jax).  The JAX CLI writes .npz parameter trees
+instead of .pt files; its --out_prefix (bare .npz exports) is not ported.
 """
 from __future__ import annotations
 
@@ -29,10 +32,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-
-LORA_SLICE = ("--lora_npz merges a LoRA overlay; the port's LoRA trainer comes with the "
-              "phoneme LMs' training (ROADMAP Queue 1 item 10c)")
-
 
 def clean_state_dict(raw, strip_prefix: str = "") -> dict:
     """Unwrap training metadata and normalize keys: bare state dicts or a
@@ -67,6 +66,20 @@ def load_sub_model(path: str, base_path: Optional[str] = None, strip_prefix: str
     return merge_state_dicts(load(base_path), sd) if base_path else sd
 
 
+def merge_lora_overlay(sd: dict, lora_npz: str, r: int, alpha: float) -> dict:
+    """The LLM state dict with lora.npz's overlay merged in (a JAX-written
+    file's flax paths mapped to the state dict's names)."""
+    from cosyvoice_tpu_torch.convert import lora_overlay_from_jax
+    from cosyvoice_tpu_torch.train.lora import LoRAConfig, merge_lora, read_lora_npz
+
+    overlay = read_lora_npz(lora_npz)
+    if any("/" in name for name in overlay):
+        overlay = lora_overlay_from_jax(overlay, list(sd))
+    merged = merge_lora(sd, overlay, LoRAConfig(r=r, alpha=alpha))
+    print(f"merged LoRA overlay over {len(overlay)} weights")
+    return merged
+
+
 def extract_spk2info(model_dir: str, ref_audios: dict, campplus_cfg=None,
                      device=None) -> dict:
     """spk -> {"embedding": vector} from each speaker's WAV (read at 16
@@ -86,18 +99,20 @@ def extract_spk2info(model_dir: str, ref_audios: dict, campplus_cfg=None,
 
 
 def assemble_dir(out_dir: str, llm_pt=None, flow_pt=None, hift_pt=None, base_llm_pt=None,
-                 base_flow_pt=None, base_hift_pt=None, lora_npz=None, campplus_onnx=None,
-                 s3_onnx=None, tokenizer_dir=None, ref_audios=None, campplus_cfg=None,
-                 device=None) -> str:
+                 base_flow_pt=None, base_hift_pt=None, lora_npz=None, lora_r: int = 8,
+                 lora_alpha: float = 16, campplus_onnx=None, s3_onnx=None, tokenizer_dir=None,
+                 ref_audios=None, campplus_cfg=None, device=None) -> str:
     """One deployable directory that from_pretrained loads."""
-    if lora_npz:
-        raise NotImplementedError(LORA_SLICE)
+    if lora_npz and not llm_pt:
+        raise ValueError("--lora_npz merges into the LLM: give --llm_pt")
     os.makedirs(out_dir, exist_ok=True)
     for stem, pt, base, prefix in (("llm", llm_pt, base_llm_pt, ""),
                                    ("flow", flow_pt, base_flow_pt, ""),
                                    ("hift", hift_pt, base_hift_pt, "generator.")):
         if pt:
             sd = load_sub_model(pt, base, strip_prefix=prefix)
+            if stem == "llm" and lora_npz:
+                sd = merge_lora_overlay(sd, lora_npz, lora_r, lora_alpha)
             torch.save({f"{prefix}{k}": v for k, v in sd.items()},
                        os.path.join(out_dir, f"{stem}.pt"))
             print(f"wrote {out_dir}/{stem}.pt")
@@ -127,7 +142,9 @@ def main(argv: Optional[list] = None) -> None:
                    help="base checkpoint under a partial --llm_pt (strict=False)")
     p.add_argument("--base_flow_pt", default=None)
     p.add_argument("--base_hift_pt", default=None)
-    p.add_argument("--lora_npz", default=None, help="not ported yet (ROADMAP item 10c)")
+    p.add_argument("--lora_npz", default=None, help="LoRA overlay to merge into the llm")
+    p.add_argument("--lora_r", type=int, default=8)
+    p.add_argument("--lora_alpha", type=int, default=16)
     p.add_argument("--campplus_onnx", default=None)
     p.add_argument("--s3_onnx", default=None)
     p.add_argument("--tokenizer_dir", default=None)
@@ -146,8 +163,8 @@ def main(argv: Optional[list] = None) -> None:
         p.error("need --out_dir")
     assemble_dir(args.out_dir, llm_pt=args.llm_pt, flow_pt=args.flow_pt, hift_pt=args.hift_pt,
                  base_llm_pt=args.base_llm_pt, base_flow_pt=args.base_flow_pt,
-                 base_hift_pt=args.base_hift_pt, lora_npz=args.lora_npz,
-                 campplus_onnx=args.campplus_onnx, s3_onnx=args.s3_onnx,
+                 base_hift_pt=args.base_hift_pt, lora_npz=args.lora_npz, lora_r=args.lora_r,
+                 lora_alpha=args.lora_alpha, campplus_onnx=args.campplus_onnx, s3_onnx=args.s3_onnx,
                  tokenizer_dir=args.tokenizer_dir,
                  ref_audios=dict(s.split("=", 1) for s in args.ref_audio), device=args.device)
 

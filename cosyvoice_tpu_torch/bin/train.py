@@ -1,36 +1,60 @@
-"""Training entry point.  Port of cosyvoice_tpu/bin/train.py's jsonl path
-for the speech-token LMs, the flow and the GAN vocoders.
+"""Training entry point.  Port of cosyvoice_tpu/bin/train.py.
 
-Builds `--model llm` (kinds qwen2lm and transformer_lm), `--model flow`
-(kinds flow and flow_v1) or `--model hift|bigvgan|vits` from the recipe
-through the port's config.py, the optimizer from the recipe's train_conf,
-resumes from the newest checkpoint in --model_dir, then runs the epochs
-over a jsonl corpus (one jsonl shard path a line of --train_data; each line
-of a shard one utterance: text, speech as an inline list of samples or a
-WAV path, sample_rate, speech_token, embedding).  A vocoder trains against
-the discriminator of the recipe's gan_conf with two optimizers (train_conf
-optim / lr / scheduler for the generator, optim_d / lr_d / scheduler_d for
-the discriminator), a discriminator step then a generator step a batch
-(train/gan.py, train/executor.GanExecutor); the discriminator checkpoints
-to --model_dir + "_disc".  On the card unless --device cpu:
+Builds `--model llm` (kinds qwen2lm and transformer_lm, and the Qwen2
+phoneme LMs qwen2lm_phoneme, qwen2lm_phoneme_src and qwen2lm_phoneme_src2),
+`--model flow` (kinds flow, flow_stream and flow_v1) or `--model
+hift|bigvgan|vits` from the recipe through the port's config.py, the
+optimizer from the recipe's train_conf, resumes from the newest checkpoint
+in --model_dir, then runs the epochs over the corpus: --data_format jsonl
+(one jsonl shard path a line of --train_data; each line of a shard one
+utterance: text, speech as an inline list of samples or a WAV path,
+sample_rate, speech_token, embedding), parquet (rows with audio_data WAV
+bytes, speech_token and utt / spk embeddings) or spk_json (speaker-keyed
+JSON files: spk -> [{utt, wav, text, phoneme, durations, embedding}]).
+A vocoder trains against the discriminator of the recipe's gan_conf with
+two optimizers (train_conf optim / lr / scheduler for the generator,
+optim_d / lr_d / scheduler_d for the discriminator), a discriminator step
+then a generator step a batch (train/gan.py, train/executor.GanExecutor);
+the discriminator checkpoints to --model_dir + "_disc".  On the card
+unless --device cpu:
 
   python -m cosyvoice_tpu_torch.bin.train --config conf.yaml --model llm \\
       --train_data data/train.list --model_dir exp/llm [--device cpu]
 
+A phoneme LM trains on its corpus's phonemes (data.phoneme_dict is the
+phoneme table), cropped at prosody marks (data.truncate_phoneme), with
+its speech tokens and speaker vectors labelled online every batch
+(train/online_codec.py): the frozen S3 tokenizer (the recipe's `s3`
+section; --s3_ckpt a speech_tokenizer_v2.onnx) and, where the recipe has
+a `speaker` section, the frozen SpeakerEmbedding (--spk_ckpt a torch .pt
+state dict); without a checkpoint a label model keeps its random init,
+with a warning; --cv_data is not read there, as in the JAX CLI.
+--lora (or lora_conf.enabled) trains only LoRA adapters on the modules
+lora_conf.patterns names (train/lora.py) of qwen2lm, transformer_lm or a
+flow, and writes lora.npz after every epoch for bin/ckpt_resave.py
+--lora_npz.
+
 As the JAX CLI, the optimizers take no weight decay (train_conf's
 `weight_decay` is not read), and the step generators start from train_conf
 `seed` (the JAX executor keeps its default rng seed of 1986; every recipe
-sets seed 1986).  The branches that wait for later slices raise
-NotImplementedError naming their ROADMAP item: the phoneme and multi-code
-LMs, LoRA, the parquet and speaker-JSON corpora, more than one card.
+sets seed 1986).  Where the JAX CLI fails or silently does something else
+than asked, the port raises, saying what the JAX CLI does: the phoneme
+kinds whose arguments its phoneme branch does not fit
+(qwen2lm_phoneme_multicode, transformer_lm_phoneme,
+transformer_lm_phoneme_with_spk), --lora with a phoneme kind or a vocoder
+(the JAX CLI trains every parameter), and --data_format parquet with a
+phoneme kind (the JAX CLI reads the shards as jsonl).  More than one card
+raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
 import functools
 import logging
+import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 from cosyvoice_tpu_torch.config import build_model, load_config
@@ -41,22 +65,23 @@ from cosyvoice_tpu_torch.train.checkpoint import latest_step, restore_checkpoint
 from cosyvoice_tpu_torch.train.executor import Executor, GanExecutor
 from cosyvoice_tpu_torch.train.optim import make_optimizer
 from cosyvoice_tpu_torch.train.step import (flow_loss_fn, llm_loss_fn, make_train_state,
-                                            make_train_step, to_device,
+                                            make_train_step, phoneme_llm_loss_fn, to_device,
                                             transformer_lm_loss_fn)
 
-PHONEME_SLICE = ("the phoneme and multi-code LMs' training (ROADMAP Queue 1 item 10c, "
-                 "phoneme and multi-code LMs)")
 MULTI_CARD = "more than one card (ROADMAP Queue 1 item 11)"
 LOSSES = {"qwen2lm": llm_loss_fn, "transformer_lm": transformer_lm_loss_fn,
           "flow": flow_loss_fn, "flow_stream": flow_loss_fn, "flow_v1": flow_loss_fn}
+PHONEME_KINDS = ("qwen2lm_phoneme", "qwen2lm_phoneme_src", "qwen2lm_phoneme_src2")
 GAN_MODELS = ("hift", "bigvgan", "vits")
+JAX_PHONEME_BRANCH = ("the JAX CLI sends every --model llm kind with 'phoneme' in its name "
+                      "to run_phoneme_llm_training")
 
 
 def get_args(argv: Optional[list] = None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
     p.add_argument("--model", required=True, choices=["llm", "flow", "hift", "bigvgan", "vits"])
-    p.add_argument("--train_data", required=True, help="file with one jsonl shard path a line")
+    p.add_argument("--train_data", required=True, help="file with one shard path a line")
     p.add_argument("--cv_data", default=None)
     p.add_argument("--model_dir", required=True)
     p.add_argument("--tokenizer_path", default=None,
@@ -71,53 +96,115 @@ def get_args(argv: Optional[list] = None):
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--rank", type=int, default=None)
     p.add_argument("--world_size", type=int, default=None)
-    p.add_argument("--lora", action="store_true")
+    p.add_argument("--lora", action="store_true",
+                   help="train only LoRA adapters (also lora_conf.enabled); lora.npz each epoch")
     p.add_argument("--data_format", choices=["jsonl", "spk_json", "parquet"], default="jsonl")
-    p.add_argument("--s3_ckpt", default=None)
-    p.add_argument("--spk_ckpt", default=None)
+    p.add_argument("--s3_ckpt", default=None,
+                   help="speech_tokenizer_v2.onnx for the online speech-token labels")
+    p.add_argument("--spk_ckpt", default=None,
+                   help="SpeakerEmbedding state dict (.pt) for the online speaker vectors")
     return p.parse_args(argv)
 
 
-def make_dataset(list_file: str, conf: dict, tokenizer, epoch: int, gan: bool = False,
-                 with_f0: bool = False) -> pp.Pipeline:
-    """The data section's jsonl pipeline over the shards of list_file (one
-    process: every shard, shuffled by epoch); `with_f0` adds the pitch
-    targets, `gan` the waveform rows."""
+def _shards(list_file: str, epoch: int) -> list:
+    """One process: every shard of list_file, shuffled by epoch."""
     shards = [line.strip() for line in open(list_file) if line.strip()]
-    shards = pp.shard_list(shards, 0, 1, epoch=epoch)
-    if conf.get("batch_type", "dynamic") == "static":
-        batcher = pp.static_batch(conf.get("batch_size", 8),
-                                  drop_last=conf.get("drop_last", False))
-    else:
-        batcher = pp.dynamic_batch(conf.get("max_frames_in_batch", 2000))
-    stages = [pp.filter_samples(**conf.get("filter", {})),
-              pp.resample(conf.get("sample_rate", 24000)),
-              pp.compute_fbank(**conf.get("fbank", {}))]
+    return pp.shard_list(shards, 0, 1, epoch=epoch)
+
+
+def _batcher(conf: dict, default_type: str):
+    if conf.get("batch_type", default_type) == "static":
+        return pp.static_batch(conf.get("batch_size", 8), drop_last=conf.get("drop_last", False))
+    return pp.dynamic_batch(conf.get("max_frames_in_batch", 2000))
+
+
+def _opener(data_format: str):
+    """-> (source stage, stages that follow it) of a --data_format."""
+    if data_format == "parquet":
+        return pp.parquet_opener, [pp.decode_audio_bytes(), pp.parse_embedding()]
+    if data_format == "spk_json":
+        return pp.spk_json_source, []
+    return pp.jsonl_opener, []
+
+
+def make_dataset(list_file: str, conf: dict, tokenizer, epoch: int, gan: bool = False,
+                 with_f0: bool = False, data_format: str = "jsonl") -> pp.Pipeline:
+    """The data section's pipeline over the shards of list_file; `with_f0`
+    adds the pitch targets, `gan` the waveform rows."""
+    opener, pre = _opener(data_format)
+    stages = pre + [pp.filter_samples(**conf.get("filter", {})),
+                    pp.resample(conf.get("sample_rate", 24000)),
+                    pp.compute_fbank(**conf.get("fbank", {}))]
     if with_f0:
         stages.append(pp.compute_f0(sr=conf.get("sample_rate", 24000)))
-    return pp.Pipeline(shards, pp.jsonl_opener, *stages, *[
+    return pp.Pipeline(_shards(list_file, epoch), opener, *stages, *[
         pp.tokenize(tokenizer),
         pp.shuffle(conf.get("shuffle_buf", 10000)),
         pp.sort_by_feat_len(conf.get("sort_buf", 500)),
-        batcher,
+        _batcher(conf, "dynamic"),
         pp.padding(gan=gan, static_lens=conf.get("static_lens")),
     ])
 
 
-def _refuse_waiting(args, conf: dict, kind: str) -> None:
-    if args.model not in GAN_MODELS and kind not in LOSSES:
-        raise NotImplementedError(f"--model {args.model} kind {kind!r}: {PHONEME_SLICE}")
-    if args.lora or conf.get("lora_conf", {}).get("enabled"):
-        raise NotImplementedError(f"--lora: LoRA finetuning comes with {PHONEME_SLICE}")
-    if args.data_format != "jsonl":
-        raise NotImplementedError(f"--data_format {args.data_format}: {PHONEME_SLICE}")
-    if args.s3_ckpt or args.spk_ckpt:
-        raise NotImplementedError(f"--s3_ckpt / --spk_ckpt label online: {PHONEME_SLICE}")
+def make_phoneme_dataset(list_file: str, conf: dict, tokenizer, pho_tokenizer, epoch: int,
+                         data_format: str = "spk_json") -> pp.Pipeline:
+    """The phoneme LMs' pipeline: the prosody-mark crop and the factored
+    phoneme ids after the jsonl stages, static batches by default, and the
+    padded audio rows (at the mel hop) that the online labelers read."""
+    return pp.Pipeline(_shards(list_file, epoch), _opener(data_format)[0], *[
+        pp.filter_samples(**conf.get("filter", {})),
+        pp.truncate_phoneme_sequence(**conf.get("truncate_phoneme", {}), seed=epoch),
+        pp.resample(conf.get("sample_rate", 24000)),
+        pp.compute_fbank(**conf.get("fbank", {})),
+        pp.tokenize(tokenizer),
+        pp.tokenize_phoneme(pho_tokenizer),
+        pp.shuffle(conf.get("shuffle_buf", 10000), seed=epoch),
+        pp.sort_by_feat_len(conf.get("sort_buf", 500)),
+        _batcher(conf, "static"),
+        pp.padding(gan=conf.get("fbank", {}).get("hop", 480),
+                   static_lens=conf.get("static_lens")),
+    ])
+
+
+def _use_lora(args, conf: dict) -> bool:
+    return bool(args.lora or conf.get("lora_conf", {}).get("enabled"))
+
+
+def _refuse(args, conf: dict, kind: str) -> None:
+    """Raise on what the port does not run, saying what the JAX CLI does there."""
+    if args.model == "llm" and "phoneme" in kind and kind not in PHONEME_KINDS:
+        how = ("get_delay_pattern unpacks [B, T, N] codes from the [B, T] speech tokens "
+               "(ValueError)" if kind == "qwen2lm_phoneme_multicode"
+               else "the module's __call__ takes other arguments (TypeError)")
+        raise NotImplementedError(
+            f"--model llm kind {kind!r}: {JAX_PHONEME_BRANCH}, whose model.init(text, "
+            "text_len, pho, pho_len, speech_token, speech_token_len, embedding) fits only "
+            f"{', '.join(PHONEME_KINDS)}; the JAX CLI fails on {kind!r}: {how}")
+    if args.model not in GAN_MODELS and kind not in LOSSES and kind not in PHONEME_KINDS:
+        raise NotImplementedError(f"--model {args.model} kind {kind!r}: the JAX CLI trains "
+                                  f"no such kind")
+    if _use_lora(args, conf) and (kind in PHONEME_KINDS or args.model in GAN_MODELS):
+        where = (f"{JAX_PHONEME_BRANCH}, which returns" if kind in PHONEME_KINDS
+                 else "the JAX CLI's GAN branch returns")
+        raise NotImplementedError(f"--lora / lora_conf.enabled with {kind!r}: {where} before "
+                                  "its LoRA block and trains every parameter")
+    if args.data_format == "parquet" and kind in PHONEME_KINDS:
+        raise NotImplementedError(f"--data_format parquet with {kind!r}: {JAX_PHONEME_BRANCH}, "
+                                  "which reads parquet shards as jsonl")
     if (max(args.mesh_data, args.mesh_model, args.mesh_dcn_data) > 1
             or (args.world_size or 1) > 1 or (args.rank or 0) > 0
             or args.coordinator_address or (args.num_processes or 1) > 1
             or args.process_id):
         raise NotImplementedError(f"a mesh or several processes: {MULTI_CARD}")
+
+
+def _optimizer(train_conf: dict):
+    return make_optimizer(
+        train_conf.get("optim", "adam"), train_conf.get("lr", 1e-3),
+        train_conf.get("scheduler", "warmuplr"),
+        train_conf.get("scheduler_conf", {"warmup_steps": 25000}),
+        grad_clip=train_conf.get("grad_clip", 5.0),
+        accum_grad=train_conf.get("accum_grad", 1))[0]
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -126,27 +213,41 @@ def main(argv: Optional[list] = None) -> None:
     conf = load_config(args.config)
     model_conf = dict(conf[args.model])
     kind = model_conf.pop("kind")
-    _refuse_waiting(args, conf, kind)
+    _refuse(args, conf, kind)
     device = resolve_device(args.device)
     train_conf = conf.get("train_conf", {})
     data_conf = conf.get("data", {})
     seed = train_conf.get("seed", 1986)
     torch.manual_seed(seed)
-    model, _ = build_model(kind, model_conf)
+    model, _ = build_model(kind, model_conf, device)
     model.to(device)
     tokenizer = QwenTokenizer(args.tokenizer_path) if args.tokenizer_path else ByteTokenizer()
 
     if args.model in GAN_MODELS:
         run_gan_training(args, conf, model, train_conf, tokenizer, device, seed)
         return
-    tx, _ = make_optimizer(
-        train_conf.get("optim", "adam"), train_conf.get("lr", 1e-3),
-        train_conf.get("scheduler", "warmuplr"),
-        train_conf.get("scheduler_conf", {"warmup_steps": 25000}),
-        grad_clip=train_conf.get("grad_clip", 5.0),
-        accum_grad=train_conf.get("accum_grad", 1))
-    loss_fn = LOSSES[kind]
-    state = make_train_state(model, tx)
+    if kind in PHONEME_KINDS:
+        run_phoneme_llm_training(args, conf, model, train_conf, tokenizer, device, seed)
+        return
+    tx = _optimizer(train_conf)
+    loss_fn, train_model = LOSSES[kind], model
+    use_lora = _use_lora(args, conf)
+    if use_lora:
+        from cosyvoice_tpu_torch.train.lora import (LoRAConfig, LoRAOverlay, init_lora,
+                                                    lora_loss_fn, target_pattern)
+
+        lora_conf = conf.get("lora_conf", {})
+        pats = lora_conf.get("patterns", ["q_proj", "k_proj", "v_proj", "o_proj"])
+        lcfg = LoRAConfig(r=int(lora_conf.get("rank", 8)), alpha=int(lora_conf.get("alpha", 16)),
+                          target_patterns=(target_pattern(pats),))
+        overlay = init_lora(model, lcfg, torch.Generator(device=device).manual_seed(seed))
+        if not overlay:
+            raise ValueError(f"lora patterns matched no weights: {pats}")
+        loss_fn = lora_loss_fn(model, loss_fn, lcfg)
+        train_model = LoRAOverlay(overlay).to(device)
+        logging.info("LoRA finetune: %d adapters (r=%d alpha=%s)", len(overlay), lcfg.r,
+                     lcfg.alpha)
+    state = make_train_state(train_model, tx)
     step = make_train_step(loss_fn, tx)
     if latest_step(args.model_dir) is not None:
         state, at = restore_checkpoint(args.model_dir, state)
@@ -161,12 +262,77 @@ def main(argv: Optional[list] = None) -> None:
                   log_interval=train_conf.get("log_interval", 100), rng_seed=seed,
                   cv_step=cv_step)
     ex.step = state.step
-    move = lambda b: to_device(b, device)
+    move = lambda b: to_device(b, device)  # noqa: E731
     for epoch in range(args.epochs):
-        ds = make_dataset(args.train_data, data_conf, tokenizer, epoch)
-        cv = (list(make_dataset(args.cv_data, data_conf, tokenizer, 0))
+        ds = make_dataset(args.train_data, data_conf, tokenizer, epoch,
+                          data_format=args.data_format)
+        cv = (list(make_dataset(args.cv_data, data_conf, tokenizer, 0,
+                                data_format=args.data_format))
               if args.cv_data else None)
         state = ex.train_one_epoch(state, ds, cv_data=cv, to_device=move)
+        if use_lora:
+            from cosyvoice_tpu_torch.train.lora import lora_state_dict
+
+            np.savez(os.path.join(args.model_dir, "lora.npz"), **lora_state_dict(state.model))
+
+
+def online_labeler(conf: dict, device, s3_ckpt: Optional[str] = None,
+                   spk_ckpt: Optional[str] = None):
+    """The frozen label models of a phoneme recipe -> an OnlineCodecLabeler
+    on `device`: the `s3` section's S3TokenizerV2 (the full-width one by
+    default) from a speech_tokenizer_v2.onnx, and the `speaker` section's
+    SpeakerEmbedding from a state dict, each left at its random init
+    without a checkpoint."""
+    from cosyvoice_tpu_torch.models.s3tokenizer import import_s3tokenizer_onnx
+    from cosyvoice_tpu_torch.models.speaker import load_speaker_embedding
+    from cosyvoice_tpu_torch.train.online_codec import OnlineCodecLabeler
+
+    s3_conf = dict(conf.get("s3", {"kind": "s3tokenizer"}))
+    s3_model, s3_cfg = build_model(s3_conf.pop("kind"), s3_conf, device)
+    if s3_ckpt:
+        s3_model = import_s3tokenizer_onnx(s3_ckpt, s3_cfg, device)
+    else:
+        logging.warning("no --s3_ckpt: online codec labels from RANDOM tokenizer weights "
+                        "(smoke/test runs only)")
+    spk_model = None
+    if "speaker" in conf:
+        spk_conf = dict(conf["speaker"])
+        spk_model, spk_cfg = build_model(spk_conf.pop("kind"), spk_conf, device)
+        if spk_ckpt:
+            spk_model = load_speaker_embedding(
+                spk_cfg, torch.load(spk_ckpt, map_location="cpu", weights_only=True), device)
+        else:
+            logging.warning("no --spk_ckpt: RANDOM speaker-embedding weights")
+        spk_model.eval()
+    return OnlineCodecLabeler(s3_model=s3_model.eval(), spk_model=spk_model,
+                              sample_rate=conf.get("data", {}).get("sample_rate", 24000))
+
+
+def run_phoneme_llm_training(args, conf: dict, model, train_conf: dict, tokenizer, device,
+                             seed: int) -> None:
+    """A Qwen2 phoneme LM's training over the speaker-JSON (or jsonl) corpus,
+    each batch labelled online (train/online_codec.online_codec_epoch)."""
+    from cosyvoice_tpu_torch.tokenizer.phoneme import PhonemeTokenizer
+    from cosyvoice_tpu_torch.train.online_codec import online_codec_epoch
+
+    dconf = conf.get("data", {})
+    pho_tok = PhonemeTokenizer(dconf["phoneme_dict"])
+    labeler = online_labeler(conf, device, args.s3_ckpt, args.spk_ckpt)
+    tx = _optimizer(train_conf)
+    state = make_train_state(model, tx)
+    step = make_train_step(phoneme_llm_loss_fn, tx)
+    if latest_step(args.model_dir) is not None:
+        state, at = restore_checkpoint(args.model_dir, state)
+        logging.info("resumed from step %d", at)
+    ex = Executor(train_step=step, model_dir=args.model_dir, device=device,
+                  save_per_step=train_conf.get("save_per_step", -1),
+                  log_interval=train_conf.get("log_interval", 100), rng_seed=seed)
+    ex.step = state.step
+    for epoch in range(args.epochs):
+        ds = make_phoneme_dataset(args.train_data, dconf, tokenizer, pho_tok, epoch,
+                                  args.data_format)
+        state = online_codec_epoch(ex, state, labeler, iter(ds),
+                                   to_device=lambda b: to_device(b, device), seed=epoch)
 
 
 def gan_training(name: str, model, conf: dict, device) -> tuple:
@@ -241,9 +407,10 @@ def run_gan_training(args, conf: dict, model, train_conf: dict, tokenizer, devic
     ex.step = g_state.step
     for epoch in range(args.epochs):
         ds = make_dataset(args.train_data, conf.get("data", {}), tokenizer, epoch, gan=True,
-                          with_f0=args.model == "hift")
+                          with_f0=args.model == "hift", data_format=args.data_format)
         g_state, d_state = ex.train_one_epoch_gan(g_state, d_state, ds,
                                                   to_device=lambda b: to_device(b, device))
+
 
 if __name__ == "__main__":
     main()

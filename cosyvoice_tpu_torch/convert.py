@@ -14,7 +14,9 @@ kernel (transposed) and fp32 scale [out]; packed-int4 QDense leaves (kernel
 weight_g / weight_v, and a weight-normed transposed conv (stored k-flipped,
 in forward-correlation form) becomes torch's [Cin, Cout, K], as does a
 plain transposed conv's kernel.  `train_state_from_jax` carries a
-training run's trees (params, gradients) by registry kind.
+training run's trees (params, gradients) by registry kind, a LoRA train
+state's too; `lora_overlay_from_jax` maps a JAX LoRA overlay (or its
+lora.npz) to the port's parameter names.
 """
 from __future__ import annotations
 
@@ -701,18 +703,89 @@ def discriminator_state_from_jax(params: dict) -> dict:
     return sd
 
 
-# the registry kinds whose training the port runs (bin/train.py)
+# the registry kinds whose training forwards the port runs
 TRAIN_CONVERTERS = {"qwen2lm": lm_state_from_jax,
                     "transformer_lm": transformer_lm_state_from_jax,
+                    "qwen2lm_phoneme": phoneme_lm_state_from_jax,
+                    "qwen2lm_phoneme_src": phoneme_lm_state_from_jax,
+                    "qwen2lm_phoneme_src2": phoneme_lm_state_from_jax,
+                    "qwen2lm_phoneme_multicode": multicode_lm_state_from_jax,
+                    "transformer_lm_phoneme": v1_phoneme_lm_state_from_jax,
                     "flow": flow_state_from_jax, "flow_stream": flow_state_from_jax,
                     "flow_v1": flow_v1_state_from_jax, "hift": hift_state_from_jax,
                     "vits": vits_state_from_jax}
 
 
-def train_state_from_jax(kind: str, tree: dict) -> dict:
+def train_state_from_jax(kind: str, tree: dict, lora_names=None) -> dict:
     """A JAX training tree of a registry `kind` -> the port module's
     parameter names: its params (a state dict to load), or a tree of the
     same layout, such as its gradients or an optimizer moment.  Every
     converter is a linear rearrangement, so a gradient tree carries across
-    as the parameters do."""
+    as the parameters do.  With `lora_names` (the port model's parameter
+    names) the tree is a LoRA train state's ({flax path: {"a", "b"}}: the
+    overlay, its gradients or a moment), mapped to train/lora.LoRAOverlay's
+    parameter names (`a.<name>`, `b.<name>`, the name's dots as '/')."""
+    if lora_names is not None:
+        out = {}
+        for name, ab in lora_overlay_from_jax(tree, lora_names).items():
+            for k in ("a", "b"):
+                out[f"{k}.{name.replace('.', '/')}"] = ab[k]
+        return out
     return TRAIN_CONVERTERS[kind](tree)
+
+
+# ---- LoRA overlays -----------------------------------------------------------
+
+def _split_indices(segs: list) -> list:
+    """`name_3` -> name, 3 (flax's list naming); port segments alike."""
+    out = []
+    for s in segs:
+        m = re.fullmatch(r"(.+)_(\d+)", s)
+        out += [m.group(1), m.group(2)] if m else [s]
+    return out
+
+
+def _common(a: list, b: list) -> int:
+    """The length of the longest common subsequence of two segment lists."""
+    row = [0] * (len(b) + 1)
+    for x in a:
+        prev = 0
+        for j, y in enumerate(b):
+            prev, row[j + 1] = row[j + 1], prev + 1 if x == y else max(row[j + 1], row[j])
+    return row[-1]
+
+
+def lora_overlay_from_jax(overlay, port_names) -> dict:
+    """A JAX LoRA overlay ({flax path: {"a", "b"}}, or the path of a
+    JAX-written lora.npz) -> {port parameter name: {"a", "b"}}.  The arrays
+    carry over unchanged (train/lora.py's orientation).  A path maps to a
+    name among `port_names` that ends in the path's module and leaf
+    (kernel -> weight, v -> weight_v) and carries its indices in order
+    (`layers_0` is `layers.0`); of those, to the one sharing the most of
+    the path's other segments in order (flax `ff` is the port's
+    `feed_forward`).  A path with no such name, or a tie, raises."""
+    if isinstance(overlay, str):
+        from cosyvoice_tpu_torch.train.lora import read_lora_npz
+
+        overlay = read_lora_npz(overlay)
+    names = [(n.split("."), _split_indices(n.split("."))) for n in port_names]
+    out = {}
+    for path, ab in overlay.items():
+        segs = [p for p in path.split("/") if p]
+        if segs[0] == "params":
+            segs = segs[1:]
+        leaf = {"kernel": "weight", "v": "weight_v"}.get(segs[-1])
+        if leaf is None or len(segs) < 2:
+            raise ValueError(f"{path}: LoRA adapters go on kernels and weight-normed v")
+        want = _split_indices(segs[:-1]) + [leaf]
+        index = [w for w in want if w.isdigit()]
+        cands = [(_common(want, split), ".".join(n)) for n, split in names
+                 if n[-2:] == [segs[-2], leaf] and [w for w in split if w.isdigit()] == index]
+        best = max((c for c, _ in cands), default=0)
+        hits = [name for c, name in cands if c == best]
+        if len(hits) != 1:
+            raise KeyError(f"{path}: {'no' if not hits else len(hits)} port parameters match "
+                           f"{hits[:3]}")
+        out[hits[0]] = {k: _t(v) if not isinstance(v, torch.Tensor) else v
+                        for k, v in ab.items()}
+    return out

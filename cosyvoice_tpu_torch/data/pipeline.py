@@ -1,20 +1,30 @@
 """Composable streaming data pipeline for training (host side, numpy).
-Port of cosyvoice_tpu/data/pipeline.py: the stages of the jsonl corpus
-path (bin/train.py --data_format jsonl), over the port's own log-mel
-(ops/mel.py) and resampler (runtime/frontend.resample_poly).
+Port of cosyvoice_tpu/data/pipeline.py, over the port's own log-mel
+(ops/mel.py), resampler (runtime/frontend.resample_poly), WAV reader
+(bin/inference.read_wav) and parquet reader (data/parquet_io.py).
 
 A pipeline is a source iterable and a chain of stages, each a function
 from an iterator of samples to an iterator; the last stages batch the
 samples and pad them into numpy arrays whose lengths round up to a bucket
-multiple.  The vocoders' stages are here too: `compute_f0` (HiFT's pitch
-targets, ops/f0.py) and `padding(gan=...)`'s waveform rows.  The parquet
-and speaker-JSON sources and the phoneme stages come with the phoneme
-LMs' training (ROADMAP Queue 1 item 10c).
+multiple.  The sources: jsonl shards (`jsonl_opener`), parquet shards
+(`parquet_opener`, then `decode_audio_bytes` and `parse_embedding`),
+speaker-keyed JSON corpora (`spk_json_source`) and kaldi directories
+(`kaldi_dir_source`).  The vocoders' stages: `compute_f0` (HiFT's pitch
+targets, ops/f0.py) and `padding(gan=...)`'s waveform rows.  The phoneme
+LMs' stages: `truncate_phoneme_sequence` (an MFA-aligned crop at a prosody
+mark), `tokenize_phoneme` and `padding`'s pho_token [B, T, 4] streams.
+Every random stage draws as the JAX one does (`truncate` from the global
+`random` module, the others from a seeded random.Random), so both packages
+give the same samples.
 """
 from __future__ import annotations
 
+import io
 import json
+import logging
+import os
 import random
+import wave
 from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
@@ -63,6 +73,194 @@ def jsonl_opener(it):
                 elif isinstance(s.get("speech"), list):
                     s["speech"] = np.asarray(s["speech"], np.float32)
                 yield s
+
+
+def parquet_opener(it):
+    """Paths of parquet shards -> their rows as sample dicts (a shard that
+    fails to open is skipped with a warning)."""
+    from cosyvoice_tpu_torch.data.parquet_io import parquet_opener as _opener
+
+    yield from _opener(it)
+
+
+def decode_audio_bytes():
+    """A parquet row's `audio_data` (16-bit PCM WAV bytes) -> speech +
+    sample_rate; a row whose bytes are not such a WAV is dropped with a
+    warning."""
+
+    def stage(it):
+        for s in it:
+            if "audio_data" in s and "speech" not in s:
+                try:
+                    with wave.open(io.BytesIO(s["audio_data"])) as w:
+                        sr = w.getframerate()
+                        data = np.frombuffer(w.readframes(w.getnframes()), dtype=np.int16)
+                        if w.getnchannels() > 1:
+                            data = data.reshape(-1, w.getnchannels()).mean(axis=1)
+                except (wave.Error, EOFError, ValueError) as e:
+                    logging.warning("decode_audio_bytes: dropping %s (%s)",
+                                    s.get("utt", "<sample>"), e)
+                    continue
+                s = dict(s, speech=data.astype(np.float32) / 32768.0, sample_rate=sr)
+                s.pop("audio_data")
+            yield s
+
+    return stage
+
+
+def parse_embedding(normalize: bool = True):
+    """utt_embedding / spk_embedding list columns -> float32 vectors
+    (L2-normalised, the norm floored at 1e-12); `embedding` defaults to the
+    utt_embedding."""
+
+    def stage(it):
+        for s in it:
+            for k in ("utt_embedding", "spk_embedding"):
+                if k in s:
+                    v = np.asarray(s[k], np.float32)
+                    if normalize:
+                        v = v / max(float(np.linalg.norm(v)), 1e-12)
+                    s[k] = v
+            if "utt_embedding" in s:
+                s.setdefault("embedding", s["utt_embedding"])
+            yield s
+
+    return stage
+
+
+def kaldi_dir_source(data_dir: str):
+    """A kaldi directory (wav.scp, and text / utt2spk where present) -> one
+    sample an utterance of wav.scp: utt, speech, sample_rate, text ("" when
+    absent) and spk (the utt when absent)."""
+    from cosyvoice_tpu_torch.bin.inference import read_wav
+
+    def read_map(name):
+        path = os.path.join(data_dir, name)
+        out = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                for line in f:
+                    parts = line.strip().split(maxsplit=1)
+                    if len(parts) == 2:
+                        out[parts[0]] = parts[1]
+        return out
+
+    texts, utt2spk = read_map("text"), read_map("utt2spk")
+    for utt, path in read_map("wav.scp").items():
+        wav, sr = read_wav(path)
+        yield {"utt": utt, "speech": wav, "sample_rate": sr, "text": texts.get(utt, ""),
+               "spk": utt2spk.get(utt, utt)}
+
+
+def spk_json_source(json_paths, rng_seed: int = 0, rich_sample_short_utt: bool = False):
+    """Speaker-keyed JSON corpora: each file maps spk -> a list of {utt,
+    wav, text, phoneme, durations, embedding, ...}.  A file's utterances
+    come shuffled by a random.Random(rng_seed) that runs on across files;
+    with rich_sample_short_utt an utterance under 2 s comes twice."""
+    from cosyvoice_tpu_torch.bin.inference import read_wav
+
+    r = random.Random(rng_seed)
+    for path in json_paths:
+        with open(path) as f:
+            data = json.load(f)
+        items = [(spk, u) for spk, utts in data.items() for u in utts]
+        r.shuffle(items)
+        for spk, u in items:
+            wav, sr = read_wav(u["wav"])
+            sample = {"utt": u.get("utt", u["wav"]), "speech": wav, "sample_rate": sr,
+                      "spk": spk, "text": u.get("text", "")}
+            for k in ("phoneme", "durations"):
+                if k in u:
+                    sample[k] = u[k]
+            if "embedding" in u:
+                sample["embedding"] = np.asarray(u["embedding"], np.float32)
+            yield sample
+            if rich_sample_short_utt and len(wav) / sr < 2.0:
+                yield dict(sample)
+
+
+def truncate(max_seconds: float = 30.0):
+    """A random crop of audio longer than max_seconds, its start drawn from
+    the global `random` module."""
+
+    def stage(it):
+        for s in it:
+            limit = int(max_seconds * s["sample_rate"])
+            if len(s["speech"]) > limit:
+                start = random.randint(0, len(s["speech"]) - limit)
+                s["speech"] = s["speech"][start: start + limit]
+            yield s
+
+    return stage
+
+
+def truncate_phoneme_sequence(prob: float = 0.5, prosody_weights: Optional[dict] = None,
+                              prosody_len: Optional[dict] = None, min_len: int = 2,
+                              min_dur: float = 0.08, seed: int = 0):
+    """With probability `prob` (a random.Random(seed) draw), crop a sample
+    at a prosody mark (#1 / #2 / #3 past index min_len, drawn by weight):
+    the audio up to the summed MFA durations through the mark, then the
+    mark's silence, and the phonemes through the mark.  A sample drawn for
+    the crop is dropped when its audio outlasts its durations by more than
+    0.2 s or its phoneme and duration counts differ.  Needs `phoneme` and
+    `durations`; other samples pass unchanged.  The durations are dropped."""
+    prosody_weights = prosody_weights or {"#1": 0.5, "#2": 1.0, "#3": 1.0}
+    prosody_len = prosody_len or {"#1": 0.001, "#2": 0.25, "#3": 0.35}
+
+    def stage(it):
+        r = random.Random(seed)
+        for s in it:
+            pho, dur = s.get("phoneme"), s.get("durations")
+            if pho is None or dur is None:
+                yield s
+                continue
+            if isinstance(pho, str):
+                pho = pho.split()
+            wav, sr = s["speech"], s["sample_rate"]
+            if r.random() < prob:
+                if len(wav) / sr - float(np.sum(dur)) > 0.2:
+                    continue
+                if len(pho) != len(dur):
+                    continue
+                idxs = [i for i, x in enumerate(pho) if x in prosody_weights and i > min_len]
+                if idxs:
+                    i = r.choices(idxs, [prosody_weights[pho[j]] for j in idxs])[0]
+                    d = float(np.sum(np.asarray(dur[: i + 1], np.float64)))
+                    if d > min_dur:
+                        wav = np.pad(wav[: int(d * sr)], (0, int(prosody_len[pho[i]] * sr)))
+                        pho = pho[: i + 1]
+            out = dict(s, phoneme=pho, speech=wav)
+            out.pop("durations", None)
+            yield out
+
+    return stage
+
+
+def tokenize_phoneme(tokenizer, drop_bad: bool = True):
+    """Phoneme strings -> the factored id lists pho_token, text_tone,
+    text_lang, text_prsd (tokenizer/phoneme.PhonemeTokenizer.encode); a
+    sample with an unknown phoneme is dropped with a warning (or, with
+    drop_bad False, raises)."""
+
+    def stage(it):
+        for s in it:
+            pho = s.get("phoneme")
+            if pho is None:
+                yield s
+                continue
+            if isinstance(pho, str):
+                pho = pho.split()
+            try:
+                pho_ids, tone_ids, lang_ids, prsd_ids = tokenizer.encode(pho)
+            except (KeyError, ValueError, IndexError) as e:
+                logging.warning("%s: phoneme encode failed (%s), dropped", s.get("utt", "?"), e)
+                if drop_bad:
+                    continue
+                raise
+            yield dict(s, pho_token=pho_ids, text_tone=tone_ids, text_lang=lang_ids,
+                       text_prsd=prsd_ids)
+
+    return stage
 
 
 def filter_samples(max_length=10240, min_length=10, token_max_length=200,
@@ -227,14 +425,18 @@ def round_up(n, m):
     return ((n + m - 1) // m) * m
 
 
-def padding(bucket_multiple=32, static_lens: Optional[dict] = None, gan=False):
+def padding(bucket_multiple=32, static_lens: Optional[dict] = None, gan=False,
+            use_spk_embedding: bool = False):
     """A list of samples -> a padded numpy batch, longest mel first: mel
-    rows round up to bucket_multiple, speech tokens to half of it, text to
-    8; `static_lens` pins a key's padded length (a sample past its pin
-    raises).  `gan` (True, or a hop in samples; True is 480) adds the
-    waveform rows: speech cut or zero-padded to L * hop samples for L mel
-    rows, speech_len, and pitch_feat padded to L where the samples have
-    it."""
+    rows round up to bucket_multiple, speech tokens to half of it, text and
+    phonemes to 8; `static_lens` pins a key's padded length (a sample past
+    its pin raises).  Factored phoneme ids (pho_token, text_tone, text_lang,
+    text_prsd) stack into pho_token [B, T, 4] with pho_token_len.  The
+    embedding rows are each sample's `embedding`, or with use_spk_embedding
+    its `spk_embedding` where it has one.  `gan` (True, or a hop in samples;
+    True is 480) adds the waveform rows: speech cut or zero-padded to L *
+    hop samples for L mel rows, speech_len, and pitch_feat padded to L
+    where the samples have it."""
     static_lens = static_lens or {}
 
     def pad_len(key, longest, multiple):
@@ -265,9 +467,17 @@ def padding(bucket_multiple=32, static_lens: Optional[dict] = None, gan=False):
                 batch["text_token"] = _pad_to(
                     [np.asarray(s["text_token"], np.int32) for s in samples], Lx)
                 batch["text_token_len"] = txt_len
+            if "text_tone" in samples[0]:
+                pho_len = np.asarray([len(s["pho_token"]) for s in samples], np.int32)
+                Lp = pad_len("pho_token", int(pho_len.max()), 8)
+                batch["pho_token"] = np.stack(
+                    [_pad_to([np.asarray(s[k], np.int32) for s in samples], Lp)
+                     for k in ("pho_token", "text_tone", "text_lang", "text_prsd")], axis=-1)
+                batch["pho_token_len"] = pho_len
             if "embedding" in samples[0]:
+                key = "spk_embedding" if use_spk_embedding else "embedding"
                 batch["embedding"] = np.stack(
-                    [np.asarray(s["embedding"], np.float32) for s in samples])
+                    [np.asarray(s.get(key, s["embedding"]), np.float32) for s in samples])
             if gan:
                 Ls = L * (480 if gan is True else int(gan))
                 batch["speech"] = _pad_to([np.asarray(s["speech"][:Ls], np.float32)

@@ -205,6 +205,17 @@ class CAMPPlus(nn.Module):
         self.xvector.add_module("dense", DenseLayer(2 * channels, cfg.embedding_size))
         self.eval()
 
+    def train(self, mode: bool = True) -> "CAMPPlus":
+        """Every BatchNorm stays in eval mode (the JAX module's training
+        forwards read the running statistics too), so a training forward
+        that embeds through CAMPPlus neither normalises by its batch nor
+        moves the statistics."""
+        super().train(mode)
+        for m in self.modules():
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                m.eval()
+        return self
+
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         """feats [B, T, feat_dim] (kaldi fbank, mean-normed) -> [B, embedding_size]."""
         return self.xvector(self.head(feats.transpose(1, 2)))

@@ -157,18 +157,27 @@ class Qwen2LM(nn.Module):
         is causal + padding, as HF Qwen2 applies it to the reference's pad
         mask."""
         self._trainable()
-        cfg = self.cfg
         emb, seq_len = self.prefill_embeds(text, text_len, speech, speech_len)
+        return self._ce_over_prefix(emb, seq_len, speech, text_len, speech_len, 1)
+
+    def _causal_hidden(self, emb, seq_len) -> torch.Tensor:
+        """The body over packed embeds emb [B, N, D] (seq_len [B] valid rows)
+        with causal + padding attention -> hidden [B, N, D]."""
         B, N, _ = emb.shape
-        dev = emb.device
-        ar = torch.arange(N, device=dev)
+        ar = torch.arange(N, device=emb.device)
         pad = make_non_pad_mask(seq_len, N)
         causal = ar[None, :] <= ar[:, None]
         bias = torch.where(causal[None, None] & pad[:, None, None, :], 0.0,
                            NEG_INF).to(emb.dtype)
-        hidden, _ = self.body(emb, ar[None].expand(B, N), bias)
-        logits = self.llm_decoder(hidden)
-        target = _speech_targets(speech, text_len, speech_len, N, 1, cfg.eos_token)
+        return self.body(emb, ar[None].expand(B, N), bias)[0]
+
+    def _ce_over_prefix(self, emb, seq_len, speech, n_before, speech_len, first: int) -> dict:
+        """_causal_hidden, then the masked CE and accuracy of the speech
+        targets that start at position first + n_before."""
+        cfg = self.cfg
+        logits = self.llm_decoder(self._causal_hidden(emb, seq_len))
+        target = _speech_targets(speech, n_before, speech_len, emb.shape[1], first,
+                                 cfg.eos_token)
         return {"loss": masked_ce_loss(logits, target, cfg.lsm_weight,
                                        cfg.length_normalized_loss),
                 "acc": masked_accuracy(logits, target)}

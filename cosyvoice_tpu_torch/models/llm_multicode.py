@@ -1,7 +1,6 @@
 """The multi-codebook (delay-pattern) phoneme LM: 6 codec codes a step.
 
-Port of the inference half of cosyvoice_tpu/models/llm_multicode.py
-(cosyvoice2_multicode.yaml):
+Port of cosyvoice_tpu/models/llm_multicode.py (cosyvoice2_multicode.yaml):
   * text and phonemes fused by `src_attn_layers` cross-attention
     DecoderLayers (query: phonemes), as in Qwen2LMPhonemeSrc2;
   * the input is [sos, spk, fused(pho), task, code rows], each code row the
@@ -14,8 +13,10 @@ Port of the inference half of cosyvoice_tpu/models/llm_multicode.py
     recipe's RAS) and returns the delayed matrix with its leading BOS row;
     ops/delay.revert_delay_pattern aligns it on the host.
 Every one-token step runs the Qwen2 body, so with fused_cache_update it
-goes through the lm_decode_attention kernel.  The focal loss and the
-training forward are not ported.
+goes through the lm_decode_attention kernel.  The training forward applies
+the delay pattern to the aligned codes, grafts the delayed rows' summed
+embeddings after the task slot and takes ops/delay.focal_loss (gamma 1)
+of the delayed codes plus a trailing EOS row, from the task slot on.
 
 Parameter names: those of the phoneme LMs (models/llm_phoneme.py) plus
 `src_attention.{i}`, `code_embeddings.{i}` and `ar_decoder.model`; the JAX
@@ -35,6 +36,7 @@ from cosyvoice_tpu_torch.models.llm_phoneme import (DecoderLayer, PhonemeLMConfi
 from cosyvoice_tpu_torch.models.qwen2 import KVCache, causal_prefill_bias
 from cosyvoice_tpu_torch.nn.dense import Dense
 from cosyvoice_tpu_torch.ops import sampling as samp
+from cosyvoice_tpu_torch.ops.delay import focal_loss, get_delay_pattern
 from cosyvoice_tpu_torch.ops.masks import NEG_INF
 
 
@@ -98,6 +100,31 @@ class Qwen2LMPhonemeMultiCode(_PhonemeLMBase):
 
     def decode_logits(self, hidden):
         return self.ar_decoder(hidden)
+
+    def forward(self, text, text_len, pho_token, pho_len, codes, codes_len, embedding,
+                gen: Optional[torch.Generator] = None) -> dict:
+        """Training loss: codes [B, T, N] aligned, codes_len [B] -> {"loss"},
+        the focal loss over [sos, spk, fused(pho), task, delayed code rows];
+        position p from the task slot on predicts delayed row p - task + 1,
+        the row after the last an EOS row."""
+        self._trainable()
+        cfg = self.cfg
+        fused = self.fuse(text, text_len, pho_token, pho_len)
+        delayed = get_delay_pattern(codes, cfg.bos_id, cfg.eos_id)
+        d_len = codes_len + cfg.codebooknum - 1
+        B, Td, C = delayed.shape
+        out, seq_len, pos = self._pack([(fused, pho_len)], embedding, Td)
+        emb, total_len = self._finish_pack(out, pos, seq_len, self.code_emb(delayed), d_len)
+        N = emb.shape[1]
+        logits = self.ar_decoder(self._causal_hidden(emb, total_len))    # [B, N, V, C]
+        first = (seq_len - 1)[:, None]
+        idx = (pos - first).clamp(0, Td - 1)
+        tgt = torch.gather(delayed, 1, idx[..., None].expand(B, N, C))
+        tgt = torch.where((pos == first + d_len[:, None])[..., None],
+                          torch.full_like(tgt, cfg.eos_id), tgt)
+        valid = (pos >= first) & (pos <= first + d_len[:, None])
+        return {"loss": focal_loss(logits.transpose(2, 3), tgt, gamma=1.0,
+                                   mask=valid[..., None].expand(B, N, C))}
 
     def prefix_for_decode(self, text, text_len, pho_token, pho_len, prompt_codes,
                           prompt_codes_len, embedding):

@@ -1,7 +1,7 @@
 """Phoneme-conditioned Qwen2 speech LMs: the fork's production v2 LM
 (Qwen2LMPhonemeSrc2, cosyvoice2_pho.yaml) and its two siblings.
 
-Port of the inference half of cosyvoice_tpu/models/llm_phoneme.py:
+Port of cosyvoice_tpu/models/llm_phoneme.py:
   * PhonemeEmbedding: 4-way factored phoneme ids (phoneme, tone, lang,
     prosody; 400 + 64 + 16 + 32 = 512 wide), the prosody column zeroed
     unless use_frontend_prsd;
@@ -19,7 +19,17 @@ Port of the inference half of cosyvoice_tpu/models/llm_phoneme.py:
     speech] prefix.
 The fusion's LayerNorms use flax's numerics (nn/norm.py, fast variance)
 and its attention zeroes the masked weights after the softmax, as the JAX
-module does.  The training losses are not ported.
+module does.
+
+Training (`forward`): the same prefix over the utterance's speech tokens,
+then Qwen2LM's causal + padding pass and the masked CE (lsm_weight,
+length_normalized_loss) and accuracy of the speech targets, which follow
+2 + the fed stream lengths ignored positions.  Qwen2LMPhoneme zeroes the
+whole batch's text embeddings with probability text_emb_mask_prob, else
+drops them at 0.2, in train() mode when `gen` is given (the JAX module
+draws from its `rng`); the phoneme encoder's dropout acts inside
+nn/dropout.dropout_generator, and the Qwen2 body's block_attention / remat
+routes apply.  The phoneme LMs have no packed training forward.
 
 Parameter names follow the reference checkpoint: `text_embedding.{0..3}`,
 `text_encoder.*`, `text_encoder_affine_layer`, `llm.model.model.*`,
@@ -149,7 +159,7 @@ class PhonemeLMConfig:
     llm_output_size: int = 896
     speech_token_size: int = 6561
     spk_embed_dim: int = 512
-    # training only (the loss and the text-embedding mask); read by no port code
+    # training only (the loss and Qwen2LMPhoneme's text-embedding mask)
     length_normalized_loss: bool = True
     lsm_weight: float = 0.0
     text_emb_mask_prob: float = 0.5
@@ -247,9 +257,38 @@ class _PhonemeLMBase(Qwen2LM):
         return (make_non_pad_mask(text_len, Tt)[:, None, :],
                 make_non_pad_mask(pho_len, Tp)[:, None, :])
 
+    def _train_streams(self, text, text_len, pho_token, pho_len, gen):
+        """-> (the streams that build_prefix packs, the fed rows before the
+        speech: 2 + their lengths)."""
+        raise NotImplementedError
+
+    def forward(self, text, text_len, pho_token, pho_len, speech, speech_len, embedding,
+                gen: Optional[torch.Generator] = None) -> dict:
+        """Training loss over [IGNORE x (2 + stream lengths), speech, EOS]:
+        text [B, Tt], pho_token [B, Tp, 4], speech [B, Ts] (right-padded),
+        embedding [B, spk_embed_dim] -> {"loss", "acc"}."""
+        self._trainable()
+        streams, n_ignore = self._train_streams(text, text_len, pho_token, pho_len, gen)
+        emb, seq_len = self.build_prefix(streams, embedding, speech, speech_len)
+        return self._ce_over_prefix(emb, seq_len, speech, n_ignore, speech_len, 0)
+
+    def packed_call(self, *args, **kwargs):
+        raise NotImplementedError("the phoneme LMs train unpacked (forward); the JAX package "
+                                  "has no packed phoneme forward either")
+
 
 class Qwen2LMPhoneme(_PhonemeLMBase):
     """Text and phoneme streams both fed, [sos, spk, text, pho, task, speech]."""
+
+    def _train_streams(self, text, text_len, pho_token, pho_len, gen):
+        pho = self.encode_pho(pho_token, pho_len)
+        txt = self.body.embed_tokens(text)
+        if self.training and gen is not None:
+            zero = torch.rand((), generator=gen, device=gen.device) < self.cfg.text_emb_mask_prob
+            keep = torch.rand(txt.shape, generator=gen, device=gen.device) < 0.8
+            txt = torch.where(keep.to(txt.device), txt / 0.8, torch.zeros_like(txt))
+            txt = torch.where(zero.to(txt.device), torch.zeros_like(txt), txt)
+        return [(txt, text_len), (pho, pho_len)], 2 + text_len + pho_len
 
     def prefix_for_decode(self, text, text_len, pho_token, pho_len, prompt_speech,
                           prompt_speech_len, embedding):
@@ -268,6 +307,9 @@ class Qwen2LMPhonemeSrc2(_PhonemeLMBase):
         self.src_attention = nn.ModuleList([DecoderLayer(cfg.llm_input_size, cfg.fusion_heads,
                                                          cfg.fusion_ffn)])
 
+    def _train_streams(self, text, text_len, pho_token, pho_len, gen):
+        return [(self.fuse(text, text_len, pho_token, pho_len), pho_len)], 2 + pho_len
+
     def fuse(self, text, text_len, pho_token, pho_len):
         """-> the phoneme rows [B, Tp, D] after attending to the text."""
         pho = self.encode_pho(pho_token, pho_len)
@@ -285,6 +327,9 @@ class Qwen2LMPhonemeSrc2(_PhonemeLMBase):
 class Qwen2LMPhonemeSrc(Qwen2LMPhonemeSrc2):
     """The fusion with the text stream as the query: [sos, spk, fused(text),
     task, speech]."""
+
+    def _train_streams(self, text, text_len, pho_token, pho_len, gen):
+        return [(self.fuse(text, text_len, pho_token, pho_len), text_len)], 2 + text_len
 
     def fuse(self, text, text_len, pho_token, pho_len):
         """-> the text rows [B, Tt, D] after attending to the phonemes."""

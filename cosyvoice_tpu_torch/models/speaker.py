@@ -240,12 +240,18 @@ class SpeakerEmbedding(nn.Module):
             return style + self.speaker_adapter(timbre)
         return timbre + style
 
+    def embed(self, fbank, spec, spec_len, noise: Optional[torch.Tensor] = None,
+              gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """forward with gradients (a training forward that co-trains the
+        speaker vector: models/llm_v1_phoneme.TransformerLMPhonemeWithSpk)."""
+        return self.fuse(self.timbre(fbank), self.style(spec, spec_len, noise, gen))
+
     @torch.no_grad()
     def forward(self, fbank, spec, spec_len, noise: Optional[torch.Tensor] = None,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """-> [B, speaker_emb_dim]; `noise` [B, Ts, inter] pins the posterior
         sample, else it comes from `gen`."""
-        return self.fuse(self.timbre(fbank), self.style(spec, spec_len, noise, gen))
+        return self.embed(fbank, spec, spec_len, noise, gen)
 
 
 class SpeakerEmbeddingWoPostEnc(SpeakerEmbedding):

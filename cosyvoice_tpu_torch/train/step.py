@@ -116,6 +116,15 @@ def transformer_lm_loss_fn(model, batch: dict, gen: Optional[torch.Generator] = 
     return out["loss"], {"acc": out["acc"]}
 
 
+def phoneme_llm_loss_fn(model, batch: dict, gen: Optional[torch.Generator] = None):
+    """The Qwen2 phoneme LMs' loss, in the training forward's mode (the
+    JAX CLI's phoneme branch runs it with deterministic=False)."""
+    out = model(batch["text_token"], batch["text_token_len"], batch["pho_token"],
+                batch["pho_token_len"], batch["speech_token"], batch["speech_token_len"],
+                batch["embedding"], gen=gen)
+    return out["loss"], {"acc": out["acc"]}
+
+
 def flow_loss_fn(model, batch: dict, gen: Optional[torch.Generator] = None):
     out = model(batch["speech_token"], batch["speech_token_len"], batch["speech_feat"],
                 batch["speech_feat_len"], batch["embedding"], gen=gen)

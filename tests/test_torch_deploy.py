@@ -9,7 +9,7 @@ CPU against the JAX package:
   and a --ref_audio speaker) -> a directory that the port's
   from_pretrained and the JAX package's both load: zero-shot and sft
   (the registered speaker) give equal greedy tokens and wavs within 1e-2
-  (deterministic HiFT on both sides); --lora_npz and --out_prefix raise;
+  (deterministic HiFT on both sides); --out_prefix, and --lora_npz without --llm_pt, raise;
 - bin/export_serving_lm.py's model.safetensors (read by the port's own
   reader) and config.json equal the JAX export's (which builds the HF
   model with `transformers`; skipped where that is absent), from a .pt
@@ -198,7 +198,12 @@ def test_resaved_directory_serves_as_in_jax(served, mode, monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--lora_npz", "--out_prefix"])
 def test_ckpt_resave_refuses_what_is_not_ported(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="10c" if flag == "--lora_npz" else "out_dir"):
+    """--out_prefix (the JAX CLI's bare .npz exports) raises; --lora_npz
+    without the --llm_pt it merges into raises (tests/test_torch_lora.py
+    covers the merge itself)."""
+    err, match = ((ValueError, "--llm_pt") if flag == "--lora_npz"
+                  else (NotImplementedError, "out_dir"))
+    with pytest.raises(err, match=match):
         ckpt_resave.main(["--out_dir", str(tmp_path / "d"), flag, str(tmp_path / "x")])
 
 

@@ -549,3 +549,17 @@ def test_bigvgan_training_forward_refuses_k7(cuda):
     before = K7.launches
     wav_k7, _ = model(token, lens, spk)
     assert K7.launches > before and not wav_k7.requires_grad
+
+
+@pytest.mark.gpu
+def test_phoneme_training_losses_card_equal_cpu(cuda):
+    """chip_smoke.py's pho_train small checks: the Src2 phoneme LM's loss
+    and acc, the multi-code focal loss and TransformerLMPhonemeWithSpk's
+    loss with VICReg (SpecAugment masks and posterior samples pinned), one
+    seeded init on the card and on the CPU: within PHO_TRAIN_SMALL_TOL (1e-4)
+    relative."""
+    import chip_smoke
+
+    with torch.enable_grad():
+        for kind, r in chip_smoke.pho_train_small_checks().items():
+            assert r["ok"], (kind, r)

@@ -56,6 +56,9 @@ import cosyvoice_tpu_torch.ops.f0, cosyvoice_tpu_torch.models.discriminator
 import cosyvoice_tpu_torch.train.gan, cosyvoice_tpu_torch.utils.safetensors_io
 import cosyvoice_tpu_torch.bin.average_model, cosyvoice_tpu_torch.bin.ckpt_resave
 import cosyvoice_tpu_torch.bin.export_serving_lm
+import cosyvoice_tpu_torch.train.lora, cosyvoice_tpu_torch.train.online_codec
+import cosyvoice_tpu_torch.data.parquet_io, cosyvoice_tpu_torch.data.transcriber
+import cosyvoice_tpu_torch.tokenizer.preprocess
 bad = [m for m in sys.modules
        if m in ("jax", "flax", "cosyvoice_tpu", "transformers", "tokenizers", "tiktoken",
                 "yaml", "optax", "orbax")

@@ -4,8 +4,8 @@ qwen2lm, transformer_lm and the flow each train one epoch on a seeded
 jsonl corpus, write metrics.jsonl with finite values and a checkpoint, and
 a second run resumes from that checkpoint; hift, bigvgan and vits each take
 two D + G step pairs against MPD + MRD and checkpoint both nets; adamw
-takes no weight decay, as the JAX CLI's; the branches that wait for later
-slices raise NotImplementedError naming their ROADMAP item; the default
+takes no weight decay, as the JAX CLI's; more than one card and what the
+JAX CLI does not train raise NotImplementedError; the default
 device is the card, with no fallback.  Also the recipe reader's block
 sequences (the train configs below are written by yaml.safe_dump)."""
 import json
@@ -67,12 +67,16 @@ def test_train_cli_trains_and_resumes(tmp_path, model, kind):
 
 @pytest.mark.parametrize("args,conf,item", [
     (["--model", "hift", "--mesh_data", "2"], {}, "item 11"),
-    (["--model", "llm"], {"llm": {"kind": "qwen2lm_phoneme_src2"}}, "phoneme"),
-    (["--model", "llm", "--lora"], {}, "phoneme"),
-    (["--model", "llm", "--data_format", "parquet"], {}, "phoneme"),
+    (["--model", "llm"], {"llm": {"kind": "qwen2lm_phoneme_multicode"}}, "JAX CLI fails"),
+    (["--model", "hift", "--lora"], {}, "trains every parameter"),
+    (["--model", "llm", "--data_format", "parquet"], {"llm": {"kind": "qwen2lm_phoneme"}},
+     "as jsonl"),
     (["--model", "llm", "--mesh_data", "2"], {}, "item 11"),
 ], ids=["gan", "phoneme_lm", "lora", "parquet", "mesh"])
 def test_train_cli_refuses_waiting_branches(tmp_path, args, conf, item):
+    """More than one card raises naming ROADMAP item 11; what the JAX CLI
+    does not train (the multi-code kind, --lora on a vocoder, parquet
+    shards for a phoneme LM) raises naming what the JAX CLI does there."""
     cfg = tmp_path / "c.yaml"
     base = {"llm": dict(train_section("qwen2lm"), kind="qwen2lm"), "hift": {"kind": "hift"}}
     cfg.write_text(yaml.safe_dump(dict(base, **conf), default_flow_style=False))
