@@ -32,8 +32,8 @@ Phases, each printing JSON lines:
      the teacher-forced argmax agreement with the bf16 LM; then the same
      weights quantized to int4xla (nibble values, group 128, PyTorch ops)
      without and with AWQ (calibrated by collect_act_stats on one seeded
-     request): 200 greedy steps each (ms/step, K1 launches exactly 24 x
-     199, no K5), peak memory, the teacher-forced agreement with the bf16
+     request): 100 greedy steps each (ms/step, K1 launches exactly 24 x
+     99, no K5), peak memory, the teacher-forced agreement with the bf16
      LM and the device time of a step's 168 projections at one row
      (dev_time; beside bf16's, int8's and int4's); and the small stack's
      LM in int4xla, fp32, card against CPU (logits within 2e-5, 40 greedy
@@ -48,8 +48,10 @@ Phases, each printing JSON lines:
   9. engine  - ServingEngine.generate, 16 requests through 8 slots (staggered
      admission, slot reuse): on a small fp32 stack (greedy tokens must equal
      a B=1 lm_generate of each request), then on the main path's int8 LM
-     with greedy sampling (K1's per-row pos mode): tokens/s, segments, K1
-     launches and the share of requests equal to a B=1 lm_generate (no gate
+     with greedy sampling (K1's per-row pos mode), caps of 50-100 tokens:
+     tokens/s, segments, K1
+     launches and the share of the first 8 requests equal to a B=1
+     lm_generate (no gate
      at full width in bf16: a batch-dependent order of sums can flip a
      near-tied argmax);
  10. bigvgan - the BigVGAN token->wav vocoder at the full width of the
@@ -68,7 +70,7 @@ Phases, each printing JSON lines:
      last ~6 samples of each activation differ by design);
  11. stream  - one full-width zero-shot request streamed through
      CosyVoice2.inference_zero_shot(stream=True) with the main path's
-     weights, greedy sampling and a 200-token cap, after one warm-up
+     weights, greedy sampling and a 100-token cap, after one warm-up
      stream: first-chunk latency, per-chunk seconds (each split into
      frontend, LM prefill, flow, HiFT and decode/host), wall, RTF, the chunk
      lengths (must follow the hop-50 / lookahead-3 / 8-frame-cache formula),
@@ -80,7 +82,8 @@ Phases, each printing JSON lines:
      stack's sequential tts(stream=True) on the CPU) and incremental (the
      stream family; within INC_WAV_TOL of its one-shot stream-masked flow
      vocoded with the same windows); then at full width bench.py's engine
-     traffic (8 streams of 500 tokens through 8 slots, hop_scale 2.0),
+     traffic at half its length (8 streams of 250 tokens through 8 slots,
+     hop_scale 2.0),
      windowed (flow_context_tokens 250) and incremental: first-chunk latency
      a stream and the segments before it, wall, audio, RTF, chunks,
      segments, peak memory and K1-K3 launches (windowed all > 0,
@@ -189,13 +192,13 @@ Phases, each printing JSON lines:
      and cosyvoice2_vits_tts.yaml at full width with their gan_conf
      discriminator (MPD + MRD) and train_conf optimizers, on a seeded batch
      of 4 rows of 10 s (the recipes' 2000-frame cap, GAN_BATCH): one warm
-     D + G pair, then 4 (HiFT 7, VITS 9): s a pair (median), peak memory,
+     D + G pair, then 1 (HiFT 3, VITS 9): s a pair (median), peak memory,
      every loss term and grad_norm finite, HiFT's largest log-magnitude a
      pair, VITS's KL at its last pair below its first; (c) `python -m
      cosyvoice_tpu_torch.bin.train --model hift|bigvgan|vits` on its
      default device at the small widths (steps 1, 2, both nets saved);
  21. deploy  - finetune -> average -> assemble -> serve at full width:
-     train/checkpoint.save_checkpoint of a seeded LM, flow and HiFT (twice
+     train/checkpoint.save_checkpoint of a seeded LM, flow and HiFT (once
      each), bin/average_model.py, bin/ckpt_resave.py --out_dir (with a
      --ref_audio speaker), from_pretrained (fp16, int8, greedy, K1 and K3
      on) and one zero-shot request, against the same weights written
@@ -222,7 +225,27 @@ Phases, each printing JSON lines:
      qwen2lm_phoneme and qwen2lm_phoneme_src (spk_json, online labels),
      transformer_lm (parquet) and the flow with lora_conf; no kernel
      launched in any training;
- 23. timing  - at the main path's shapes: each kernel against its plain
+ 23. multi_card - more than one card's code paths, two ranks on the one
+     card (torch.distributed, gloo over CUDA tensors: NCCL refuses two
+     ranks on one device, which the phase confirms and prints): K1 at the
+     TP-local heads of Qwen2-0.5B at model 2 (KH 1, G 7, cache 384, B = 1
+     and 8) against its plain version and timed; then the two ranks run
+     (b) the small fp32 stack in BatchedSynthesizer at DP(2) and TP(2)
+     against one process (tokens exact, wavs within MC_SMALL_WAV_TOL), (a)
+     the full-width stack (the main path's int8 LM, K4 flow, HiFT) on 4
+     requests, one process, DP(2) and TP(2): RTF, greedy rows equal to one
+     process (printed), teacher-forced logits within MC_LOGITS_REL_TOL of
+     one process's and their argmax agreement, K1-K4 launches, and (c)
+     cosyvoice2.yaml's LM in fp32 at DP(2), 3 micro-steps on the train
+     phase's batch with data rank 1's speech cut to MC_TRAIN_SHORT tokens,
+     against one process (loss and grad_norm within MC_TRAIN_REL_TOL; s a
+     micro-step and peak a rank); (d) `python -m torch.distributed.run
+     --nproc_per_node 2 -m cosyvoice_tpu_torch.bin.train --mesh_model 2`
+     for 2 steps, then a one-process resume (steps 3, 4); (e) the small
+     stack's ContinuousSynthesizer with flow_device="cpu" against the
+     all-card run (CONT_WAV_TOL).  NCCL between cards and the flow's
+     overlap on a second card are not measured (one card);
+ 24. timing  - at the main path's shapes: each kernel against its plain
      version on the same inputs, then the kernel, the plain version and the
      one PyTorch call that computes the same function, timed (CUDA events);
      K1 also at the engine's shape (B = 8, cache 384, per-row frontiers)
@@ -258,10 +281,12 @@ launches in the phoneme phase's three full-width runs, launches_lam, its
 launches in the lam phase's chain, launches_multicode, its launches in
 the multicode phase's B=1 and B=4 decodes, launches_gan, its launches in
 the gan phase (all zero), launches_deploy, its launches in the deploy
-phase's request from the assembled directory, and launches_pho_train, its
-launches in the pho_train phase (the LoRA-merged request's alone); the K2
-and K3 rows
-add v1_shapes, their times at the v1 estimator's two levels.  The line
+phase's request from the assembled directory, launches_pho_train, its
+launches in the pho_train phase (the LoRA-merged request's alone), and
+launches_multi_card, its launches in the multi_card phase's ranks (summed)
+under DP(2) and TP(2); two K1 rows at the TP-local heads (launches: the
+ranks' full-width TP runs) follow the timing rows; the K2 and K3 rows add
+v1_shapes, their times at the v1 estimator's two levels.  The line
 before the card's line gives the whole run's seconds and each phase's.
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero.
 """
@@ -353,8 +378,10 @@ INC_WAV_TOL = 1e-3
 # the continuous phase's full-width traffic (bench.py's engine section): 8
 # streams through 8 slots, 500 tokens a stream (min = max = 20 tokens a byte
 # of a 25-byte text), hop_scale 2.0
-CONT_STREAMS, CONT_TOKENS = 8, 500
+CONT_STREAMS, CONT_TOKENS = 8, 250      # cut from 500 for the script's time
 CONT_TEXT = "The quick brown fox jumps"
+# the stream phase's decode cap (cut from 200 for the script's time)
+STREAM_CAP = 100
 # the batched phase: new-text lengths of 5-10 bytes give decode caps of 100-200
 BATCH_TEXTS = ("Hello", "Hi there", "Good night", "See you", "Thank you", "Go ahead",
                "Next one", "Hi you")
@@ -1095,7 +1122,7 @@ def int4_phase(res_main: dict, K1, K5, smi: str) -> dict:
 
 
 # the int4 phase's int4xla runs: greedy tokens a decode, the group size
-INT4XLA_TOKENS, INT4XLA_GROUP = 200, 128
+INT4XLA_TOKENS, INT4XLA_GROUP = 100, 128     # steps cut from 200 for the script's time
 
 
 def projection_step(lm):
@@ -1314,7 +1341,9 @@ def engine_phase(res_main: dict, K1, smi: str) -> dict:
 
     rng = np.random.default_rng(11)
 
-    def run(lm, reqs, **kw) -> dict:
+    def run(lm, reqs, compare: int = 16, **kw) -> dict:
+        """The engine over reqs; the first `compare` requests' tokens
+        against a B=1 lm_generate each."""
         segments = [0]
         K1.launches = 0
         torch.cuda.synchronize()
@@ -1326,7 +1355,7 @@ def engine_phase(res_main: dict, K1, smi: str) -> dict:
         k1 = K1.launches
         t = lambda *a: torch.as_tensor(np.asarray(a), dtype=torch.long, device="cuda")
         equal, first_diff = 0, []
-        for r, toks in zip(reqs, got):
+        for r, toks in zip(reqs[:compare], got):
             n, mo = len(r.text), kw["max_out"]
             mn = r.min_len if r.min_len is not None else int(2 * n)
             mx = min(r.max_len if r.max_len is not None else 20 * n, mo)
@@ -1341,7 +1370,8 @@ def engine_phase(res_main: dict, K1, smi: str) -> dict:
         n_tok = sum(len(g) for g in got)
         return dict(requests=len(reqs), slots=kw["num_slots"], tokens=n_tok, wall_s=wall,
                     tokens_per_s=n_tok / wall, segments=segments[0], k1_launches=k1,
-                    equal_to_lm_generate=equal, share_equal=equal / len(reqs),
+                    equal_to_lm_generate=equal, compared=compare,
+                    share_equal=equal / compare,
                     tokens_before_first_difference=first_diff,
                     request_tokens=[len(g) for g in got])
 
@@ -1356,14 +1386,16 @@ def engine_phase(res_main: dict, K1, smi: str) -> dict:
     with torch.device("cuda"):
         lm = Qwen2LM(cfg)
     lm.load_state_dict(llm.state_dict(), strict=True, assign=True)
-    # decode caps of 100-200 tokens, as in the batched phase; the longest
-    # request needs 3 + 32 text + 128 speech + 200 cache rows <= 384
+    # decode caps of 50-100 tokens (cut from 100-200 for the script's
+    # time); the longest request needs 3 + 32 text + 128 speech +
+    # 200 cache rows <= 384
     full_reqs = [GenRequest(text=rng.integers(0, 256, 6 + (i * 5) % 25),
                             prompt_speech=rng.integers(0, 6561, 20 + (i * 11) % 56),
-                            max_len=100 + (i * 13) % 101)
+                            max_len=50 + (i * 13) % 51)
                  for i in range(16)]
-    full_run = run(lm, full_reqs, num_slots=8, cache_len=384, max_out=200, segment_steps=50,
-                   text_bucket=32, speech_bucket=64)
+    # 8 of the 16 against B=1 (cut from all 16 for the script's time)
+    full_run = run(lm, full_reqs, compare=8, num_slots=8, cache_len=384, max_out=200,
+                   segment_steps=50, text_bucket=32, speech_bucket=64)
     res = {"phase": "engine", "card": smi, "small_fp32": small_run, "full_width_int8": full_run,
            "gate": "small_fp32 share_equal == 1 (exact greedy parity); full width: printed"}
     emit(res)
@@ -1468,7 +1500,8 @@ def bigvgan_phase(K7, smi: str) -> dict:
 def stream_phase(res_main: dict, K1, K2, K3, smi: str) -> dict:
     """One full-width zero-shot request streamed through
     inference_zero_shot(stream=True): the main path's weights with greedy
-    sampling, a 200-token cap, after one warm-up stream of the same request.
+    sampling, a STREAM_CAP-token cap, after one warm-up stream of the same
+    request.
     Each chunk's seconds split into frontend, LM prefill, flow and HiFT
     (synchronised host timers) and the rest: decode steps and host work."""
     from cosyvoice_tpu_torch.models.llm import Qwen2LM, SamplingConfig
@@ -1480,7 +1513,7 @@ def stream_phase(res_main: dict, K1, K2, K3, smi: str) -> dict:
     with torch.device("cuda"):
         lm = Qwen2LM(cfg)
     lm.load_state_dict(llm.state_dict(), strict=True, assign=True)
-    model = CosyVoice2Model(llm=lm.eval(), flow=flow, hift=hift, max_decode_tokens=200,
+    model = CosyVoice2Model(llm=lm.eval(), flow=flow, hift=hift, max_decode_tokens=STREAM_CAP,
                             device="cuda")
     cv = CosyVoice2(frontend=frontend, model=model)
     prefills, streamed = [], []
@@ -3757,11 +3790,11 @@ GAN_BATCH = {"hift": (4, 500), "bigvgan": (4, 500), "vits": (4, 500)}
 # lr (adamw 2e-4) its KL first grows from the constructor init, then falls
 # below where it started; the JAX package takes the same path
 # (tests/vits_kl_path.py at width 256, CPU).  HiFT runs 8: its largest
-# log-magnitude climbs ~10 a pair toward exp's fp32 range (~88.7), past
-# which the clip's gradient was NaN before models/hift.py MAG_LOG_CAP.
-# BigVGAN runs 3 (6.3 s a pair at the recipe's batch; cut from 5 to keep
-# the whole script inside its time)
-GAN_PAIRS = {"hift": 8, "bigvgan": 3, "vits": 10}
+# log-magnitude climbs ~10 a pair toward exp's fp32 range (~88.7), which it
+# passes from the 6th pair; past it the clip's gradient was NaN before
+# models/hift.py MAG_LOG_CAP.  BigVGAN runs 2 (6.3 s a pair at the recipe's
+# batch; cut from 5 to keep the whole script inside its time)
+GAN_PAIRS = {"hift": 8, "bigvgan": 2, "vits": 10}
 GAN_SEED = 1986
 GAN_SMALL_TOL = 1e-4
 # small widths of the three generators (the card-vs-CPU check, and the CLI
@@ -4086,15 +4119,16 @@ def deploy_phase(kernels: dict, smi: str) -> dict:
             tx, _ = optim.make_optimizer("adam", 1e-4, "constantlr", {})
             for stem, m in nets.items():
                 st = tstep.make_train_state(m, tx)
-                for s in (1, 2):
-                    st.step = s
-                    save_checkpoint(os.path.join(tmp, f"exp_{stem}"), st, s)
+                # one checkpoint a net (cut from two for the script's time:
+                # both held the same weights)
+                st.step = 1
+                save_checkpoint(os.path.join(tmp, f"exp_{stem}"), st, 1)
         timed_step("save_checkpoints_s", checkpoints)
         del nets
         torch.cuda.empty_cache()
         avg = {stem: os.path.join(tmp, f"{stem}.pt") for stem in ("llm", "flow", "hift")}
         timed_step("average_model_s", lambda: [average_model.main(
-            ["--src_dir", os.path.join(tmp, f"exp_{stem}"), "--dst_path", path, "--num", "2"])
+            ["--src_dir", os.path.join(tmp, f"exp_{stem}"), "--dst_path", path, "--num", "1"])
             for stem, path in avg.items()])
         ref = os.path.join(tmp, "spk1.wav")
         with wave.open(ref, "wb") as f:
@@ -4767,6 +4801,541 @@ def pho_train_phase(kernels: dict, smi: str) -> dict:
     return res
 
 
+# ---- multi_card: data and tensor parallelism, two ranks on the one card ----
+
+MC_WORLD = 2
+MC_SEED = 1800
+# the full-width requests' new-text lengths (decode caps 100-200, as the
+# batched phase's texts give) and the prompt: 75 speech tokens, 150 mel frames
+MC_NEW_TEXT = (5, 7, 9, 10)
+MC_PROMPT_TOKENS = 75
+MC_CAP = 60                  # the full-width decode cap (all four rows reach it)
+# teacher-forced logits of the sharded LM against the one-process LM on the
+# same weights (bf16 activations, int8 weights): max |diff| <= MC_LOGITS_REL_TOL
+# x max |one-process logits| over every row's valid positions.  Both round
+# every intermediate to bf16; under TP each rank's o_proj and down_proj
+# partial is rounded to bf16 before the ranks' partials are summed in fp32
+# (parallel/collectives.py), one more rounding a projection than the
+# one-card product, and 24 layers carry and grow those ulps as they do K6's
+# (K6_REL_TOL: 2.6e-2 of max |y| measured across 24 layers), so the bar is K6's.
+MC_LOGITS_REL_TOL = 6e-2
+# the small fp32 stack: tokens exact, wavs within (atol, rtol) of one process
+# (tests/test_parallel.py's bar for a mesh against one device)
+MC_SMALL_WAV_TOL = (2e-3, 1e-3)
+# the DP training step (fp32, TF32 off) against the one-process step: loss and
+# grad_norm relative
+MC_TRAIN_REL_TOL = 1e-4
+MC_TRAIN_MICRO_STEPS = 3
+# the train phase's global batch (TRAIN_ROWS x (TRAIN_TEXT + TRAIN_SPEECH))
+# split unevenly: data rank 1's rows keep MC_TRAIN_SHORT of their speech tokens
+MC_TRAIN_SHORT = 100
+MC_CLUSTER_S = 600           # the ranks' time limit; killed after it
+
+
+def mc_requests(rng, full: bool) -> list:
+    """Seeded zero-shot requests: the full-width stack's (text ids of the
+    Qwen2 vocabulary, 4 new-text lengths, a 3 s prompt) or the small stack's."""
+    from cosyvoice_tpu_torch.runtime.serving import TTSRequest
+
+    vocab, speech, spk = (151936, 6561, 192) if full else (300, 64, 24)
+    reqs = []
+    for n in MC_NEW_TEXT:
+        p = MC_PROMPT_TOKENS if full else 20
+        reqs.append(TTSRequest(
+            text_tokens=rng.integers(0, vocab, 4 + n), prompt_text_len=4,
+            prompt_speech_tokens=rng.integers(0, speech, p),
+            prompt_feat=(rng.standard_normal((2 * p, 80)) * 0.5).astype(np.float32),
+            embedding=rng.standard_normal(spk).astype(np.float32)))
+    return reqs
+
+
+def mc_teacher_forced(llm, reqs, tokens, rows: slice) -> torch.Tensor:
+    """Logits [rows, N, V] of `llm` over [sos, text, task, prompt speech ++
+    tokens] of each row (positions past a row's length zeroed)."""
+    B = len(reqs)
+    seqs = [np.concatenate([r.prompt_speech_tokens, t]) for r, t in zip(reqs, tokens)]
+    Tt = max(len(r.text_tokens) for r in reqs)
+    Ts = max(len(s) for s in seqs)
+    text, sp = np.zeros((B, Tt), np.int64), np.zeros((B, Ts), np.int64)
+    for i, (r, s) in enumerate(zip(reqs, seqs)):
+        text[i, :len(r.text_tokens)], sp[i, :len(s)] = r.text_tokens, s
+    t = lambda a: torch.as_tensor(a[rows], device="cuda")  # noqa: E731
+    tl = np.array([len(r.text_tokens) for r in reqs])
+    sl = np.array([len(s) for s in seqs])
+    emb, seq_len = llm.prefill_embeds(t(text), t(tl), t(sp), t(sl))
+    logits = llm.decode_logits(llm._causal_hidden(emb, seq_len)).float()
+    valid = torch.arange(logits.shape[1], device="cuda")[None, :] < seq_len[:, None]
+    return torch.where(valid[..., None], logits, 0.0), valid
+
+
+def mc_counts(kernels: dict) -> dict:
+    return {k: mod.launches for k, mod in kernels.items()}
+
+
+def mc_serve(model, reqs, mesh, kernels: dict, gen_seed: int) -> dict:
+    """One BatchedSynthesizer batch (on `mesh`, or one process with None),
+    timed, with the kernels' launches: -> wavs, tokens, wall, audio, RTF."""
+    from cosyvoice_tpu_torch.runtime.serving import BatchedSynthesizer
+
+    synth = BatchedSynthesizer(model, mesh=mesh)
+    seen = {}
+    gen_fn = synth.generate
+
+    def generate(requests, gen):
+        seen["tokens"] = gen_fn(requests, gen)
+        return seen["tokens"]
+
+    synth.generate = generate
+    for mod in kernels.values():
+        mod.launches = 0
+    torch.cuda.synchronize()
+    if mesh is not None:
+        torch.distributed.barrier()
+    t0 = time.perf_counter()
+    wavs = synth.synthesize_batch(reqs, gen=torch.Generator().manual_seed(gen_seed))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    audio = sum(len(w) for w in wavs) / 24000.0
+    return {"wavs": wavs, "tokens": seen["tokens"][:len(reqs)], "wall_s": wall,
+            "audio_s": audio, "rtf": wall / max(audio, 1e-9),
+            "launches": mc_counts(kernels)}
+
+
+def mc_full(rank: int, kernels: dict) -> dict:
+    """(a) the full-width stack (int8 LM over the packed cache in bf16, bf16
+    flow with K4 blocks, bf16 HiFT) on 4 requests: one process, then DP(2)
+    and TP(2) over the two ranks: RTF, greedy token agreement, launches and
+    the teacher-forced logits against one process."""
+    from cosyvoice_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+    from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model
+
+    llm, flow, hift = full_width_stack()
+    model = CosyVoice2Model(llm=llm, flow=flow, hift=hift, max_decode_tokens=MC_CAP,
+                            device="cuda")
+    set_fused_block(flow, True)
+    reqs = mc_requests(np.random.default_rng(MC_SEED), full=True)
+    mc_serve(model, reqs, None, kernels, 0)                  # warm-up
+    one = mc_serve(model, reqs, None, kernels, 0)
+    ref, ref_valid = mc_teacher_forced(llm, reqs, one["tokens"], slice(0, len(reqs)))
+    out = {"one_process": {k: v for k, v in one.items() if k not in ("wavs", "tokens")},
+           "speech_tokens": [len(t) for t in one["tokens"]]}
+    for name, shape in (("dp", (2, 1)), ("tp", (1, 2))):
+        mesh = make_mesh(*shape)
+        run = mc_serve(model, reqs, mesh, kernels, 0)
+        rows = batch_sharding(mesh, len(reqs))
+        got, _ = mc_teacher_forced(llm, reqs, one["tokens"], rows)
+        want, valid = ref[rows], ref_valid[rows]
+        agree = float((got.argmax(-1) == want.argmax(-1))[valid].float().mean())
+        equal = [bool(np.array_equal(a, b)) for a, b in zip(run["tokens"], one["tokens"])]
+        out[name] = {
+            "wall_s": run["wall_s"], "audio_s": run["audio_s"], "rtf": run["rtf"],
+            "launches": run["launches"], "local_heads": [llm.cfg.qwen.num_heads,
+                                                         llm.cfg.qwen.num_kv_heads],
+            "logits_max_abs_diff": float((got - want).abs().max()),
+            "logits_max_abs": float(want.abs().max()),
+            "logits_rel": float((got - want).abs().max() / want.abs().max()),
+            "tf_argmax_agreement": agree, "tokens_equal_rows": equal,
+            "speech_tokens": [len(t) for t in run["tokens"]],
+            "wav_ok": all(np.isfinite(w).all() and w.shape == (len(t) * 2 * 480,)
+                          for w, t in zip(run["wavs"], run["tokens"]))}
+    del model, llm, flow, hift
+    torch.cuda.empty_cache()
+    return out
+
+
+def mc_small(kernels: dict) -> dict:
+    """(b) the small fp32 stack on 4 requests: one process, DP(2) and TP(2):
+    greedy tokens equal, wavs within MC_SMALL_WAV_TOL."""
+    from cosyvoice_tpu_torch.parallel.mesh import make_mesh
+
+    model = small_stack("cuda", max_decode_tokens=60)
+    reqs = mc_requests(np.random.default_rng(MC_SEED + 1), full=False)
+    one = mc_serve(model, reqs, None, kernels, 1)
+    out = {}
+    atol, rtol = MC_SMALL_WAV_TOL
+    for name, shape in (("dp", (2, 1)), ("tp", (1, 2))):
+        run = mc_serve(model, reqs, make_mesh(*shape), kernels, 1)
+        errs = [float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+                for a, b in zip(run["wavs"], one["wavs"])]
+        out[name] = {"tokens_equal": all(np.array_equal(a, b) for a, b in
+                                         zip(run["tokens"], one["tokens"])),
+                     "wav_max_abs_err": errs,
+                     "wav_ok": all(np.allclose(a, b, atol=atol, rtol=rtol)
+                                   for a, b in zip(run["wavs"], one["wavs"])
+                                   if a.shape == b.shape) and max(errs) < float("inf"),
+                     "launches": run["launches"]}
+    out["speech_tokens"] = [len(t) for t in one["tokens"]]
+    return out
+
+
+def mc_train(rank: int) -> dict:
+    """(c) cosyvoice2.yaml's LM at full width in fp32 (TF32 off), its
+    train_conf, MC_TRAIN_MICRO_STEPS micro-steps on the train phase's global
+    batch split unevenly over DP(2), against the one-process step on the
+    whole batch (rank 0 runs it while rank 1 waits): loss and grad_norm a
+    micro-step, seconds a micro-step and peak memory a rank."""
+    from cosyvoice_tpu_torch.config import RECIPES, load_config, recipe_config
+    from cosyvoice_tpu_torch.models.llm import Qwen2LM
+    from cosyvoice_tpu_torch.parallel.mesh import make_mesh
+    from cosyvoice_tpu_torch.train import optim
+    from cosyvoice_tpu_torch.train import step as tstep
+
+    train_conf = load_config(RECIPES / TRAIN_RECIPE)["train_conf"]
+    cfg = recipe_config(TRAIN_RECIPE, "llm")
+    with torch.device("cuda"):
+        llm = Qwen2LM(cfg)
+    rand_init_(llm, 1500)
+    init = {k: v.clone() for k, v in llm.state_dict().items()}
+    batch = train_lm_batch(cfg.qwen.vocab_size, cfg.speech_token_size,
+                           np.random.default_rng(MC_SEED + 2), TRAIN_ROWS, TRAIN_TEXT,
+                           TRAIN_SPEECH)
+    batch["speech_token_len"][TRAIN_ROWS // 2:] = MC_TRAIN_SHORT
+
+    def run(mesh, b):
+        llm.load_state_dict(init)
+        tx, _ = optim.make_optimizer(
+            train_conf["optim"], train_conf["lr"], train_conf["scheduler"],
+            train_conf["scheduler_conf"], grad_clip=train_conf["grad_clip"],
+            accum_grad=train_conf["accum_grad"])
+        st = tstep.make_train_state(llm, tx)
+        fn = tstep.make_train_step(tstep.llm_loss_fn, tx, mesh)
+        secs, losses, norms = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(MC_TRAIN_MICRO_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = fn(st, tstep.to_device(b, "cuda"), tstep.step_generator(TRAIN_SEED, i,
+                                                                            "cuda"))
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+            secs.append(time.perf_counter() - t0)
+        del st
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.empty_cache()
+        return {"loss": losses, "grad_norm": norms, "micro_step_s": secs, "peak_gib": peak}
+
+    out = {}
+    with torch.enable_grad():
+        if rank == 0:
+            out["one_process"] = run(None, batch)
+        torch.distributed.barrier()
+        mesh = make_mesh(2, 1)
+        out["dp"] = run(mesh, tstep.shard_batch(batch, mesh))
+    out["targets_by_rank"] = [int(TRAIN_ROWS // 2 * (TRAIN_SPEECH + 1)),
+                              int(TRAIN_ROWS // 2 * (MC_TRAIN_SHORT + 1))]
+    del llm, init
+    torch.cuda.empty_cache()
+    return out
+
+
+def multi_card_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of the multi_card phase: joins the group (the backend
+    init picks: gloo over CUDA tensors on a shared card), then (b), (a) and
+    (c); writes its results as JSON."""
+    import os
+
+    from cosyvoice_tpu_torch.ops.kernels import build
+    from cosyvoice_tpu_torch.ops.kernels import dit_attention as K2
+    from cosyvoice_tpu_torch.ops.kernels import dit_block as K4
+    from cosyvoice_tpu_torch.ops.kernels import fused_norm as K3
+    from cosyvoice_tpu_torch.ops.kernels import lm_decode_attention as K1
+    from cosyvoice_tpu_torch.parallel import distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    build.library()
+    kernels = {"lm_decode_attention": K1, "dit_attention": K2, "fused_layer_norm": K3,
+               "dit_block": K4}
+    backend = dist.init(f"file://{store}", world, rank, device_type="cuda")
+    torch.cuda.set_device(dist.local_device())
+    try:
+        t0 = time.perf_counter()
+        small = mc_small(kernels)
+        t1 = time.perf_counter()
+        full = mc_full(rank, kernels)
+        t2 = time.perf_counter()
+        train = mc_train(rank)
+        t3 = time.perf_counter()
+        res = {"rank": rank, "backend": backend, "device": str(torch.cuda.current_device()),
+               "small": small, "full": full, "train": train,
+               "seconds": {"small": t1 - t0, "full": t2 - t1, "train": t3 - t2}}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def nccl_shared_card_probe(timeout_s: float = 60.0) -> dict:
+    """Two NCCL ranks on the one card: init and one all-reduce, killed after
+    timeout_s.  NCCL is expected to refuse two ranks on one device."""
+    code = ("import os, sys, torch, torch.distributed as d\n"
+            "r = int(sys.argv[1])\n"
+            "torch.cuda.set_device(0)\n"
+            "d.init_process_group('nccl', init_method='tcp://localhost:' + sys.argv[2],"
+            " world_size=2, rank=r)\n"
+            "t = torch.ones(4, device='cuda')\n"
+            "d.all_reduce(t)\n"
+            "torch.cuda.synchronize()\n"
+            "print('SUM', float(t[0]))\n")
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), port],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            o, e = p.communicate(timeout=timeout_s)
+            outs.append((p.returncode, o[-300:], e[-600:]))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            outs.append(("timeout", "", ""))
+    worked = all(rc == 0 and "SUM 2.0" in o for rc, o, _ in outs)
+    return {"nccl_two_ranks_one_card": "worked" if worked else "refused",
+            "returncodes": [o[0] for o in outs],
+            "stderr_tail": [o[2][-300:] for o in outs]}
+
+
+def mc_cli_drive() -> dict:
+    """(d) `python -m torch.distributed.run --nproc_per_node 2 -m
+    cosyvoice_tpu_torch.bin.train --mesh_model 2` on the card over a seeded
+    jsonl corpus at the small LM widths (TRAIN_SMALL, heads 4 / 2: one query
+    pair and one KV head a rank): one epoch of 2 steps, then one process
+    resumes from its checkpoint in this process (steps 3, 4)."""
+    import os
+    import shutil
+    import tempfile
+
+    from cosyvoice_tpu_torch.bin import train as train_cli
+    from cosyvoice_tpu_torch.train.checkpoint import latest_step
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mc_cli_", dir=root)
+    try:
+        rng = np.random.default_rng(8)
+        corpus = os.path.join(tmp, "data.jsonl")
+        with open(corpus, "w") as f:
+            for i in range(4):
+                f.write(json.dumps({
+                    "utt": f"u{i}", "text": "hello world", "sample_rate": 24000,
+                    "speech": (rng.standard_normal(15600) * 0.1).round(5).tolist(),
+                    "speech_token": rng.integers(0, 100, 30).tolist(),
+                    "embedding": rng.standard_normal(512).round(5).tolist()}) + "\n")
+        lst = os.path.join(tmp, "train.list")
+        with open(lst, "w") as f:
+            f.write(corpus + "\n")
+        conf = {"llm": dict(TRAIN_SMALL["qwen2lm"], kind="qwen2lm"),
+                "data": {"filter": {"max_length": 99999, "token_max_length": 300},
+                         "fbank": {"n_fft": 192, "hop": 48, "n_mels": 20},
+                         "batch_type": "static", "batch_size": 2, "shuffle_buf": 4,
+                         "sort_buf": 2},
+                "train_conf": {"lr": 0.0001, "log_interval": 1,
+                               "scheduler_conf": {"warmup_steps": 10}}}
+        cfg = os.path.join(tmp, "conf.yaml")
+        with open(cfg, "w") as f:      # one flow mapping a section (the recipes' YAML subset)
+            f.writelines(f"{k}: {json.dumps(v)}\n" for k, v in conf.items())
+        model_dir = os.path.join(tmp, "exp")
+        args = ["-m", "cosyvoice_tpu_torch.bin.train", "--config", cfg, "--model", "llm",
+                "--train_data", lst, "--model_dir", model_dir, "--epochs", "1"]
+        t0 = time.perf_counter()
+        cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", str(MC_WORLD)] + args + ["--mesh_model", "2"])
+        out = subprocess.run(cmd, cwd=here, capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"bin.train failed: {cmd}\n{out.stderr[-3000:]}")
+        runs = [{"s": time.perf_counter() - t0, "latest_step": latest_step(model_dir),
+                 "backend": [ln for ln in out.stderr.splitlines()
+                             if "torch.distributed: rank" in ln][:2]}]
+        # the one-process resume, in this process (its main() on the card)
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            train_cli.main(args[2:])
+        runs.append({"s": time.perf_counter() - t0, "latest_step": latest_step(model_dir)})
+        recs = [json.loads(line) for line in open(os.path.join(model_dir, "metrics.jsonl"))]
+        return {"runs": runs, "steps": [r["step"] for r in recs],
+                "loss": [r["loss"] for r in recs],
+                "finite": all(np.isfinite(v) for r in recs for k, v in r.items() if k != "tag")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mc_flow_device() -> dict:
+    """(e) the small fp32 stack's ContinuousSynthesizer with the LM on the
+    card and flow_device="cpu" (copies of the flow and HiFT on the CPU,
+    chunks on the worker thread), 4 greedy requests through 2 slots, against
+    the all-card run: the audio within CONT_WAV_TOL (the card-vs-CPU bar).
+    The same model then serves all on the card again: its own flow and HiFT
+    stayed there."""
+    from cosyvoice_tpu_torch.runtime.serving import ContinuousSynthesizer
+
+    reqs = mc_requests(np.random.default_rng(MC_SEED + 3), full=False)
+    kw = dict(num_slots=2, cache_len=256, text_bucket=16, speech_bucket=16)
+    model = small_stack("cuda", max_decode_tokens=60)
+    out = {}
+    for name, fd in (("card", None), ("split", "cpu"), ("card_after", None)):
+        synth = ContinuousSynthesizer(model, flow_device=fd, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = synth.synthesize_batch(reqs, gen=torch.Generator().manual_seed(4))
+        torch.cuda.synchronize()
+        out[name + "_s"] = time.perf_counter() - t0
+
+    def errs(run):
+        return [float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+                for a, b in zip(out[run], out["card"])]
+
+    split, after = errs("split"), errs("card_after")
+    on_card = all(p.is_cuda for m in (model.flow, model.hift) for p in m.parameters())
+    return {"wav_max_abs_err": split, "card_after_max_abs_err": after, "tol": CONT_WAV_TOL,
+            "card_s": out["card_s"], "split_s": out["split_s"],
+            "samples": [len(w) for w in out["card"]], "model_flow_on_card": on_card,
+            "ok": (max(split) <= CONT_WAV_TOL and max(after) <= CONT_WAV_TOL and on_card
+                   and all(np.isfinite(w).all() for w in out["split"]))}
+
+
+def mc_k1_local(K1) -> list:
+    """K1 at the TP-local shape of Qwen2-0.5B at model 2 (one KV head, 7
+    query heads: G = 7, KH * D = 64), bf16: B = 1 at the main path's cache
+    (384 rows, frontier 364) and B = 8 with per-row frontiers; each held
+    to its plain version (cache equal), then timed beside its plain version
+    and SDPA over the live rows; one kernels-line row each."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(18)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev).to(bf)  # noqa: E731
+    rows = []
+    for B, pos in ((1, (364,)), (len(K1_BATCH_POS), K1_BATCH_POS)):
+        T = 384
+        q, kn, vn, ck, cv = r(B, 7, 64), r(B, 1, 64), r(B, 1, 64), r(B, T, 64), r(B, T, 64)
+        bias = torch.zeros(B, T, device=dev)
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        err = check_k1(K1, bf, q, kn, vn, ck, cv, bias, p, name=f"lm_decode_attention_tp_B{B}",
+                       phase="multi_card")
+        q_sd = q.reshape(B, 7, 1, 64)
+        k_sd, v_sd = (torch.cat([c, new], dim=1).reshape(B, T + 1, 1, 64).transpose(1, 2)
+                      .contiguous() for c, new in ((ck, kn), (cv, vn)))
+        j = torch.arange(T + 1, device=dev)[None, :]
+        keymask = ((j < p[:, None]) | (j == T))[:, None, None, :]
+        live = sum(pos)
+        k1 = lambda: K1.lm_decode_attention(q, kn, vn, ck, cv, bias, p, 64, 0.125)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q_sd, k_sd, v_sd, attn_mask=keymask, scale=0.125, enable_gqa=True)
+        rows.append(dict(
+            name="lm_decode_attention",
+            source="cosyvoice_tpu_torch/csrc/lm_decode_attention.cu",
+            replaces="cosyvoice_tpu/ops/pallas/lm_decode_attention.py:123",
+            shape=[B, T, list(pos)], local_heads="KH 1, G 7 (Qwen2-0.5B, model 2)",
+            launches_from="multi_card (full-width TP, local heads)",
+            ms=time_ms(k1), **dev_time(k1),
+            plain_ms=time_ms(lambda: K1.lm_decode_attention_plain(q, kn, vn, ck, cv, bias, p,
+                                                                  64, 0.125)),
+            library_ms=time_ms(sdpa), **dev_time(sdpa, "library_dev"),
+            # the live k/v rows read once, q and the new k/v read, o written, bf16
+            bytes=2 * live * 64 * 2 + live * 4 + B * (2 * 7 + 4) * 64 * 2,
+            flops=sum(4 * 7 * 64 * (pb + 1) for pb in pos), max_abs_err=err))
+    return rows
+
+
+def multi_card_phase(kernels: dict, smi: str) -> dict:
+    """More than one card's code paths on the one card: (k) K1 at the
+    TP-local shape (mc_k1_local); two ranks spawned on the card
+    (multi_card_rank), the backend as init picks it; (b) mc_small; (a)
+    mc_full; (c) mc_train; (d) mc_cli_drive; (e) mc_flow_device; and
+    whether NCCL takes two ranks on one card (nccl_shared_card_probe,
+    printed only).  Gates: K1 equal to its plain version; every rank's
+    backend gloo; (b) tokens exact and wavs within MC_SMALL_WAV_TOL; (a)
+    every wav finite and of its tokens' length, the teacher-forced logits
+    within MC_LOGITS_REL_TOL; K1-K4 launched under TP and under DP (K2
+    in (b): (a)'s DiT blocks take K4, which runs K2's kernel inside); (c)
+    loss and grad_norm within MC_TRAIN_REL_TOL; (d) steps 1..4 finite, the
+    CLI's checkpoint at 2 then 4; (e) within CONT_WAV_TOL.  NCCL between
+    cards and the flow's overlap on a second card need a second card and
+    are not measured here."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    K1 = kernels["lm_decode_attention"]
+    k1_rows = mc_k1_local(K1)
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="multi_card_", dir=os.path.join(here, "build"))
+    try:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(multi_card_rank,
+                                 args=(MC_WORLD, os.path.join(tmp, "store"), tmp),
+                                 nprocs=MC_WORLD, join=False, start_method="spawn")
+        deadline = time.monotonic() + MC_CLUSTER_S
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"multi_card ranks did not finish in {MC_CLUSTER_S} s")
+        ranks_s = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(MC_WORLD)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    cli = mc_cli_drive()
+    cli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    split = mc_flow_device()
+    split_s = time.perf_counter() - t0
+    nccl = nccl_shared_card_probe()
+    # launches of the ranks' sharded runs, summed over the ranks
+    launches = {run: {k: sum(r[part][run]["launches"][k] for r in ranks for part in
+                             ("small", "full")) for k in kernels if k in ranks[0]["full"][run]
+                      ["launches"]} for run in ("dp", "tp")}
+    one = ranks[0]["train"]["one_process"]
+    train_rel = max(max(rel_errs(r["train"]["dp"]["loss"], one["loss"]),
+                        rel_errs(r["train"]["dp"]["grad_norm"], one["grad_norm"]))
+                    for r in ranks)
+    res = {"phase": "multi_card", "card": smi, "world": MC_WORLD,
+           "backend": [r["backend"] for r in ranks], "k1_tp_local": [
+               {k: row[k] for k in ("shape", "max_abs_err", "ms", "dev_ms", "plain_ms",
+                                    "library_ms", "library_dev_ms")} for row in k1_rows],
+           "ranks": [{k: r[k] for k in ("rank", "small", "full", "seconds")} for r in ranks],
+           "train": {"one_process": one, "dp_by_rank": [r["train"]["dp"] for r in ranks],
+                     "targets_by_rank": ranks[0]["train"]["targets_by_rank"],
+                     "max_rel_err": train_rel, "tol": MC_TRAIN_REL_TOL},
+           "logits_tol": MC_LOGITS_REL_TOL, "cli": cli, "cli_s": cli_s,
+           "flow_device": split, "flow_device_s": split_s, "nccl_probe": nccl,
+           "launches": launches, "ranks_s": ranks_s,
+           # K1 at the TP-local heads: the full-width TP run's launches alone
+           # (the small stack's TP run has other heads, in fp32)
+           "k1_tp_full_launches": sum(r["full"]["tp"]["launches"]["lm_decode_attention"]
+                                      for r in ranks),
+           "not_measured": "NCCL between cards and the flow's overlap on a second card "
+                           "(one card on this machine)",
+           "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    full = [r["full"] for r in ranks]
+    small = [r["small"] for r in ranks]
+    gates = [all(b == "gloo" for b in res["backend"]),
+             all(s[m]["tokens_equal"] and s[m]["wav_ok"] for s in small for m in ("dp", "tp")),
+             all(f[m]["wav_ok"] and f[m]["logits_rel"] <= MC_LOGITS_REL_TOL
+                 for f in full for m in ("dp", "tp")),
+             all(n > 0 for run in ("dp", "tp") for n in launches[run].values()),
+             full[0]["tp"]["local_heads"] == [7, 1],
+             train_rel <= MC_TRAIN_REL_TOL,
+             cli["finite"] and cli["steps"] == [1, 2, 3, 4]
+             and [r["latest_step"] for r in cli["runs"]] == [2, 4],
+             split["ok"]]
+    if not all(gates):
+        raise AssertionError(f"multi_card phase failed: {gates} {res}")
+    res["k1_rows"] = k1_rows
+    return res
+
+
 def profile_request(run) -> None:
     """One more request under torch.profiler: device kernel time by name and
     the device's busy share of the wall time."""
@@ -5247,8 +5816,14 @@ def main() -> int:
     pho_train = clocked("pho_train", pho_train_phase, kernels, smi)
     flow = res["stack"][1]
     del res["stack"]
+    multi = clocked("multi_card", multi_card_phase, kernels, smi)
     rows = clocked("timing", timing, K1, K2, K3, K4, K5, K6, K7, res["last_decode"], flow,
                    batched["block_shape"])
+    for row in multi["k1_rows"]:        # K1 at the tensor-parallel local heads
+        t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = row["flops"] / BF16_FLOPS * 1e3
+        rows.append(dict(row, route="cuda", peak_flops=BF16_FLOPS, bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations"))
     tolerance = {"lm_step": K6_REL_TOL[torch.bfloat16],
                  "dit_block": {"bf16_ulps_at_max_plain": K4_BF16_ULPS},
                  "dit_attention": {"bf16_ulps_at_max_plain_per_row_head": K2_BF16_ULPS},
@@ -5258,6 +5833,8 @@ def main() -> int:
             # the bigvgan forward's launches at this row's stage shape
             row["launches"] = vocoder["k7_launches_by_stage"].get(
                 "x".join(map(str, row["shape"][1:])), 0)
+        elif row.get("launches_from", "").startswith("multi_card"):
+            row["launches"] = multi["k1_tp_full_launches"]
         else:
             row["launches"] = k1_engine if "launches_from" in row else launches[row["name"]]
         row["launches_continuous"] = {
@@ -5282,6 +5859,9 @@ def main() -> int:
         row["launches_gan"] = gan["launches"][row["name"]]
         row["launches_deploy"] = deploy["launches"][row["name"]]
         row["launches_pho_train"] = pho_train["launches"][row["name"]]
+        # the multi_card phase's ranks (summed) under DP(2) and under TP(2)
+        row["launches_multi_card"] = {run: multi["launches"][run].get(row["name"], 0)
+                                      for run in ("dp", "tp")}
         row.update(edge_max_abs_err=errs[row["name"]],
                    tolerance=tolerance.get(row["name"], CHECK_TOL[torch.bfloat16]),
                    kernel_ms=row["ms"])

@@ -43,8 +43,23 @@ kinds whose arguments its phoneme branch does not fit
 (qwen2lm_phoneme_multicode, transformer_lm_phoneme,
 transformer_lm_phoneme_with_spk), --lora with a phoneme kind or a vocoder
 (the JAX CLI trains every parameter), and --data_format parquet with a
-phoneme kind (the JAX CLI reads the shards as jsonl).  More than one card
-raises NotImplementedError naming its ROADMAP item.
+phoneme kind (the JAX CLI reads the shards as jsonl).
+
+More than one process (parallel/): one process a rank, started by torchrun
+or with the --coordinator_address / --num_processes / --process_id triple;
+--mesh_data x --mesh_model lays the ranks out (data -1: world / model).
+The LM kind qwen2lm shards by the tensor-parallel rules (LM_RULES); the
+other kinds replicate.  Each data rank reads its share of the shards
+(static batches drop their last partial batch by default, as the JAX CLI),
+all ranks stop together when one runs out, rank 0 logs and checkpoints, on
+cuda:{LOCAL_RANK % device_count} unless --device cpu:
+
+  python -m torch.distributed.run --nproc_per_node 2 -m cosyvoice_tpu_torch.bin.train \\
+      --config conf.yaml --model llm --train_data data/train.list --model_dir exp/llm \\
+      --mesh_model 2
+
+GAN training, the phoneme kinds and --lora under a mesh raise (ROADMAP
+Queue 1 item 11b).
 """
 from __future__ import annotations
 
@@ -60,6 +75,8 @@ import torch
 from cosyvoice_tpu_torch.config import build_model, load_config
 from cosyvoice_tpu_torch.data import pipeline as pp
 from cosyvoice_tpu_torch.device import resolve_device
+from cosyvoice_tpu_torch.parallel import distributed as dist
+from cosyvoice_tpu_torch.parallel.mesh import ITEM_11B, LM_RULES, make_mesh, shard_params
 from cosyvoice_tpu_torch.tokenizer.text import ByteTokenizer, QwenTokenizer
 from cosyvoice_tpu_torch.train.checkpoint import latest_step, restore_checkpoint
 from cosyvoice_tpu_torch.train.executor import Executor, GanExecutor
@@ -68,7 +85,7 @@ from cosyvoice_tpu_torch.train.step import (flow_loss_fn, llm_loss_fn, make_trai
                                             make_train_step, phoneme_llm_loss_fn, to_device,
                                             transformer_lm_loss_fn)
 
-MULTI_CARD = "more than one card (ROADMAP Queue 1 item 11)"
+TP_KINDS = ("qwen2lm",)     # the kinds LM_RULES shard; the others replicate
 LOSSES = {"qwen2lm": llm_loss_fn, "transformer_lm": transformer_lm_loss_fn,
           "flow": flow_loss_fn, "flow_stream": flow_loss_fn, "flow_v1": flow_loss_fn}
 PHONEME_KINDS = ("qwen2lm_phoneme", "qwen2lm_phoneme_src", "qwen2lm_phoneme_src2")
@@ -106,15 +123,16 @@ def get_args(argv: Optional[list] = None):
     return p.parse_args(argv)
 
 
-def _shards(list_file: str, epoch: int) -> list:
-    """One process: every shard of list_file, shuffled by epoch."""
+def _shards(list_file: str, epoch: int, rank: int = 0, world_size: int = 1) -> list:
+    """Rank `rank` of `world_size`'s shards of list_file, shuffled by epoch."""
     shards = [line.strip() for line in open(list_file) if line.strip()]
-    return pp.shard_list(shards, 0, 1, epoch=epoch)
+    return pp.shard_list(shards, rank, world_size, epoch=epoch)
 
 
-def _batcher(conf: dict, default_type: str):
+def _batcher(conf: dict, default_type: str, world_size: int = 1):
     if conf.get("batch_type", default_type) == "static":
-        return pp.static_batch(conf.get("batch_size", 8), drop_last=conf.get("drop_last", False))
+        return pp.static_batch(conf.get("batch_size", 8),
+                               drop_last=conf.get("drop_last", world_size > 1))
     return pp.dynamic_batch(conf.get("max_frames_in_batch", 2000))
 
 
@@ -128,20 +146,22 @@ def _opener(data_format: str):
 
 
 def make_dataset(list_file: str, conf: dict, tokenizer, epoch: int, gan: bool = False,
-                 with_f0: bool = False, data_format: str = "jsonl") -> pp.Pipeline:
-    """The data section's pipeline over the shards of list_file; `with_f0`
-    adds the pitch targets, `gan` the waveform rows."""
+                 with_f0: bool = False, data_format: str = "jsonl", rank: int = 0,
+                 world_size: int = 1) -> pp.Pipeline:
+    """The data section's pipeline over rank `rank` of `world_size`'s
+    shards of list_file; `with_f0` adds the pitch targets, `gan` the
+    waveform rows."""
     opener, pre = _opener(data_format)
     stages = pre + [pp.filter_samples(**conf.get("filter", {})),
                     pp.resample(conf.get("sample_rate", 24000)),
                     pp.compute_fbank(**conf.get("fbank", {}))]
     if with_f0:
         stages.append(pp.compute_f0(sr=conf.get("sample_rate", 24000)))
-    return pp.Pipeline(_shards(list_file, epoch), opener, *stages, *[
+    return pp.Pipeline(_shards(list_file, epoch, rank, world_size), opener, *stages, *[
         pp.tokenize(tokenizer),
         pp.shuffle(conf.get("shuffle_buf", 10000)),
         pp.sort_by_feat_len(conf.get("sort_buf", 500)),
-        _batcher(conf, "dynamic"),
+        _batcher(conf, "dynamic", world_size),
         pp.padding(gan=gan, static_lens=conf.get("static_lens")),
     ])
 
@@ -191,11 +211,18 @@ def _refuse(args, conf: dict, kind: str) -> None:
     if args.data_format == "parquet" and kind in PHONEME_KINDS:
         raise NotImplementedError(f"--data_format parquet with {kind!r}: {JAX_PHONEME_BRANCH}, "
                                   "which reads parquet shards as jsonl")
-    if (max(args.mesh_data, args.mesh_model, args.mesh_dcn_data) > 1
-            or (args.world_size or 1) > 1 or (args.rank or 0) > 0
-            or args.coordinator_address or (args.num_processes or 1) > 1
-            or args.process_id):
-        raise NotImplementedError(f"a mesh or several processes: {MULTI_CARD}")
+    if _multi_process(args) and (args.model in GAN_MODELS or kind in PHONEME_KINDS
+                                 or _use_lora(args, conf)):
+        what = ("GAN training" if args.model in GAN_MODELS else
+                f"the phoneme kind {kind!r}" if kind in PHONEME_KINDS else "--lora")
+        raise NotImplementedError(f"{what} under a mesh or several processes: {ITEM_11B}")
+
+
+def _multi_process(args) -> bool:
+    """A mesh or more than one process asked for, by flags or by torchrun."""
+    return (max(args.mesh_data, args.mesh_model, args.mesh_dcn_data) > 1
+            or (args.world_size or 1) > 1 or (args.num_processes or 1) > 1
+            or int(os.environ.get("WORLD_SIZE", "1")) > 1)
 
 
 def _optimizer(train_conf: dict):
@@ -215,12 +242,24 @@ def main(argv: Optional[list] = None) -> None:
     kind = model_conf.pop("kind")
     _refuse(args, conf, kind)
     device = resolve_device(args.device)
+    dist.init(args.coordinator_address, args.num_processes, args.process_id,
+              device_type=device.type)
+    world = dist.rank_and_world()[1]
+    mesh = make_mesh(args.mesh_data, args.mesh_model, args.mesh_dcn_data)
+    if world > 1:
+        device = dist.local_device(args.device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        # each data rank reads its share; the ranks of a model group read alike
+        args.rank, args.world_size = mesh.data_rank, mesh.data
+    args.rank, args.world_size = args.rank or 0, args.world_size or 1
     train_conf = conf.get("train_conf", {})
     data_conf = conf.get("data", {})
     seed = train_conf.get("seed", 1986)
     torch.manual_seed(seed)
     model, _ = build_model(kind, model_conf, device)
     model.to(device)
+    specs = shard_params(model, mesh, LM_RULES)[1] if world > 1 and kind in TP_KINDS else None
     tokenizer = QwenTokenizer(args.tokenizer_path) if args.tokenizer_path else ByteTokenizer()
 
     if args.model in GAN_MODELS:
@@ -247,8 +286,8 @@ def main(argv: Optional[list] = None) -> None:
         train_model = LoRAOverlay(overlay).to(device)
         logging.info("LoRA finetune: %d adapters (r=%d alpha=%s)", len(overlay), lcfg.r,
                      lcfg.alpha)
-    state = make_train_state(train_model, tx)
-    step = make_train_step(loss_fn, tx)
+    state = make_train_state(train_model, tx, mesh, specs)
+    step = make_train_step(loss_fn, tx, mesh if world > 1 else None)
     if latest_step(args.model_dir) is not None:
         state, at = restore_checkpoint(args.model_dir, state)
         logging.info("resumed from step %d", at)
@@ -260,14 +299,15 @@ def main(argv: Optional[list] = None) -> None:
     ex = Executor(train_step=step, model_dir=args.model_dir, device=device,
                   save_per_step=train_conf.get("save_per_step", -1),
                   log_interval=train_conf.get("log_interval", 100), rng_seed=seed,
-                  cv_step=cv_step)
+                  cv_step=cv_step, mesh=mesh if world > 1 else None)
     ex.step = state.step
     move = lambda b: to_device(b, device)  # noqa: E731
+    shard = dict(rank=args.rank, world_size=args.world_size)
     for epoch in range(args.epochs):
         ds = make_dataset(args.train_data, data_conf, tokenizer, epoch,
-                          data_format=args.data_format)
+                          data_format=args.data_format, **shard)
         cv = (list(make_dataset(args.cv_data, data_conf, tokenizer, 0,
-                                data_format=args.data_format))
+                                data_format=args.data_format, **shard))
               if args.cv_data else None)
         state = ex.train_one_epoch(state, ds, cv_data=cv, to_device=move)
         if use_lora:

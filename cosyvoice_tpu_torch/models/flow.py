@@ -59,6 +59,7 @@ route through K2/K3/K4 raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from functools import lru_cache
@@ -476,6 +477,19 @@ class FlowDraws:
                                                                    device=dev)
         return FlowDraws(use_cond, frac, t, z, keep)
 
+    @staticmethod
+    def draw_rows(gen: torch.Generator, B: int, T: int, C: int, cfg_rate: float,
+                  rows: Optional[tuple] = None) -> "FlowDraws":
+        """draw() for B rows, or with rows = (start, total) rows [start,
+        start + B) of the draws of a total-row batch: a data-parallel rank's
+        share of the whole batch's draws (train/step.shard_batch)."""
+        if rows is None:
+            return FlowDraws.draw(gen, B, T, C, cfg_rate)
+        start, total = rows
+        d = FlowDraws.draw(gen, total, T, C, cfg_rate)
+        return FlowDraws(*(getattr(d, f.name)[start:start + B]
+                           for f in dataclasses.fields(FlowDraws)))
+
 
 def prompt_prefix_cond(feat, feat_len, draws: FlowDraws) -> torch.Tensor:
     """The flows' training conditioning: in the use_cond rows the first
@@ -595,10 +609,11 @@ class CausalMaskedDiffWithXvec(nn.Module):
 
     def forward(self, token, token_len, feat, feat_len, embedding,
                 gen: Optional[torch.Generator] = None, draws: Optional[FlowDraws] = None,
-                streaming: bool = False) -> dict:
+                streaming: bool = False, rows: Optional[tuple] = None) -> dict:
         """Training loss: token [B, Tt], feat [B, Tf, 80] the target mel
         (Tf >= ratio * Tt; cut to the encoder's rows), embedding [B, spk] ->
-        {"loss"}.  Draws from `gen`, or the given `draws`."""
+        {"loss", "denom"} (denom: the count the loss is divided by).  Draws
+        from `gen` (rows: FlowDraws.draw_rows), or the given `draws`."""
         spks = embedding / embedding.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         spks = self.spk_embed_affine_layer(spks)
         h, _ = self._encode(token, token_len, streaming)
@@ -606,11 +621,11 @@ class CausalMaskedDiffWithXvec(nn.Module):
         feat = feat[:, :T2]
         feat_len = feat_len.clamp_max(T2)
         if draws is None:
-            draws = FlowDraws.draw(gen, B, T2, C, self.cfg.cfm.training_cfg_rate)
+            draws = FlowDraws.draw_rows(gen, B, T2, C, self.cfg.cfm.training_cfg_rate, rows)
         conds = prompt_prefix_cond(feat, feat_len, draws)
         mask = make_non_pad_mask(feat_len, T2).to(h.dtype)
         loss, _ = self.decoder.compute_loss(feat, mask, h, spks, conds, draws, streaming)
-        return {"loss": loss}
+        return {"loss": loss, "denom": mask.sum().float() * C}
 
     @torch.no_grad()
     def inference(self, token, token_len, prompt_feat, embedding, n_timesteps: int = 10,
@@ -759,10 +774,11 @@ class MaskedDiffWithXvec(nn.Module):
 
     def forward(self, token, token_len, feat, feat_len, embedding,
                 gen: Optional[torch.Generator] = None,
-                draws: Optional[FlowDraws] = None) -> dict:
+                draws: Optional[FlowDraws] = None, rows: Optional[tuple] = None) -> dict:
         """Training loss: token [B, Tt], feat [B, Tf, 80] the target mel,
-        embedding [B, spk] -> {"loss"}; the encoder's rows interpolated to
-        Tf.  Draws from `gen`, or the given `draws`."""
+        embedding [B, spk] -> {"loss", "denom"}; the encoder's rows
+        interpolated to Tf.  Draws from `gen` (rows: FlowDraws.draw_rows), or
+        the given `draws`."""
         spks = embedding / embedding.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         spks = self.spk_embed_affine_layer(spks)
         mask = make_non_pad_mask(token_len, token.shape[1])
@@ -771,11 +787,11 @@ class MaskedDiffWithXvec(nn.Module):
         h = self.length_regulator(self.encoder_proj(h), feat_len, feat.shape[1])
         B, T2, C = h.shape
         if draws is None:
-            draws = FlowDraws.draw(gen, B, T2, C, self.cfg.cfm.training_cfg_rate)
+            draws = FlowDraws.draw_rows(gen, B, T2, C, self.cfg.cfm.training_cfg_rate, rows)
         conds = prompt_prefix_cond(feat, feat_len, draws)
         fmask = make_non_pad_mask(feat_len, T2).to(h.dtype)
         loss, _ = self.decoder.compute_loss(feat, fmask, h, spks, conds, draws)
-        return {"loss": loss}
+        return {"loss": loss, "denom": fmask.sum().float() * C}
 
     @torch.no_grad()
     def inference(self, token, token_len, prompt_feat, embedding, noise: torch.Tensor,

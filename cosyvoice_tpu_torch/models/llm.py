@@ -26,6 +26,7 @@ the Qwen2 body, `llm_embedding`, `speech_embedding`, `llm_decoder`; v1's
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Optional
@@ -42,6 +43,9 @@ from cosyvoice_tpu_torch.ops import sampling as samp
 from cosyvoice_tpu_torch.ops.kernels.lm_step import (StepWeights, cache_to_step_layout,
                                                      lm_step)
 from cosyvoice_tpu_torch.ops.masks import NEG_INF, make_non_pad_mask
+from cosyvoice_tpu_torch.parallel.collectives import (ModelGroup, ParallelDense,
+                                                      ParallelEmbedding)
+from cosyvoice_tpu_torch.parallel.mesh import ITEM_11B
 
 IGNORE_ID = -1
 
@@ -92,17 +96,39 @@ class _Holder(nn.Module):
 
 
 class Qwen2LM(nn.Module):
+    # the model group once sharded by tensor parallelism (shard_), else None
+    tp: Optional[ModelGroup] = None
+
     def __init__(self, cfg: LMConfig = LMConfig()):
         super().__init__()
         self.cfg = cfg
         self.llm = _Holder(_Holder(Qwen2Model(cfg.qwen)))
         self.llm_embedding = nn.Embedding(2, cfg.llm_input_size)
-        self.speech_embedding = nn.Embedding(cfg.speech_token_size + 3, cfg.llm_input_size)
-        self.llm_decoder = Dense(cfg.llm_output_size, cfg.speech_token_size + 3)
+        # vocabulary-parallel under tensor parallelism (parallel/mesh.py): the
+        # head's logits are gathered, so every rank samples the same token
+        self.speech_embedding = ParallelEmbedding(cfg.speech_token_size + 3,
+                                                  cfg.llm_input_size)
+        self.llm_decoder = ParallelDense(cfg.llm_output_size, cfg.speech_token_size + 3)
 
     @property
     def body(self) -> Qwen2Model:
         return self.llm.model.model
+
+    def tp_blocks(self, size: int) -> list[str]:
+        """The speech embedding and head, vocabulary-parallel over `size`
+        ranks when the speech vocabulary divides (the body names its own
+        blocks: Qwen2Model.tp_blocks)."""
+        vocab = self.cfg.speech_token_size + 3
+        return ["speech_embedding", "llm_decoder"] if vocab % size == 0 else []
+
+    def shard_(self, tp: ModelGroup) -> None:
+        """Run as this rank's part of the model group `tp`, after the body's
+        shard_: the config takes the body's local one, the vocabulary-parallel
+        modules the group."""
+        self.tp = tp
+        self.cfg = dataclasses.replace(self.cfg, qwen=self.body.cfg)
+        if self.tp_blocks(tp.size):
+            self.speech_embedding.tp = self.llm_decoder.tp = tp
 
     def prefill_embeds(self, text, text_len, prompt_speech, prompt_speech_len):
         """Pack [sos, text_emb, task, speech_emb] per row (right-padded).
@@ -180,7 +206,8 @@ class Qwen2LM(nn.Module):
                                  cfg.eos_token)
         return {"loss": masked_ce_loss(logits, target, cfg.lsm_weight,
                                        cfg.length_normalized_loss),
-                "acc": masked_accuracy(logits, target)}
+                "acc": masked_accuracy(logits, target),
+                "denom": ce_denominator(target, cfg.length_normalized_loss)}
 
     def packed_call(self, ids, types, positions, seg, target) -> dict:
         """Sequence-packed training loss (train/packing.py builds the
@@ -210,7 +237,8 @@ class Qwen2LM(nn.Module):
         denom = None if cfg.length_normalized_loss else seg.amax(dim=1).sum()
         return {"loss": masked_ce_loss(logits, target, cfg.lsm_weight,
                                        cfg.length_normalized_loss, denom=denom),
-                "acc": masked_accuracy(logits, target)}
+                "acc": masked_accuracy(logits, target),
+                "denom": ce_denominator(target, cfg.length_normalized_loss, denom)}
 
 
 def _speech_targets(speech, text_len, speech_len, N: int, first: int, eos: int):
@@ -249,6 +277,15 @@ def masked_ce_loss(logits, target, smoothing: float = 0.0, length_normalized: bo
     if denom is None:
         denom = valid.sum() if length_normalized else logits.shape[0]
     return nll.sum() / torch.clamp(torch.as_tensor(denom, device=nll.device), min=1)
+
+
+def ce_denominator(target, length_normalized: bool = True, denom=None) -> torch.Tensor:
+    """The count masked_ce_loss divides by, before its clamp at 1: a
+    data-parallel step (train/step.py) sums it over the data ranks so that
+    the ranks' losses add up to the loss of the whole batch."""
+    if denom is None:
+        denom = (target != IGNORE_ID).sum() if length_normalized else target.shape[0]
+    return torch.as_tensor(denom, device=target.device).float()
 
 
 def masked_accuracy(logits, target) -> torch.Tensor:
@@ -504,6 +541,9 @@ def lm_generate_fused_step(model: Qwen2LM, step_w: StepWeights, text, text_len,
     q = cfg.qwen
     if text.shape[0] != 1:
         raise ValueError("lm_generate_fused_step decodes one row (B=1)")
+    if model.tp is not None:
+        raise NotImplementedError("the whole-step decode kernel (lm_step) under tensor "
+                                  f"parallelism: {ITEM_11B}")
     embeds, seq_len = model.prefill_embeds(text, text_len, prompt_speech,
                                            prompt_speech_len)
     Tp, D = embeds.shape[1:]
@@ -653,7 +693,8 @@ class TransformerLM(nn.Module):
                                  cfg.eos_token)
         return {"loss": masked_ce_loss(logits, target, cfg.lsm_weight,
                                        cfg.length_normalized_loss),
-                "acc": masked_accuracy(logits, target)}
+                "acc": masked_accuracy(logits, target),
+                "denom": ce_denominator(target, cfg.length_normalized_loss)}
 
     def llm_prefill(self, embeds, cache: ConformerKVCache):
         return self.llm.prefill(embeds, cache)

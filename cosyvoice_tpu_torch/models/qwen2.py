@@ -19,6 +19,7 @@ torch.utils.checkpoint, as the JAX package's flax remat does.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -34,6 +35,9 @@ from cosyvoice_tpu_torch.ops.block_attention import block_attention
 from cosyvoice_tpu_torch.ops.kernels.int4_matmul import int4_matmul, int4_matmul_plain
 from cosyvoice_tpu_torch.ops.kernels.lm_decode_attention import lm_decode_attention
 from cosyvoice_tpu_torch.ops.masks import NEG_INF
+from cosyvoice_tpu_torch.parallel.collectives import (ModelGroup, ParallelEmbedding,
+                                                      copy_to_model, reduce_from_model)
+from cosyvoice_tpu_torch.parallel.mesh import ITEM_11B
 
 
 @dataclass(frozen=True)
@@ -187,6 +191,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 class Qwen2Layer(nn.Module):
+    """Under tensor parallelism (Qwen2Model.shard_) `cfg` holds the rank's
+    local head and intermediate counts, and `tp_attn` / `tp_mlp` the model
+    group of a sharded attention / MLP: q/k/v and gate/up are
+    column-parallel, o and down row-parallel with one all-reduce each."""
+
+    tp_attn = None
+    tp_mlp = None
+
     def __init__(self, cfg: Qwen2Config):
         super().__init__()
         self.cfg = cfg
@@ -212,7 +224,7 @@ class Qwen2Layer(nn.Module):
         B, T, _ = x.shape
         g = H // KH
         att = self.self_attn
-        h = self.input_layernorm(x)
+        h = copy_to_model(self.input_layernorm(x), self.tp_attn)
         q = apply_rope(att["q_proj"](h).reshape(B, T, H, HD), cos, sin)
         k = apply_rope(att["k_proj"](h).reshape(B, T, KH, HD), cos, sin)
         v = att["v_proj"](h).reshape(B, T, KH, HD)
@@ -260,10 +272,11 @@ class Qwen2Layer(nn.Module):
                 o = checkpoint(_attend, q, k_all, v_all, bias, use_reentrant=False)
             else:
                 o = _attend(q, k_all, v_all, bias)
-        x = x + att["o_proj"](o)
-        h = self.post_attention_layernorm(x)
+        x = x + reduce_from_model(att["o_proj"](o), self.tp_attn)
+        h = copy_to_model(self.post_attention_layernorm(x), self.tp_mlp)
         mlp = self.mlp
-        return x + mlp["down_proj"](F.silu(mlp["gate_proj"](h)) * mlp["up_proj"](h))
+        y = mlp["down_proj"](F.silu(mlp["gate_proj"](h)) * mlp["up_proj"](h))
+        return x + reduce_from_model(y, self.tp_mlp)
 
 
 def _attend(q, k_all, v_all, bias):
@@ -279,14 +292,56 @@ def _attend(q, k_all, v_all, bias):
 
 
 class Qwen2Model(nn.Module):
-    """Decoder-only body driven by input embeddings."""
+    """Decoder-only body driven by input embeddings.  Tensor parallelism
+    (parallel/mesh.py) asks it which blocks shard (`tp_blocks`) and, once
+    it slices them, hands it the model group (`shard_`)."""
 
     def __init__(self, cfg: Qwen2Config):
         super().__init__()
         self.cfg = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.embed_tokens = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size)
         self.layers = nn.ModuleList(Qwen2Layer(cfg) for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+
+    def _tp_split(self, size: int) -> tuple[bool, bool, bool]:
+        """(embedding, attention, mlp): which blocks shard over `size` ranks.
+        A rank holds whole heads, so attention shards only when both head
+        counts divide; the embedding and the MLP when their widths do."""
+        c = self.cfg
+        return (c.vocab_size % size == 0,
+                c.num_heads % size == 0 and c.num_kv_heads % size == 0,
+                c.intermediate_size % size == 0)
+
+    def tp_blocks(self, size: int) -> list[str]:
+        """The submodules (names relative to the body) that run sharded over
+        `size` ranks."""
+        embed, attn, mlp = self._tp_split(size)
+        blocks = ["embed_tokens"] if embed else []
+        for i in range(len(self.layers)):
+            blocks += [f"layers.{i}.self_attn"] * attn + [f"layers.{i}.mlp"] * mlp
+        return blocks
+
+    def shard_(self, tp: ModelGroup) -> None:
+        """Run as this rank's part of the model group `tp`: the blocks of
+        tp_blocks(tp.size) take the group, and the config (the body's and
+        each layer's) the local head and intermediate counts.  int4 weights
+        do not shard (K5 under tensor parallelism waits)."""
+        if self.cfg.quant in ("int4", "int4xla"):
+            raise NotImplementedError(f"tensor parallelism over {self.cfg.quant} weights: "
+                                      f"{ITEM_11B}")
+        embed, attn, mlp = self._tp_split(tp.size)
+        c, n = self.cfg, tp.size
+        local = dataclasses.replace(
+            c, num_heads=c.num_heads // n if attn else c.num_heads,
+            num_kv_heads=c.num_kv_heads // n if attn else c.num_kv_heads,
+            intermediate_size=c.intermediate_size // n if mlp else c.intermediate_size)
+        self.cfg = local
+        if embed:
+            self.embed_tokens.tp = tp
+        for layer in self.layers:
+            layer.cfg = local
+            layer.tp_attn = tp if attn else None
+            layer.tp_mlp = tp if mlp else None
 
     def forward(self, embeds: torch.Tensor, positions: torch.Tensor,
                 attn_bias: torch.Tensor, cache: Optional[KVCache] = None):

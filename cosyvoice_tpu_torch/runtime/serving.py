@@ -19,15 +19,26 @@ Port of cosyvoice_tpu/runtime/serving.py:
   LM's speaker vector and the flow's.
 The JAX package pads a flush group to a power of two to bound its compiles;
 eager PyTorch compiles nothing per shape, so the port runs the group as it
-comes (the outputs a row are the same either way).  Not ported: the
-multi-chip `mesh` and the second-card `flow_device` (each raises).
+comes (the outputs a row are the same either way).
 BatchedSynthesizer refuses phoneme requests, as the JAX one has no
 phoneme route.
+
+More than one card: `BatchedSynthesizer(mesh=...)` runs one process a rank
+(parallel/mesh.py): the LM shards by the tensor-parallel rules, the flow
+and the vocoder are replicated, the rows are padded up to a multiple of
+"data" and each data rank runs its rows at the shapes of the whole batch;
+every rank returns every wav.  Greedy decoding equals one card's; sampled
+decoding and the vocoder's source noise draw from generators of (seed, data
+rank).  `ContinuousSynthesizer(flow_device=...)` puts the flow and the
+vocoder on a second device and runs each segment's chunks on a worker
+thread while the engine decodes the next segment.
 """
 from __future__ import annotations
 
+import copy
 import queue
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
@@ -37,6 +48,9 @@ import torch.nn.functional as F
 
 from cosyvoice_tpu_torch.models.flow import _DTYPES, reference_rand_noise
 from cosyvoice_tpu_torch.models.llm import lm_generate
+from cosyvoice_tpu_torch.parallel.collectives import gather_dim
+from cosyvoice_tpu_torch.parallel.mesh import (LM_RULES, batch_sharding, rank_generator,
+                                               shard_params)
 from cosyvoice_tpu_torch.runtime.engine import GenRequest, ServingEngine
 from cosyvoice_tpu_torch.runtime.flow_engine import FlowSlotEngine
 from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model, round_up
@@ -62,18 +76,31 @@ class TTSRequest:
 
 @dataclass
 class BatchedSynthesizer:
-    """Non-streaming batched synthesis over a CosyVoice2Model, on its device."""
+    """Non-streaming batched synthesis over a CosyVoice2Model, on its device;
+    with `mesh` (parallel/mesh.Mesh) over the ranks of a data x model
+    layout, one process a rank."""
 
     model: CosyVoice2Model
     text_bucket: int = 32              # pad text lengths to multiples
     speech_bucket: int = 64
-    mesh: Optional[object] = None      # multi-chip serving: not ported yet
+    mesh: Optional[object] = None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "multi-chip batched serving (mesh) is not ported yet: ROADMAP Queue 1 "
-                "item 11 (parallel/ -> torch.distributed)")
+        llm = self.model.llm
+        if self.mesh is not None and getattr(llm, "tp", None) is None:
+            shard_params(llm, self.mesh, LM_RULES)
+
+    def _rows(self, B: int) -> slice:
+        """This rank's rows of a batch of B (all of them without a mesh)."""
+        return slice(0, B) if self.mesh is None else batch_sharding(self.mesh, B)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows -> the whole [B, ...] batch, through fp32
+        (exact for token ids and counts)."""
+        if self.mesh is None or self.mesh.data == 1:
+            return x
+        mesh = self.mesh
+        return gather_dim(x.float(), 0, mesh.data_rank, mesh.data, mesh.data_group).to(x.dtype)
 
     def synthesize_batch(self, requests: Sequence[TTSRequest],
                          gen: Optional[torch.Generator] = None) -> list[np.ndarray]:
@@ -86,16 +113,24 @@ class BatchedSynthesizer:
                 "BatchedSynthesizer has no phoneme route (neither has the JAX package's, "
                 "cosyvoice_tpu/runtime/serving.py); serve phoneme requests through "
                 "ContinuousSynthesizer")
+        n = len(requests)
+        if self.mesh is not None:
+            # pad to the data axis (copies of the last row, cut at return)
+            requests = list(requests) + [requests[-1]] * ((-n) % self.mesh.data)
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
+        vgen = torch.Generator().manual_seed(gen.initial_seed() + 1)
+        if self.mesh is not None:
+            gen = rank_generator(gen, self.mesh.data_rank)
+            vgen = rank_generator(vgen, self.mesh.data_rank)
         tokens = self.generate(requests, gen)
         mel, tls, pfl = self.flow_batch(requests, tokens)
-        return self.vocode_batch(mel, tls, pfl, torch.Generator().manual_seed(
-            gen.initial_seed() + 1))
+        return self.vocode_batch(mel, tls, pfl, vgen)[:n]
 
     def generate(self, requests: Sequence[TTSRequest],
                  gen: torch.Generator) -> list[np.ndarray]:
-        """One batched lm_generate over the right-padded prompts; returns each
-        row's emitted tokens."""
+        """One batched lm_generate over the right-padded prompts (this rank's
+        rows, at the whole batch's shapes); returns every row's emitted
+        tokens."""
         m = self.model
         B = len(requests)
         Tt = round_up(max(len(r.text_tokens) for r in requests), self.text_bucket)
@@ -114,18 +149,22 @@ class BatchedSynthesizer:
             allowed[i] = int(new_text * m.llm.cfg.max_token_text_ratio)
             cap = max(cap, m.decode_cap(new_text))
         max_len[:] = np.minimum(allowed, cap)
-        t = lambda a: m._tensor(a, torch.long)
+        rows = self._rows(B)
+        t = lambda a: m._tensor(a[rows], torch.long)  # noqa: E731
         out, count = lm_generate(m.llm, t(text), t(tlen), t(psp), t(plen), t(min_len),
                                  t(max_len), gen, max_steps=cap,
                                  cache_len=round_up(2 + Tt + Ts + cap, 128))
-        out, count = out.cpu().numpy(), count.cpu().numpy()
+        out = self._gather(out).cpu().numpy()
+        count = self._gather(count).cpu().numpy()
         for i in range(B):
             m._warn_if_capped(int(count[i]), int(allowed[i]), int(max_len[i]))
         return [out[i, :count[i]] for i in range(B)]
 
     def flow_batch(self, requests: Sequence[TTSRequest], tokens: Sequence[np.ndarray]):
-        """One ragged-batched flow call over prompt ++ generated tokens per row;
-        returns (mel [B, ratio*Ttok, 80], token lengths, prompt mel lengths)."""
+        """One ragged-batched flow call over prompt ++ generated tokens of this
+        rank's rows, at the whole batch's shapes; returns (mel [rows,
+        ratio*Ttok, 80], every row's token lengths, every row's prompt mel
+        lengths)."""
         m = self.model
         B = len(requests)
         tls = [len(r.prompt_speech_tokens) + len(tok) for r, tok in zip(requests, tokens)]
@@ -139,23 +178,30 @@ class BatchedSynthesizer:
             tok[i, len(ps):tls[i]] = tokens[i]
             pf[i, :pfl[i]] = r.prompt_feat
         emb = np.stack([np.asarray(r.embedding, np.float32) for r in requests])
-        mel = m.flow.inference(m._tensor(tok, torch.long), m._tensor(tls, torch.long),
-                               m._tensor(pf, torch.float32), m._tensor(emb, torch.float32),
+        rows = self._rows(B)
+        mel = m.flow.inference(m._tensor(tok[rows], torch.long),
+                               m._tensor(np.asarray(tls)[rows], torch.long),
+                               m._tensor(pf[rows], torch.float32),
+                               m._tensor(emb[rows], torch.float32),
                                noise=_noise_for(m, Ttok),
-                               prompt_feat_len=m._tensor(pfl, torch.long))
+                               prompt_feat_len=m._tensor(pfl[rows], torch.long))
         return mel, tls, pfl
 
     def vocode_batch(self, mel: torch.Tensor, tls, pfl,
                      gen: torch.Generator) -> list[np.ndarray]:
-        """Repack each row's generated mel region, one batched HiFT call."""
+        """Repack each of this rank's rows' generated mel region, one batched
+        HiFT call; returns every row's wav."""
         m = self.model
+        B = len(tls)
         Ls = [m.ratio * n - int(p) for n, p in zip(tls, pfl)]
         Lmax = round_up(max(Ls), 32)
-        gen_mel = torch.stack([F.pad(mel[i, pfl[i]:pfl[i] + Ls[i]].float(),
-                                     (0, 0, 0, Lmax - Ls[i])) for i in range(len(Ls))])
+        rows = self._rows(B)
+        idx = range(B)[rows]
+        gen_mel = torch.stack([F.pad(mel[j, pfl[i]:pfl[i] + Ls[i]].float(),
+                                     (0, 0, 0, Lmax - Ls[i])) for j, i in enumerate(idx)])
         wav, _ = m.hift.inference(gen_mel, gen=gen)
-        wav = wav.cpu().numpy()
-        return [wav[i, :Ls[i] * m.hop_samples] for i in range(len(Ls))]
+        wav = self._gather(wav).cpu().numpy()
+        return [wav[i, :Ls[i] * m.hop_samples] for i in range(B)]
 
 
 class _Stream:
@@ -196,8 +242,10 @@ class ContinuousSynthesizer:
       once against the slot's cached state.  Needs a stream-config flow
       (estimator.stream, finite left_chunks); the audio follows the
       stream-masked model, and flow_context_tokens is unused.
-    - flow_device (the flow and vocoder on a second card) waits until the port
-      targets more than one card, and raises.
+    - flow_device: copies of the flow and the vocoder (their parameters and
+      every chunk's operands) live there, and each segment's chunks run on a
+      worker thread while the engine decodes the next segment on the LM's
+      device, so the two stages overlap; the audio is the one-device audio.
     """
 
     model: CosyVoice2Model
@@ -215,11 +263,17 @@ class ContinuousSynthesizer:
     flow_tok_cap: Optional[int] = None     # default: 256 + max_out
 
     def __post_init__(self):
-        if self.flow_device is not None:
-            raise NotImplementedError(
-                "flow_device (flow and vocoder on a second card) is not ported: it waits "
-                "until the port targets more than one card (ROADMAP Queue 1 item 11)")
         m = self.model
+        # the model the chunks run on: the model itself, or a view of it whose
+        # flow, vocoder and operands sit on flow_device
+        self._fm = m
+        if self.flow_device is not None:
+            # copies, so that the caller's model keeps serving on its device
+            self._fm = copy.copy(m)
+            self._fm.device = torch.device(self.flow_device)
+            self._fm.flow = copy.deepcopy(m.flow).to(self._fm.device)
+            self._fm.hift = copy.deepcopy(m.hift).to(self._fm.device)
+            m = self._fm
         self._fse: Optional[FlowSlotEngine] = None
         if self.incremental:
             cap = self.flow_tok_cap or 256 + (self.max_out or m.max_decode_tokens)
@@ -236,7 +290,7 @@ class ContinuousSynthesizer:
         the sequential token2wav slices it: the generated region starts at
         the prompt's mel rows, holds ratio * (tokens - prompt tokens) rows,
         and the chunk begins at offset * ratio (less the window's drop)."""
-        m = self.model
+        m = self._fm
         ratio = m.ratio
         B = len(jobs)
         tls, toks, drops = [], [], []
@@ -285,7 +339,7 @@ class ContinuousSynthesizer:
         before the last flow chunk, so live flow streams can outnumber the
         slots for a while: jobs that find no slot are returned, to run at the
         next flush (the pending finals guarantee progress)."""
-        m, fse = self.model, self._fse
+        m, fse = self._fm, self._fse
         ratio, la, hop_base = m.ratio, m.pre_lookahead_len, m.token_hop_len
         waves: list = []
         seen: dict = defaultdict(int)
@@ -407,25 +461,45 @@ class ContinuousSynthesizer:
             if st.on_chunk is not None:
                 st.on_chunk(wav, fin)
 
-        def flush() -> None:
+        def run(batch: list) -> list:
+            """The chunks of `batch` -> the jobs deferred to a later flush."""
             if self._fse is not None:
-                jobs[:] = self._flush_group_inc(jobs, emit)
-                return
+                return self._flush_group_inc(batch, emit)
             if not self.batch_chunks:
-                for st, tok, off, fin, _ in jobs:
+                for st, tok, off, fin, _ in batch:
                     r = st.req
-                    emit(st, m.token2wav(tok, r.prompt_speech_tokens, r.prompt_feat,
-                                         r.embedding, off, st.session, finalize=fin), fin)
+                    emit(st, self._fm.token2wav(tok, r.prompt_speech_tokens, r.prompt_feat,
+                                                r.embedding, off, st.session, finalize=fin),
+                         fin)
             else:
                 # a stream's chunks precede its final chunk in one segment
                 for streaming in (True, False):
-                    grp = [j for j in jobs if j[3] != streaming]
+                    grp = [j for j in batch if j[3] != streaming]
                     if grp:
                         self._flush_group(grp, emit, streaming=streaming)
+            return []
+
+        # flow_device: a segment's chunks run on the worker while the engine
+        # decodes the next segment; flushes stay in order, one at a time
+        worker = ThreadPoolExecutor(1) if self.flow_device is not None else None
+        pending: list = []
+
+        def settle() -> None:
+            """Wait for the worker's flush; its deferred jobs go first."""
+            if pending:
+                jobs[:0] = pending.pop().result()
+
+        def flush() -> None:
+            settle()
+            batch = jobs[:]
             jobs.clear()
+            if worker is None:
+                jobs[:0] = run(batch)
+            else:
+                pending.append(worker.submit(run, batch))
 
         def on_segment() -> None:
-            if jobs:
+            if jobs or pending:
                 flush()
 
         class _Adapter:
@@ -450,14 +524,20 @@ class ContinuousSynthesizer:
                                               else None)),
                         make_on_tokens(st))
 
-        engine.serve(_Adapter(), gen=gen, on_segment=on_segment)
-        # the incremental mode may defer jobs past slot contention: each pass
-        # flushes finals (freeing slots) and admits the rest
-        while jobs:
-            n_before = len(jobs)
-            flush()
-            if len(jobs) >= n_before:
-                raise RuntimeError("incremental flush stalled")
+        try:
+            engine.serve(_Adapter(), gen=gen, on_segment=on_segment)
+            settle()
+            # the incremental mode may defer jobs past slot contention: each
+            # pass flushes finals (freeing slots) and admits the rest
+            while jobs:
+                n_before = len(jobs)
+                flush()
+                settle()
+                if len(jobs) >= n_before:
+                    raise RuntimeError("incremental flush stalled")
+        finally:
+            if worker is not None:
+                worker.shutdown(wait=True)
 
     def synthesize_batch(self, requests: Sequence[TTSRequest],
                          gen: Optional[torch.Generator] = None,

@@ -7,6 +7,11 @@ Each step draws from its own generator, a function of (rng_seed, step)
 alone (train/step.step_generator), so a resumed run repeats the draws an
 unbroken one makes.  Metrics go to `metrics.jsonl` in the model directory
 (one JSON object a line: tag, epoch, step and the values) and to the log.
+
+More than one process: every rank votes before each step and all stop
+when one runs out of data (`all_hosts_have_data`); rank 0 alone logs and
+writes, and every rank takes part in a checkpoint (its tensor-parallel
+shards are gathered); cv metrics are summed over the data axis.
 """
 from __future__ import annotations
 
@@ -18,8 +23,12 @@ from dataclasses import dataclass
 from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 from cosyvoice_tpu_torch.nn.dropout import dropout_generator
+from cosyvoice_tpu_torch.parallel.collectives import all_reduce_
+from cosyvoice_tpu_torch.parallel.distributed import rank_and_world
+from cosyvoice_tpu_torch.parallel.mesh import ITEM_11B
 from cosyvoice_tpu_torch.train.checkpoint import save_checkpoint
 from cosyvoice_tpu_torch.train.step import TrainState, step_generator
 
@@ -33,13 +42,18 @@ def arrays_only(batch: dict) -> dict:
             and not (isinstance(v, list) and v and isinstance(v[0], str))}
 
 
+def _vote_device() -> str:
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
 def all_hosts_have_data(has_batch: bool) -> bool:
-    """Every process stops together when one runs out of data; one process
-    here (more than one card is ROADMAP Queue 1 item 11)."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError("multi-process training is ROADMAP Queue 1 item 11")
-    return has_batch
+    """Every process stops together when one runs out of data (the next
+    collective would hang): a sum of the ranks' "no batch" votes, which is
+    their MIN of has_batch."""
+    if rank_and_world()[1] == 1:
+        return has_batch
+    missing = torch.tensor([0.0 if has_batch else 1.0], device=_vote_device())
+    return bool(all_reduce_(missing, dist.group.WORLD).item() == 0)
 
 
 @dataclass
@@ -54,13 +68,18 @@ class Executor:
     metrics_path: Optional[str] = None
     step: int = 0
     epoch: int = 0
+    mesh: Optional[object] = None   # parallel/mesh.Mesh: cv sums over its data axis
 
     def __post_init__(self):
-        os.makedirs(self.model_dir, exist_ok=True)
+        self.writer = rank_and_world()[0] == 0
+        if self.writer:
+            os.makedirs(self.model_dir, exist_ok=True)
         self.metrics_path = self.metrics_path or os.path.join(self.model_dir,
                                                               "metrics.jsonl")
 
     def _log(self, tag: str, metrics: dict):
+        if not self.writer:
+            return
         rec = {"tag": tag, "epoch": self.epoch, "step": self.step,
                **{k: float(v) for k, v in metrics.items()}}
         with open(self.metrics_path, "a") as f:
@@ -102,7 +121,9 @@ class Executor:
            to_device: Callable = lambda b: b) -> dict:
         """The example-weighted mean of cv_step's values over cv_data; batch
         i runs on the generator of (i, 0), as the JAX executor takes
-        PRNGKey(i), in the training forward's mode."""
+        PRNGKey(i), in the training forward's mode.  On a mesh each data
+        rank runs its own cv batches and the weighted sums are added over
+        the data axis."""
         assert self.cv_step is not None
         tot, w = {}, 0
         for i, batch in enumerate(cv_data):
@@ -111,9 +132,16 @@ class Executor:
             state.model.train()
             with dropout_generator(gen):
                 out = self.cv_step(state.model, to_device(arrays_only(batch)), gen)
+            out.pop("denom", None)
             for k, v in out.items():
                 tot[k] = tot.get(k, 0.0) + float(v) * n
             w += n
+        if self.mesh is not None and self.mesh.data > 1:
+            keys = sorted(tot)
+            sums = torch.tensor([w] + [tot[k] for k in keys], dtype=torch.float64,
+                                device=_vote_device())
+            all_reduce_(sums, self.mesh.data_group)
+            w, tot = float(sums[0]), dict(zip(keys, sums[1:].tolist()))
         avg = {k: v / max(w, 1) for k, v in tot.items()}
         self._log("CV", avg)
         return avg
@@ -132,6 +160,8 @@ class GanExecutor(Executor):
 
     def train_one_epoch_gan(self, g_state: TrainState, d_state: TrainState,
                             train_data: Iterable, to_device: Callable = lambda b: b):
+        if rank_and_world()[1] > 1:
+            raise NotImplementedError(f"GAN training on more than one process: {ITEM_11B}")
         logger.info("Epoch %d begin (GAN)", self.epoch)
         t0, n_since = time.time(), 0
         it = iter(train_data)

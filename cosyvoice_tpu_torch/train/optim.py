@@ -23,6 +23,11 @@ the state it is given in place (the caller keeps only the one returned).
 The arithmetic runs on torch._foreach_* ops over all tensors at once, in
 optax's order of operations (a model has hundreds of parameter tensors,
 and one launch a tensor an op made the update host-bound).
+
+Under tensor parallelism the gradients come as a `ShardedTree`: the global
+norm sums the squares of the model-sharded leaves over the model group and
+counts each replicated leaf once, and the finite check is one vote of the
+group, so every rank clips and skips alike.
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from cosyvoice_tpu_torch.parallel.collectives import all_reduce_
 
 Schedule = Callable[[int], torch.Tensor]
 
@@ -111,12 +118,39 @@ def _apply(fn, tree: dict, *others) -> dict:
     return dict(zip(keys, fn([tree[k] for k in keys], *([o[k] for k in keys] for o in others))))
 
 
+class ShardedTree(dict):
+    """A gradient dict of a tensor-parallel model: `sharded` names the leaves
+    each rank holds a block of, `group` is the model group."""
+
+    def __init__(self, tree: dict, sharded: set, group):
+        super().__init__(tree)
+        self.sharded, self.group = sharded, group
+
+
+def _like(tree: dict, other: dict) -> dict:
+    """`other` with `tree`'s sharding, where tree has one."""
+    if isinstance(tree, ShardedTree):
+        return ShardedTree(other, tree.sharded, tree.group)
+    return other
+
+
+def _sum_squares(tensors: list) -> torch.Tensor:
+    if not tensors:
+        return torch.zeros(())
+    return torch.stack(torch._foreach_norm([t.float() for t in tensors])).square().sum()
+
+
 def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor (fp32), as optax's."""
+    """sqrt of the sum of squares over every tensor (fp32), as optax's; of a
+    ShardedTree, over the whole model."""
     if not tree:
         return torch.zeros(())
-    norms = torch._foreach_norm([t.float() for t in tree.values()])
-    return torch.sqrt(torch.stack(norms).square().sum())
+    if not isinstance(tree, ShardedTree):
+        return torch.sqrt(_sum_squares(list(tree.values())))
+    dev = next(iter(tree.values())).device
+    sharded = _sum_squares([v for k, v in tree.items() if k in tree.sharded]).to(dev)
+    rep = _sum_squares([v for k, v in tree.items() if k not in tree.sharded]).to(dev)
+    return torch.sqrt(all_reduce_(sharded, tree.group) + rep)
 
 
 def clip_by_global_norm(max_norm: float) -> Transform:
@@ -191,9 +225,14 @@ def chain(*transforms: Transform) -> Transform:
 
 
 def _all_finite(tree: dict) -> bool:
-    """No NaN or inf in any tensor: each one's max |x| (NaN propagates)."""
+    """No NaN or inf in any tensor: each one's max |x| (NaN propagates); of
+    a ShardedTree, on every rank of its group."""
     top = torch._foreach_norm(list(tree.values()), float("inf"))
-    return bool(torch.isfinite(torch.stack(top)).all())
+    finite = torch.isfinite(torch.stack(top)).all()
+    if isinstance(tree, ShardedTree):
+        bad = all_reduce_((~finite).float().reshape(1), tree.group)
+        return bool(bad.item() == 0)
+    return bool(finite)
 
 
 def apply_if_finite(inner: Transform, max_consecutive_errors: int) -> Transform:
@@ -237,7 +276,8 @@ def multi_steps(inner: Transform, every_k: int) -> Transform:
                "inner_opt_state": state["inner_opt_state"], "acc_grads": acc}
         if not emit:
             return None, new
-        updates, new["inner_opt_state"] = inner.update(acc, state["inner_opt_state"], params)
+        updates, new["inner_opt_state"] = inner.update(_like(grads, acc),
+                                                       state["inner_opt_state"], params)
         torch._foreach_mul_(a, 0)     # as optax's reset: a NaN stays
         return updates, new
 

@@ -74,4 +74,4 @@ def packed_llm_loss_fn(model, batch: dict, gen=None):
     """Loss over a packed batch for train.step.make_train_step."""
     out = model.packed_call(batch["ids"], batch["types"], batch["positions"], batch["seg"],
                             batch["target"])
-    return out["loss"], {"acc": out["acc"]}
+    return out["loss"], {"acc": out["acc"], "denom": out["denom"]}

@@ -286,12 +286,26 @@ def test_incremental_matches_stream_model():
 
 
 def test_continuous_refusals():
-    """A second card for the flow, a phoneme request to a model whose LM is
-    not a phoneme LM and a prompt longer than a flow slot's cache raise."""
+    """A second device for the flow runs (here the CPU: the flow's view and
+    its slot engine sit there, and the incremental audio equals the
+    one-device run; tests/test_torch_parallel.py holds the windowed mode);
+    the view holds copies, so the caller's model keeps its own flow and
+    vocoder; a phoneme request to a model whose LM is not a phoneme LM and a
+    prompt longer than a flow slot's cache raise."""
     model = _noisy("incremental")
-    with pytest.raises(NotImplementedError, match="second card"):
-        TS.ContinuousSynthesizer(model, flow_device="cuda:1")
+    flow, hift = model.flow, model.hift
     r = _requests(TS.TTSRequest)[0]
+    split = TS.ContinuousSynthesizer(model, **SYNTH, incremental=True, flow_device="cpu")
+    assert split._fm.device == torch.device("cpu") and split._fse.device == torch.device("cpu")
+    assert model.flow is flow and model.hift is hift
+    assert split._fm.flow is not flow and split._fm.hift is not hift
+    mine = {p.data_ptr() for p in list(flow.parameters()) + list(hift.parameters())}
+    assert mine.isdisjoint(p.data_ptr() for p in list(split._fm.flow.parameters())
+                           + list(split._fm.hift.parameters()))
+    want = TS.ContinuousSynthesizer(model, **SYNTH, incremental=True).synthesize_batch(
+        [r], gen=torch.Generator().manual_seed(1))
+    got = split.synthesize_batch([r], gen=torch.Generator().manual_seed(1))
+    np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=1e-5)
     with pytest.raises(ValueError, match="phoneme"):
         TS.ContinuousSynthesizer(model, **SYNTH).synthesize_batch(
             [dataclasses.replace(r, pho_token=np.zeros((4, 4), np.int32))])

@@ -563,3 +563,38 @@ def test_phoneme_training_losses_card_equal_cpu(cuda):
     with torch.enable_grad():
         for kind, r in chip_smoke.pho_train_small_checks().items():
             assert r["ok"], (kind, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 1e-4, 2.0 ** -7)])
+@pytest.mark.parametrize("B,pos", [(1, (0,)), (1, (364,)), (1, (383,)),
+                                   (8, (100, 140, 180, 220, 260, 300, 340, 380))])
+def test_lm_decode_attention_tensor_parallel_heads(cuda, dtype, atol, rtol, B, pos):
+    """K1 at Qwen2-0.5B's local heads under tensor parallelism at model 2
+    (one KV head, G = 7: KH * D = 64), cache 384, at B = 1 and at B = 8
+    with per-row frontiers: the output and the appended cache equal the
+    plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda).to(dtype)
+    ck, cv = r(B, 384, 64), r(B, 384, 64)
+    ck2, cv2 = ck.clone(), cv.clone()
+    bias = torch.where(torch.rand(B, 384, generator=g, device=cuda) < 0.1, -1e9, 0.0)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    q, kn, vn = r(B, 7, 64), r(B, 1, 64), r(B, 1, 64)
+    o, _, _ = K1.lm_decode_attention(q, kn, vn, ck, cv, bias, p, 64, 0.125)
+    o_ref, _, _ = K1.lm_decode_attention_plain(q, kn, vn, ck2, cv2, bias, p, 64, 0.125)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=rtol)
+    assert torch.equal(ck, ck2) and torch.equal(cv, cv2)
+
+
+@pytest.mark.gpu
+def test_continuous_flow_on_the_cpu(cuda):
+    """chip_smoke.py's flow_device split: the small stack's
+    ContinuousSynthesizer with the LM on the card and copies of the flow and
+    HiFT on the CPU, against the all-card run (CONT_WAV_TOL); the model then
+    serves all on the card again."""
+    import chip_smoke
+
+    res = chip_smoke.mc_flow_device()
+    assert res["ok"], res

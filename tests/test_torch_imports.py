@@ -59,6 +59,8 @@ import cosyvoice_tpu_torch.bin.export_serving_lm
 import cosyvoice_tpu_torch.train.lora, cosyvoice_tpu_torch.train.online_codec
 import cosyvoice_tpu_torch.data.parquet_io, cosyvoice_tpu_torch.data.transcriber
 import cosyvoice_tpu_torch.tokenizer.preprocess
+import cosyvoice_tpu_torch.parallel.distributed, cosyvoice_tpu_torch.parallel.mesh
+import cosyvoice_tpu_torch.parallel.collectives
 bad = [m for m in sys.modules
        if m in ("jax", "flax", "cosyvoice_tpu", "transformers", "tokenizers", "tiktoken",
                 "yaml", "optax", "orbax")

@@ -98,9 +98,19 @@ def test_batched_synthesizer_matches_sequential(stacks, monkeypatch):
 
 
 def test_batched_synthesizer_refuses_what_is_not_ported(stacks):
+    """A mesh runs (one process: the 1 x 1 mesh, the same wavs as without;
+    more ranks: tests/test_torch_parallel.py); a phoneme request raises."""
+    from cosyvoice_tpu_torch.parallel.mesh import make_mesh
+
     _, tmodel = stacks
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        TS.BatchedSynthesizer(tmodel, mesh=object())
+    reqs = _requests(TS.TTSRequest, np.random.default_rng(3))
+    want = TS.BatchedSynthesizer(tmodel, text_bucket=8, speech_bucket=8).synthesize_batch(
+        reqs, gen=torch.Generator().manual_seed(2))
+    got = TS.BatchedSynthesizer(tmodel, text_bucket=8, speech_bucket=8,
+                                mesh=make_mesh()).synthesize_batch(
+        reqs, gen=torch.Generator().manual_seed(2))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
     r = _requests(TS.TTSRequest, np.random.default_rng(3))[0]
     r.pho_token = np.zeros((4, 4), np.int32)
     with pytest.raises(NotImplementedError, match="phoneme"):

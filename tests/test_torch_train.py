@@ -506,8 +506,25 @@ def test_ema_matches_jax():
 
 
 def test_mesh_refused():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tstep.make_train_step(tstep.llm_loss_fn, toptim.make_optimizer()[0], mesh=object())
+    """A step on a mesh runs (one process: the 1 x 1 mesh, the same loss as
+    without; more ranks: tests/test_torch_parallel.py); a data-parallel step
+    over a loss without its denominator (a batch statistic) raises."""
+    from cosyvoice_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    b = tstep.to_device(_unpacked(_lm_examples()), "cpu")
+    losses = []
+    for mesh in (None, make_mesh()):
+        tx = toptim.make_optimizer()[0]
+        tm = _port_lm(_lm_sections(0.0, True))
+        step = tstep.make_train_step(tstep.llm_loss_fn, tx, mesh=mesh)
+        losses.append(float(step(tstep.make_train_state(tm, tx), b, None)[1]["loss"]))
+    assert losses[0] == losses[1]
+    stat = lambda m, batch, gen: (tstep.llm_loss_fn(m, batch)[0], {})  # noqa: E731
+    tx = toptim.make_optimizer()[0]
+    step = tstep.make_train_step(stat, tx, mesh=Mesh(data=2))
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        step(tstep.make_train_state(_port_lm(_lm_sections(0.0, True)), tx), b,
+             torch.Generator().manual_seed(0))
 
 
 # ---- checkpoints -----------------------------------------------------------

@@ -66,17 +66,21 @@ def test_train_cli_trains_and_resumes(tmp_path, model, kind):
 
 
 @pytest.mark.parametrize("args,conf,item", [
-    (["--model", "hift", "--mesh_data", "2"], {}, "item 11"),
+    (["--model", "hift", "--mesh_data", "2"], {}, "item 11b"),
     (["--model", "llm"], {"llm": {"kind": "qwen2lm_phoneme_multicode"}}, "JAX CLI fails"),
     (["--model", "hift", "--lora"], {}, "trains every parameter"),
     (["--model", "llm", "--data_format", "parquet"], {"llm": {"kind": "qwen2lm_phoneme"}},
      "as jsonl"),
-    (["--model", "llm", "--mesh_data", "2"], {}, "item 11"),
-], ids=["gan", "phoneme_lm", "lora", "parquet", "mesh"])
+    (["--model", "llm", "--mesh_model", "2", "--lora"], {}, "item 11b"),
+    (["--model", "llm", "--mesh_data", "2"], {"llm": {"kind": "qwen2lm_phoneme"}},
+     "item 11b"),
+], ids=["gan", "phoneme_lm", "lora", "parquet", "mesh", "phoneme_mesh"])
 def test_train_cli_refuses_waiting_branches(tmp_path, args, conf, item):
-    """More than one card raises naming ROADMAP item 11; what the JAX CLI
-    does not train (the multi-code kind, --lora on a vocoder, parquet
-    shards for a phoneme LM) raises naming what the JAX CLI does there."""
+    """GAN training, --lora and the phoneme kinds under a mesh raise naming
+    ROADMAP item 11b (a mesh of the other kinds trains:
+    tests/test_torch_parallel.py); what the JAX CLI does not train (the
+    multi-code kind, --lora on a vocoder, parquet shards for a phoneme LM)
+    raises naming what the JAX CLI does there."""
     cfg = tmp_path / "c.yaml"
     base = {"llm": dict(train_section("qwen2lm"), kind="qwen2lm"), "hift": {"kind": "hift"}}
     cfg.write_text(yaml.safe_dump(dict(base, **conf), default_flow_style=False))
