@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port of CosyVoice2 (and CosyVoice v1) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repo root; needs one CUDA GPU
-    python3 chip_smoke.py --profile  # also profile one more request
+    python3 chip_smoke.py --flow-stage TREE --label L   # the flow stage alone,
+                                     # on the package of the checkout at TREE
 
 Phases, each printing JSON lines:
   1. device  - the card's name and power limit (nvidia-smi);
@@ -19,7 +20,11 @@ Phases, each printing JSON lines:
   5. main path - build the full-width serving stack (Qwen2-0.5B int8 LM over
      the packed decode cache, bf16 flow with fused attention/norm, bf16 HiFT)
      on seeded random weights and answer 3 zero-shot requests through
-     CosyVoice2.inference_zero_shot; every kernel must launch;
+     CosyVoice2.inference_zero_shot; every kernel must launch; then the
+     last request again (its seed, text and decode cap) under
+     utils/profiling.trace (phase `trace`): the device busy share, the
+     trace's kernel time (the union of its kernel intervals) over the
+     request's wall, beside the main path's untraced run of it;
   6. fused_step - the main path's int8 LM (same weights) with greedy
      sampling from the first request's prompt, 200 steps, through
      lm_generate (K1 in every layer) and lm_generate_fused_step (one K6
@@ -70,7 +75,7 @@ Phases, each printing JSON lines:
      last ~6 samples of each activation differ by design);
  11. stream  - one full-width zero-shot request streamed through
      CosyVoice2.inference_zero_shot(stream=True) with the main path's
-     weights, greedy sampling and a 100-token cap, after one warm-up
+     weights, greedy sampling and a STREAM_CAP-token cap, after one warm-up
      stream: first-chunk latency, per-chunk seconds (each split into
      frontend, LM prefill, flow, HiFT and decode/host), wall, RTF, the chunk
      lengths (must follow the hop-50 / lookahead-3 / 8-frame-cache formula),
@@ -82,7 +87,7 @@ Phases, each printing JSON lines:
      stack's sequential tts(stream=True) on the CPU) and incremental (the
      stream family; within INC_WAV_TOL of its one-shot stream-masked flow
      vocoded with the same windows); then at full width bench.py's engine
-     traffic at half its length (8 streams of 250 tokens through 8 slots,
+     traffic at CONT_TOKENS a stream (8 streams through 8 slots,
      hop_scale 2.0),
      windowed (flow_context_tokens 250) and incremental: first-chunk latency
      a stream and the segments before it, wall, audio, RTF, chunks,
@@ -103,7 +108,7 @@ Phases, each printing JSON lines:
      S3Config; fp32 .pt and .onnx files, ~3 GB) loaded with fp16=True,
      quant="int8": seconds a file, the frontend's milliseconds for a 3 s and
      a 10 s prompt (CAMPPlus, S3 tokenizer, prompt mel), and 3 zero-shot
-     requests from raw 16 kHz prompt audio (200-token cap): latency, RTF,
+     requests from raw 16 kHz prompt audio (CKPT_CAP-token cap): latency, RTF,
      launches (K2 must be > 0), then one request loaded with quant="int4"
      (K5 must be > 0); (c) `python -m cosyvoice_tpu_torch.bin.serve` over
      (b) in a subprocess: cold start (launch to /health 200) and one
@@ -130,13 +135,13 @@ Phases, each printing JSON lines:
      width cosyvoice2_pho.yaml's Qwen2LM_Phoneme_Src2 (PhonemeLMConfig: the
      Qwen2-0.5B body int8 in bf16 over the packed cache, the 6 x 1024
      phoneme conformer and the fusion in bf16) with the main path's flow at
-     a 512-d speaker vector and its HiFT: one B=1 greedy decode of 200
-     tokens (prefix ms: encoder + fusion, then the prefill; ms a token),
-     then 8 streams of 40 seeded phonemes, 200 tokens each, through 8
+     a 512-d speaker vector and its HiFT: one B=1 greedy decode of
+     PHO_TOKENS tokens (prefix ms: encoder + fusion, then the prefill; ms a token),
+     then 8 streams of 40 seeded phonemes, PHO_TOKENS tokens each, through 8
      slots, windowed (flow_context_tokens 250), hop_scale 2.0, from a 3 s
      prompt: first-chunk latency, wall, RTF, peak memory, launches (K1, K2
      and K3 must be > 0); (c) cosyvoice_phoneme.yaml's v1 LM
-     (V1PhonemeLMConfig, fp32): 200 greedy tokens, prefill ms and ms a
+     (V1PhonemeLMConfig, fp32): PHO_TOKENS greedy tokens, prefill ms and ms a
      token;
  17. lam     - the LAM stack: (a) small fp32 stacks on the card against
      the CPU, the noise drawn on CPU generators: a SpeakerEmbedding's
@@ -152,8 +157,8 @@ Phases, each printing JSON lines:
      bigvgan phase's 4 rows of 250/200/150/100 tokens (one warm-up, one
      timed inference: wall, audio, RTF, peak memory, a finite wav in
      [-1, 1] of 960 samples a token); (c) one LAM request: the 10 s
-     prompt's vector, the phoneme phase's full-width Src2 LM (200 greedy
-     tokens on K1), VITS with g = the vector: speaker ms, LM ms a token,
+     prompt's vector, the phoneme phase's full-width Src2 LM (PHO_TOKENS
+     greedy tokens on K1), VITS with g = the vector: speaker ms, LM ms a token,
      VITS s, total, RTF, launches (K1 must be > 0);
  18. multicode - the multi-codebook phoneme LM: (a) a small fp32 one on
      the card against the CPU (greedy delayed codes, steps and done flags
@@ -162,9 +167,10 @@ Phases, each printing JSON lines:
      Qwen2-0.5B body, the 6 x 1024 phoneme conformer, 4 fusion layers, 6
      codebooks of 1002 ids) on seeded weights in bf16 over the packed
      decode cache: 40 phonemes + 20 text ids, a 512-d speaker vector, a
-     3 s prompt of 120 code rows, 200 greedy steps at B=1, then 4 ragged
-     rows: prefix ms, ms a step, the reverted [B, 195, 6] shape, peak
-     memory, K1 launches (exactly 24 x 199 a call, no other kernel);
+     3 s prompt of 120 code rows, MC_STEPS greedy steps at B=1, then 4
+     ragged rows: prefix ms, ms a step, the reverted [B, MC_STEPS - 5, 6]
+     shape, peak memory, K1 launches (exactly 24 x (MC_STEPS - 1) a call,
+     no other kernel);
  19. train   - training on the card, TF32 off, no kernel (the training path
      reaches none; the phase gates on zero launches): (a) the small LM and
      flow of tests/test_train_cli.py's widths, 3 steps on the card and on
@@ -225,6 +231,11 @@ Phases, each printing JSON lines:
      qwen2lm_phoneme and qwen2lm_phoneme_src (spk_json, online labels),
      transformer_lm (parquet) and the flow with lora_conf; no kernel
      launched in any training;
+ 22b. export - bin/export_aot.export_flow_estimator on the main path's bf16
+     estimator at T 100, 200 and 500 (K2 + K3 nodes) and with fused_block
+     at T 200 (K4 nodes): each .pt2 reloaded and held to eager (rtol 1e-2,
+     atol 1e-5), run once more with the launch counts at 0 (K2 and K3, or
+     K4, must launch inside it), timed beside eager;
  23. multi_card - more than one card's code paths, two ranks on the one
      card (torch.distributed, gloo over CUDA tensors: NCCL refuses two
      ranks on one device, which the phase confirms and prints): K1 at the
@@ -243,8 +254,17 @@ Phases, each printing JSON lines:
      --nproc_per_node 2 -m cosyvoice_tpu_torch.bin.train --mesh_model 2`
      for 2 steps, then a one-process resume (steps 3, 4); (e) the small
      stack's ContinuousSynthesizer with flow_device="cpu" against the
-     all-card run (CONT_WAV_TOL).  NCCL between cards and the flow's
-     overlap on a second card are not measured (one card);
+     all-card run (CONT_WAV_TOL); (f) the full-width LM in packed int4
+     (group 128) greedy at B=1 over MC_INT4_ROWS requests, MC_INT4_CAP
+     steps each, one process then TP(2) (the MLP sharded: K5 at [1, 896] -> 2432 and
+     [1, 2432] -> 896 a rank; attention whole): rows equal to one process
+     (printed), teacher-forced logits within MC_LOGITS_REL_TOL, K5's
+     launches by shape; (g) cosyvoice2_pho.yaml's LM (dropout off) one
+     DP(2) step and (h) cosyvoice2.yaml's LM with LoRA one TP(2) step, each
+     against one process (loss and grad_norm within MC_TRAIN_REL_TOL); K5
+     at the two local shapes against its plain version, timed beside
+     torch._weight_int4pack_mm (kernels-line rows).  NCCL between cards and
+     the flow's overlap on a second card are not measured (one card);
  24. timing  - at the main path's shapes: each kernel against its plain
      version on the same inputs, then the kernel, the plain version and the
      one PyTorch call that computes the same function, timed (CUDA events);
@@ -284,8 +304,12 @@ the gan phase (all zero), launches_deploy, its launches in the deploy
 phase's request from the assembled directory, launches_pho_train, its
 launches in the pho_train phase (the LoRA-merged request's alone), and
 launches_multi_card, its launches in the multi_card phase's ranks (summed)
-under DP(2) and TP(2); two K1 rows at the TP-local heads (launches: the
-ranks' full-width TP runs) follow the timing rows; the K2 and K3 rows add
+under DP(2) and TP(2) (and int4_tp, the int4 TP decode's K5 launches),
+and launches_export, its launches inside the export phase's reloaded
+programs; two K1 rows at the TP-local heads (launches: the ranks'
+full-width TP runs) and two K5 rows at the TP-local MLP shards (launches:
+the int4 TP decode's one-row calls at the row's shape, both ranks) follow
+the timing rows; the K2 and K3 rows add
 v1_shapes, their times at the v1 estimator's two levels.  The line
 before the card's line gives the whole run's seconds and each phase's.
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero.
@@ -378,10 +402,10 @@ INC_WAV_TOL = 1e-3
 # the continuous phase's full-width traffic (bench.py's engine section): 8
 # streams through 8 slots, 500 tokens a stream (min = max = 20 tokens a byte
 # of a 25-byte text), hop_scale 2.0
-CONT_STREAMS, CONT_TOKENS = 8, 250      # cut from 500 for the script's time
+CONT_STREAMS, CONT_TOKENS = 8, 150      # cut from 500 for the script's time
 CONT_TEXT = "The quick brown fox jumps"
 # the stream phase's decode cap (cut from 200 for the script's time)
-STREAM_CAP = 100
+STREAM_CAP = 60
 # the batched phase: new-text lengths of 5-10 bytes give decode caps of 100-200
 BATCH_TEXTS = ("Hello", "Hi there", "Good night", "See you", "Thank you", "Go ahead",
                "Next one", "Hi you")
@@ -807,17 +831,35 @@ def reference_check() -> dict:
     return res
 
 
+def serving_flow(seed: int):
+    """The full-width bf16 serving flow (FlowConfig() with the estimator's
+    fused attention and norm, K2 + K3) on the card, seeded random weights."""
+    import dataclasses
+
+    from cosyvoice_tpu_torch.models.flow import CausalMaskedDiffWithXvec, FlowConfig
+
+    fcfg = FlowConfig()
+    with torch.device("cuda"):
+        flow = CausalMaskedDiffWithXvec(dataclasses.replace(
+            fcfg, encoder_dtype="bfloat16", estimator=dataclasses.replace(
+                fcfg.estimator, dtype="bfloat16", fused_attention=True, fused_norm=True,
+                approx_gelu=True)))
+    rand_init_(flow, seed)
+    flow.encoder.to(torch.bfloat16)
+    flow.decoder.estimator.to(torch.bfloat16)
+    return flow
+
+
 def full_width_stack():
     """The full-width serving stack (LMConfig/FlowConfig/HiFTConfig defaults)
     on seeded random weights."""
     import dataclasses
 
-    from cosyvoice_tpu_torch.models.flow import CausalMaskedDiffWithXvec, FlowConfig
     from cosyvoice_tpu_torch.models.hift import HiFTConfig, HiFTGenerator
     from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LM
     from cosyvoice_tpu_torch.utils.quant import quantize_qwen_int8
 
-    lm_cfg, fcfg = LMConfig(), FlowConfig()
+    lm_cfg = LMConfig()
     with torch.device("cuda"):      # build the modules on the card directly
         fp = Qwen2LM(lm_cfg)
         rand_init_(fp, 12345)
@@ -827,13 +869,7 @@ def full_width_stack():
             lm_cfg.qwen, quant="int8", fused_cache_update=True))).to(torch.bfloat16)
         llm.load_state_dict(state, strict=True)
         del state
-        flow = CausalMaskedDiffWithXvec(dataclasses.replace(
-            fcfg, encoder_dtype="bfloat16", estimator=dataclasses.replace(
-                fcfg.estimator, dtype="bfloat16", fused_attention=True, fused_norm=True,
-                approx_gelu=True)))
-        rand_init_(flow, 12346)
-        flow.encoder.to(torch.bfloat16)
-        flow.decoder.estimator.to(torch.bfloat16)
+        flow = serving_flow(12346)
         hift = HiFTGenerator(dataclasses.replace(HiFTConfig(), dtype="bfloat16",
                                                  approx_sin=True))
         rand_init_(hift, 12347)
@@ -841,7 +877,7 @@ def full_width_stack():
     return llm, flow, hift
 
 
-def main_path(K1, K2, K3, smi: str, profile: bool) -> dict:
+def main_path(K1, K2, K3, smi: str) -> dict:
     from cosyvoice_tpu_torch.runtime.api import CosyVoice2
     from cosyvoice_tpu_torch.runtime.frontend import CosyVoiceFrontEnd
     from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model
@@ -910,10 +946,9 @@ def main_path(K1, K2, K3, smi: str, profile: bool) -> dict:
     emit(res)
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    if profile:
-        profile_request(lambda: request(len(texts), texts[-1]))
     res.update(last_decode=decodes[-1], first_prompt=prompts[0], first_text=texts[0],
-               prompt_wav=prompt, stack=(llm, flow, hift, frontend))
+               prompt_wav=prompt, stack=(llm, flow, hift, frontend), model=model,
+               request=request, texts=texts)
     return res
 
 
@@ -1122,7 +1157,7 @@ def int4_phase(res_main: dict, K1, K5, smi: str) -> dict:
 
 
 # the int4 phase's int4xla runs: greedy tokens a decode, the group size
-INT4XLA_TOKENS, INT4XLA_GROUP = 100, 128     # steps cut from 200 for the script's time
+INT4XLA_TOKENS, INT4XLA_GROUP = 50, 128      # steps cut from 200 for the script's time
 
 
 def projection_step(lm):
@@ -1960,6 +1995,9 @@ def serve_phase(res_main: dict, smi: str) -> dict:
 
 # the merges of the hand-built byte-level tokenizer (GPT-2 byte alphabet,
 # "Ġ" is a space): enough to merge a few common English pieces
+# the full-width requests from assembled directories (checkpoint, deploy,
+# pho_train): cut from 200 for the script's time
+CKPT_CAP = 100
 CKPT_MERGES = (("Ġ", "t"), ("h", "e"), ("Ġt", "he"), ("i", "n"), ("e", "r"), ("Ġ", "a"),
                ("o", "n"), ("r", "e"), ("Ġ", "s"), ("e", "n"), ("Ġ", "p"), ("o", "r"))
 
@@ -2167,7 +2205,7 @@ def frontend_ms(cv, prompts: dict, reps: int = 5) -> dict:
 
 def serve_cli_check(d: str, prompt: np.ndarray, timeout_s: float = 600.0) -> dict:
     """(c) `python -m cosyvoice_tpu_torch.bin.serve --model_dir d --fp16 --quant
-    int8 --continuous` in a subprocess on a free port: seconds from launch to
+    int8 --continuous --num_slots 2` in a subprocess on a free port: seconds from launch to
     /health 200 (load, warm-up and bind), one streamed zero-shot request
     (a well-formed chunked WAV), then the server is terminated."""
     import base64
@@ -2175,11 +2213,12 @@ def serve_cli_check(d: str, prompt: np.ndarray, timeout_s: float = 600.0) -> dic
     import os
     import threading
 
-    # a 60-token cap: the warm-up's rounds and the request decode up to it
-    # (cut from 200 to keep the script inside its time)
+    # a 60-token cap: the warm-up's rounds and the request decode up to it;
+    # 2 slots: warm-up rounds of 1 and 2 streams (the serve phase drives 8);
+    # both cut to keep the script inside its time
     cmd = [sys.executable, "-m", "cosyvoice_tpu_torch.bin.serve", "--model_dir", d, "--fp16",
            "--quant", "int8", "--continuous", "--host", "127.0.0.1", "--port", "0",
-           "--max-decode-tokens", "60"]
+           "--max-decode-tokens", "60", "--num_slots", "2"]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -2232,7 +2271,7 @@ def checkpoint_phase(res_main: dict, K1, K2, K3, K5, smi: str) -> dict:
     S3Config; fp32 .pt and .onnx files as released, seeded random weights)
     loaded with fp16=True, quant="int8": seconds a file, the frontend's
     milliseconds for a 3 s and a 10 s prompt, and 3 zero-shot requests from
-    raw 16 kHz prompt audio (200-token cap): latency, RTF, K2 launches (must
+    raw 16 kHz prompt audio (CKPT_CAP-token cap): latency, RTF, K2 launches (must
     be > 0: fp16 on the card takes the fused DiT attention); then one
     request loaded with quant="int4" (K5 launches must be > 0); (c) the
     command-line server over the same directory (serve_cli_check).  The
@@ -2272,7 +2311,7 @@ def checkpoint_phase(res_main: dict, K1, K2, K3, K5, smi: str) -> dict:
 
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        cv = from_pretrained(full, fp16=True, quant="int8", max_decode_tokens=200,
+        cv = from_pretrained(full, fp16=True, quant="int8", max_decode_tokens=CKPT_CAP,
                              device="cuda")
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
@@ -2303,7 +2342,7 @@ def checkpoint_phase(res_main: dict, K1, K2, K3, K5, smi: str) -> dict:
         torch.cuda.empty_cache()
 
         t0 = time.perf_counter()
-        cv = from_pretrained(full, fp16=True, quant="int4", max_decode_tokens=200,
+        cv = from_pretrained(full, fp16=True, quant="int4", max_decode_tokens=CKPT_CAP,
                              device="cuda")
         torch.cuda.synchronize()
         load4_s = time.perf_counter() - t0
@@ -2660,7 +2699,8 @@ def v1_phase(kernels: dict, smi: str) -> dict:
 # Qwen2LM_Phoneme_Src2) at full width, PHO_STREAMS streams of PHO_LEN seeded
 # phonemes, PHO_TOKENS tokens a stream (both token ratios PHO_TOKENS /
 # PHO_LEN), a 3 s prompt (75 tokens, 150 mel rows)
-PHO_STREAMS, PHO_TOKENS, PHO_LEN, PHO_PROMPT = 8, 200, 40, 75
+# PHO_TOKENS cut from 200 for the script's time
+PHO_STREAMS, PHO_TOKENS, PHO_LEN, PHO_PROMPT = 8, 100, 40, 75
 
 
 def pho_ids(rng, n: int, cfg) -> np.ndarray:
@@ -3247,7 +3287,8 @@ def lam_phase(kernels: dict, smi: str) -> dict:
 # phonemes with a 3 s prompt of MC_PROMPT aligned code rows (40 Hz) and a
 # 512-d speaker vector, MC_STEPS greedy steps; then MC_ROWS ragged rows
 MC_RECIPE = "cosyvoice2/conf/cosyvoice2_multicode.yaml"
-MC_STEPS, MC_TEXT, MC_PHONEMES, MC_PROMPT = 200, 20, 40, 120
+# MC_STEPS cut from 200 for the script's time
+MC_STEPS, MC_TEXT, MC_PHONEMES, MC_PROMPT = 100, 20, 40, 120
 MC_ROWS = ((20, 40, 120), (16, 33, 100), (12, 26, 80), (8, 19, 60))   # text, phonemes, prompt
 
 
@@ -4062,7 +4103,7 @@ def deploy_phase(kernels: dict, smi: str) -> dict:
     straight from the modules (write_model_dir), and a --ref_audio speaker;
     (4) from_pretrained (fp16, int8, greedy, K1's fused cache update, K3's
     fused LayerNorm) of the assembled directory and of the direct one: one
-    zero-shot request each from a 3 s 16 kHz prompt (200-token cap): load
+    zero-shot request each from a 3 s 16 kHz prompt (CKPT_CAP-token cap): load
     and request seconds, RTF, peak memory, every kernel's launches (all
     counts set to 0 just before the request, read just after); (5)
     `bin/export_serving_lm.py` of the averaged LM.  Gates: the tokens of
@@ -4156,7 +4197,7 @@ def deploy_phase(kernels: dict, smi: str) -> dict:
         def serve(d: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            cv = from_pretrained(d, fp16=True, quant="int8", max_decode_tokens=200,
+            cv = from_pretrained(d, fp16=True, quant="int8", max_decode_tokens=CKPT_CAP,
                                  lm_cfg=lm_cfg, flow_cfg=fcfg, device="cuda")
             torch.cuda.synchronize()
             load_s = time.perf_counter() - t0
@@ -4575,7 +4616,7 @@ def pho_lora_serve(tmp: str, kernels: dict) -> dict:
     fcfg = dataclasses.replace(fcfg, estimator=dataclasses.replace(fcfg.estimator,
                                                                    fused_norm=True))
     t0 = time.perf_counter()
-    cv = from_pretrained(deployed, fp16=True, quant="int8", max_decode_tokens=200,
+    cv = from_pretrained(deployed, fp16=True, quant="int8", max_decode_tokens=CKPT_CAP,
                          lm_cfg=lm_cfg, flow_cfg=fcfg, device="cuda")
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
@@ -4801,6 +4842,191 @@ def pho_train_phase(kernels: dict, smi: str) -> dict:
     return res
 
 
+# ---- export: the estimator as ExportedPrograms; one request under trace ----
+
+EXPORT_LENGTHS = (100, 200, 500)     # bin/export_aot.py's (the JAX CLI's)
+EXPORT_BLOCK_LENGTH = 200            # with fused_block (padded to 256: K4's route)
+
+
+@torch.no_grad()
+def export_phase(flow, kernels: dict, smi: str) -> dict:
+    """bin/export_aot.export_flow_estimator on the main path's bf16 serving
+    estimator (K2 + K3) at EXPORT_LENGTHS, then with fused_block (K4) at
+    EXPORT_BLOCK_LENGTH: each .pt2 reloaded and held to the eager estimator
+    at the export bar (rtol 1e-2, atol 1e-5; inside export_flow_estimator).
+    Here each reloaded program runs once more on other seeded inputs with
+    the launch counts at 0 (K2 and K3, or K4, must launch inside it) and is
+    timed beside the eager estimator (time_ms)."""
+    import os
+    import shutil
+    import tempfile
+
+    from cosyvoice_tpu_torch.bin import export_aot
+
+    names = ("dit_attention", "fused_layer_norm", "dit_block")
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="export_", dir=os.path.join(here, "build"))
+    est = flow.decoder.estimator
+    runs = []
+    try:
+        for T, block in [(T, False) for T in EXPORT_LENGTHS] + [(EXPORT_BLOCK_LENGTH, True)]:
+            set_fused_block(flow, block)
+            rep = export_aot.export_flow_estimator(
+                flow, os.path.join(tmp, "block" if block else "plain"), lengths=(T,),
+                seed=T)[T]
+            program = rep.pop("program")
+            args = export_aot.estimator_inputs(est, T, seed=T + 1)
+            for k in names:
+                kernels[k].launches = 0
+            out = program(*args)
+            torch.cuda.synchronize()
+            launches = {k: kernels[k].launches for k in names}
+            runs.append({"T": T, "fused_block": block, "export_s": rep["export_s"],
+                         "save_load_s": rep["save_load_s"], "max_abs_err": rep["max_abs_err"],
+                         "file_mb": os.path.getsize(rep["path"]) / 2 ** 20, "ops": rep["ops"],
+                         "launches": launches, "finite": bool(torch.isfinite(out).all()),
+                         "exported_ms": time_ms(lambda: program(*args), iters=5),
+                         "eager_ms": time_ms(lambda: est(*args), iters=5)})
+            del program
+    finally:
+        set_fused_block(flow, False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: sum(r["launches"][k] for r in runs) for k in names}
+    res = {"phase": "export", "card": smi, "runs": runs, "launches": launches,
+           "bar": {"rtol": export_aot.RTOL, "atol": export_aot.ATOL}}
+    emit(res)
+    gates = [all(r["finite"] for r in runs),
+             all(r["launches"]["dit_attention"] > 0 and r["launches"]["fused_layer_norm"] > 0
+                 for r in runs if not r["fused_block"]),
+             all(r["launches"]["dit_block"] > 0 for r in runs if r["fused_block"])]
+    if not all(gates):
+        raise AssertionError(f"export phase failed: {gates} {res}")
+    return res
+
+
+def busy_share(trace_path: str, window_s: float, top: int = 15) -> dict:
+    """Device kernel time of a Chrome trace (the union of its kernel events'
+    intervals, so overlapping streams count once) over a window, and the
+    `top` kernels by device time (kernel_key names)."""
+    events = [e for e in json.load(open(trace_path))["traceEvents"]
+              if e.get("cat") == "kernel" and "dur" in e]
+    by_name: dict = {}
+    for e in events:
+        ms, n = by_name.get(kernel_key(e["name"]), (0.0, 0))
+        by_name[kernel_key(e["name"])] = (ms + e["dur"] / 1e3, n + 1)
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"kernel_events": len(events), "kernel_ms": busy / 1e3,
+            "window_ms": window_s * 1e3, "busy_share": busy / 1e3 / (window_s * 1e3),
+            "top": [{"name": k, "ms": ms, "calls": n} for k, (ms, n) in
+                    sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]]}
+
+
+@torch.no_grad()
+def trace_phase(res_main: dict, smi: str) -> dict:
+    """The main path's last request again (its seed and text, the main
+    path's decode cap) under utils/profiling.trace: the trace file's device
+    busy share of the request's wall and its kernels by device time
+    (busy_share), beside the main path's own untraced run of the same
+    request (the profiler's host overhead lengthens the traced window)."""
+    import os
+    import shutil
+    import tempfile
+
+    from cosyvoice_tpu_torch.utils.profiling import trace
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="trace_", dir=os.path.join(here, "build"))
+    i = len(res_main["texts"]) - 1
+    untraced = res_main["requests"][i]
+    try:
+        with trace(tmp):
+            traced = res_main["request"](i, res_main["texts"][i])
+        t0 = time.perf_counter()
+        (path,) = [os.path.join(tmp, f) for f in os.listdir(tmp)]
+        share = busy_share(path, traced["latency_s"])
+        share["trace_mb"] = os.path.getsize(path) / 2 ** 20
+        share["read_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"phase": "trace", "card": smi, "cap": res_main["model"].max_decode_tokens,
+           "traced": traced, "untraced": untraced, **share,
+           "busy_share_of_untraced_wall": share["kernel_ms"] / (untraced["latency_s"] * 1e3)}
+    emit(res)
+    if not share["kernel_events"] or traced["speech_tokens"] != untraced["speech_tokens"]:
+        raise AssertionError(f"trace phase failed: {res}")
+    return res
+
+
+# the flow stage's A/B: a 75-token prompt (150 mel frames) and 200 new tokens,
+# the main path's shape
+FLOW_STAGE_TOKENS = (75, 200)
+
+
+@torch.no_grad()
+def flow_stage(label: str, runs: int = 20) -> dict:
+    """The main path's flow stage alone: serving_flow's `flow.inference`
+    (the encoder, then 10 Euler steps of the CFG-batched estimator) at
+    FLOW_STAGE_TOKENS on seeded inputs, one warm call, then `runs`
+    CUDA-synchronised walls -> their median and minimum (ms), and K2's and
+    K3's launches a call, printed as one JSON line."""
+    from cosyvoice_tpu_torch.ops.kernels import dit_attention as K2
+    from cosyvoice_tpu_torch.ops.kernels import fused_norm as K3
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flow = serving_flow(0).eval()
+    rng = np.random.default_rng(0)
+    n = sum(FLOW_STAGE_TOKENS)
+    dev = torch.device("cuda")
+    token = torch.as_tensor(rng.integers(0, flow.cfg.vocab_size, (1, n)), device=dev)
+    prompt_feat = torch.as_tensor(rng.standard_normal((1, 2 * FLOW_STAGE_TOKENS[0], 80)) * 0.5,
+                                  dtype=torch.float32, device=dev)
+    emb = torch.as_tensor(rng.standard_normal((1, flow.cfg.spk_embed_dim)),
+                          dtype=torch.float32, device=dev)
+    lengths = torch.tensor([n], device=dev)
+    call = lambda: flow.inference(token, lengths, prompt_feat, emb)  # noqa: E731
+    call()
+    K2.launches = K3.launches = 0
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    res = {"phase": "flow_stage", "label": label, "card": nvidia_smi(),
+           "flow_ms_median": float(np.median(walls)), "flow_ms_min": float(np.min(walls)),
+           "runs": runs, "k2_per_call": K2.launches / runs, "k3_per_call": K3.launches / runs}
+    emit(res)
+    return res
+
+
+def flow_stage_main(argv: list) -> int:
+    """`python3 chip_smoke.py --flow-stage TREE [--label L] [--runs N]`:
+    flow_stage on the package of the checkout at TREE (its kernels built
+    there), so one command times two trees side by side (parent, change,
+    change, parent)."""
+    import argparse
+    import os
+
+    p = argparse.ArgumentParser(prog="chip_smoke.py --flow-stage")
+    p.add_argument("tree")
+    p.add_argument("--label", default="")
+    p.add_argument("--runs", type=int, default=20)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.tree))
+    flow_stage(args.label, args.runs)
+    return 0
+
+
 # ---- multi_card: data and tensor parallelism, two ranks on the one card ----
 
 MC_WORLD = 2
@@ -4809,7 +5035,7 @@ MC_SEED = 1800
 # batched phase's texts give) and the prompt: 75 speech tokens, 150 mel frames
 MC_NEW_TEXT = (5, 7, 9, 10)
 MC_PROMPT_TOKENS = 75
-MC_CAP = 60                  # the full-width decode cap (all four rows reach it)
+MC_CAP = 40                  # the full-width decode cap (all four rows reach it)
 # teacher-forced logits of the sharded LM against the one-process LM on the
 # same weights (bf16 activations, int8 weights): max |diff| <= MC_LOGITS_REL_TOL
 # x max |one-process logits| over every row's valid positions.  Both round
@@ -4825,7 +5051,7 @@ MC_SMALL_WAV_TOL = (2e-3, 1e-3)
 # the DP training step (fp32, TF32 off) against the one-process step: loss and
 # grad_norm relative
 MC_TRAIN_REL_TOL = 1e-4
-MC_TRAIN_MICRO_STEPS = 3
+MC_TRAIN_MICRO_STEPS = 2
 # the train phase's global batch (TRAIN_ROWS x (TRAIN_TEXT + TRAIN_SPEECH))
 # split unevenly: data rank 1's rows keep MC_TRAIN_SHORT of their speech tokens
 MC_TRAIN_SHORT = 100
@@ -5028,6 +5254,221 @@ def mc_train(rank: int) -> dict:
     return out
 
 
+MC_INT4_CAP = 24             # the int4 TP decode's steps (greedy, B=1)
+MC_INT4_ROWS = 1             # the requests it decodes, one at a time
+MC_K5_LOCAL = ((896, 2432), (2432, 896))   # K5 at Qwen2-0.5B's TP(2) MLP shards
+MC_PHO_ROWS, MC_PHO_TEXT, MC_PHO_PHO, MC_PHO_SPEECH = 4, 30, 60, 200
+
+
+def mc_int4(rank: int) -> dict:
+    """(f) the full-width LM in packed int4 (group 128, bf16 activations;
+    the int4 phase's weights) under greedy lm_generate at B=1 (K5's decode
+    route) of the first MC_INT4_ROWS requests, MC_INT4_CAP steps each: one
+    process (rank 0, while rank 1 waits), then TP(2): the MLP sharded (K5
+    at [1, 896] -> 2432 and [1, 2432] -> 896 a rank), attention whole
+    (448 of its 896 input rows are 3.5 groups).  Tokens against one process, the teacher-forced logits, ms a step and
+    K5's launches by shape (the call site counted in this rank only)."""
+    from cosyvoice_tpu_torch.models import qwen2 as q2
+    from cosyvoice_tpu_torch.models.llm import LMConfig, Qwen2LM, SamplingConfig, lm_generate
+    from cosyvoice_tpu_torch.ops.kernels import int4_matmul as K5
+    from cosyvoice_tpu_torch.parallel.mesh import LM_RULES, make_mesh, shard_params
+    from cosyvoice_tpu_torch.utils.quant import quantize_qwen_int4
+
+    lm_cfg = LMConfig(sampling=SamplingConfig(method="greedy"))
+    with torch.device("cuda"):
+        fp = Qwen2LM(lm_cfg)
+        rand_init_(fp, 12345)
+        state = quantize_qwen_int4(fp.to(torch.bfloat16).state_dict(), group_size=128)
+        del fp
+        llm = Qwen2LM(dataclasses.replace(lm_cfg, qwen=dataclasses.replace(
+            lm_cfg.qwen, quant="int4", quant_group=128, fused_cache_update=True)))
+    llm.load_state_dict(state, strict=True, assign=True)    # bf16, fp32 scales
+    llm.eval()
+    del state
+    reqs = mc_requests(np.random.default_rng(MC_SEED), full=True)[:MC_INT4_ROWS]
+    B = len(reqs)
+    t = lambda a: torch.as_tensor(np.asarray(a), device="cuda")[None]  # noqa: E731
+    args = [(t(r.text_tokens), t(len(r.text_tokens)), t(r.prompt_speech_tokens),
+             t(len(r.prompt_speech_tokens)), t(MC_INT4_CAP), t(MC_INT4_CAP)) for r in reqs]
+    shapes: dict = {}
+    call = q2.int4_matmul
+
+    def counted(x, w, scale):
+        key = f"{x.shape[0] if x.shape[0] == 1 else 'prefill'}x{x.shape[1]}x{w.shape[1]}"
+        shapes[key] = shapes.get(key, 0) + 1
+        return call(x, w, scale)
+
+    def run(mesh) -> dict:
+        K5.launches = 0
+        shapes.clear()
+        torch.cuda.synchronize()
+        if mesh is not None:
+            torch.distributed.barrier()
+        t0 = time.perf_counter()
+        rows = [lm_generate(llm, *a, None, max_steps=MC_INT4_CAP, cache_len=512) for a in args]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return {"tokens": [o[0, :c[0]].cpu().numpy() for o, c in rows], "wall_s": wall,
+                "ms_per_step": wall * 1e3 / (MC_INT4_CAP * B), "k5_launches": K5.launches,
+                "k5_by_shape": dict(shapes)}
+
+    q2.int4_matmul = counted
+    try:
+        out, sent = {}, [None, None]
+        if rank == 0:
+            one = run(None)
+            ref, valid = mc_teacher_forced(llm, reqs, one["tokens"], slice(0, B))
+            out["one_process"] = {k: v for k, v in one.items() if k != "tokens"}
+            sent = [one["tokens"], None]
+        torch.distributed.broadcast_object_list(sent, src=0)   # the teacher's tokens
+        tokens = sent[0]
+        mesh = make_mesh(1, 2)
+        shard_params(llm, mesh, LM_RULES)
+        layer = llm.body.layers[0]
+        tp = run(mesh)
+        out["tp"] = {k: v for k, v in tp.items() if k != "tokens"}
+        out["tp"]["sharded"] = {"attention": layer.tp_attn is not None,
+                                "mlp": layer.tp_mlp is not None}
+        got, _ = mc_teacher_forced(llm, reqs, tokens, slice(0, B))   # collective
+        out["tp"]["tokens_equal_rows"] = [bool(np.array_equal(a, b))
+                                          for a, b in zip(tp["tokens"], tokens)]
+        if rank == 0:
+            agree = float((got.argmax(-1) == ref.argmax(-1))[valid].float().mean())
+            out["tp"].update(logits_rel=float((got - ref).abs().max() / ref.abs().max()),
+                             tf_argmax_agreement=agree,
+                             wall_vs_one_process=tp["wall_s"] / one["wall_s"])
+    finally:
+        q2.int4_matmul = call
+    del llm
+    torch.cuda.empty_cache()
+    return out
+
+
+def mc_train_pair(rank: int) -> dict:
+    """(g) cosyvoice2_pho.yaml's LM (Qwen2LMPhonemeSrc2 at full width,
+    fp32, TF32 off, dropout off: no_dropout) one step on a seeded
+    labelled batch of MC_PHO_ROWS rows under DP(2), each rank its rows of
+    it, against one process on the whole batch (rank 0, rank 1 waiting);
+    (h) cosyvoice2.yaml's LM with LoRA (r 8, alpha 16 on q/k/v/o, the train
+    CLI's defaults) one step under TP(2) (b's rows of q/k/v, a's columns
+    of o a rank) against one process.  Loss and grad_norm relative, seconds
+    and peak memory a rank."""
+    from cosyvoice_tpu_torch.config import RECIPES, build_model, load_config, recipe_config
+    from cosyvoice_tpu_torch.models.llm import Qwen2LM
+    from cosyvoice_tpu_torch.parallel.mesh import LM_RULES, make_mesh, shard_params
+    from cosyvoice_tpu_torch.train import optim
+    from cosyvoice_tpu_torch.train import step as tstep
+    from cosyvoice_tpu_torch.train.lora import (LoRAConfig, LoRAOverlay, init_lora,
+                                                lora_loss_fn, shard_overlay)
+
+    def one_step(model, loss_fn, batch, mesh, specs=None) -> dict:
+        tx, _ = optim.make_optimizer("adam", 1e-5, "constantlr", {}, grad_clip=5.0)
+        st = tstep.make_train_state(model, tx, mesh, specs)
+        fn = tstep.make_train_step(loss_fn, tx, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = fn(st, tstep.to_device(batch, "cuda"), tstep.step_generator(MC_SEED, 0, "cuda"))
+        loss, norm = m["loss"].item(), m["grad_norm"].item()
+        return {"loss": loss, "grad_norm": norm, "step_s": time.perf_counter() - t0,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+    out = {}
+    rng = np.random.default_rng(MC_SEED + 5)
+    # (g) the phoneme LM under DP(2)
+    conf = no_dropout(load_config(RECIPES / PHO_TRAIN_RECIPE)["llm"])
+    kind = conf.pop("kind")
+    cfg = recipe_config(PHO_TRAIN_RECIPE, "llm")
+    n = MC_PHO_ROWS
+    batch = {"text_token": rng.integers(0, cfg.qwen.vocab_size, (n, MC_PHO_TEXT)),
+             "text_token_len": np.array([MC_PHO_TEXT, 24, 18, 12]),
+             "pho_token": np.stack([pho_ids(rng, MC_PHO_PHO, cfg.phoneme) for _ in range(n)]),
+             "pho_token_len": np.array([MC_PHO_PHO, 50, 40, 30]),
+             "speech_token": rng.integers(0, cfg.speech_token_size, (n, MC_PHO_SPEECH)),
+             "speech_token_len": np.array([MC_PHO_SPEECH, 180, 60, 40]),
+             "embedding": rng.standard_normal((n, cfg.spk_embed_dim)).astype(np.float32)}
+    model = build_model(kind, conf, "cuda")[0]
+    rand_init_(model, 1900)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.enable_grad():
+        if rank == 0:
+            out["pho_one_process"] = one_step(model, tstep.phoneme_llm_loss_fn, batch, None)
+            model.load_state_dict(init)
+        torch.distributed.barrier()
+        mesh = make_mesh(2, 1)
+        out["pho_dp"] = one_step(model, tstep.phoneme_llm_loss_fn,
+                                 tstep.shard_batch(batch, mesh), mesh)
+    del model, init
+    torch.cuda.empty_cache()
+    # (h) LoRA over the LM under TP(2)
+    lcfg = LoRAConfig()
+    with torch.device("cuda"):
+        base = Qwen2LM(recipe_config(TRAIN_RECIPE, "llm"))
+    rand_init_(base, 1500)
+    lm_batch = train_lm_batch(base.cfg.qwen.vocab_size, base.cfg.speech_token_size, rng, 4,
+                              TRAIN_TEXT, TRAIN_SPEECH)
+    overlay = init_lora(base, lcfg, torch.Generator(device="cuda").manual_seed(MC_SEED))
+    with torch.enable_grad():
+        if rank == 0:
+            ov = LoRAOverlay({n: {k: v.clone() for k, v in ab.items()}
+                              for n, ab in overlay.items()})
+            out["lora_one_process"] = one_step(ov, lora_loss_fn(base, tstep.llm_loss_fn, lcfg),
+                                               lm_batch, None)
+        torch.distributed.barrier()
+        mesh = make_mesh(1, 2)
+        _, specs = shard_params(base, mesh, LM_RULES)
+        ov = shard_overlay(overlay, specs, mesh.tp)
+        out["lora_tp"] = one_step(ov, lora_loss_fn(base, tstep.llm_loss_fn, lcfg), lm_batch,
+                                  mesh, ov.specs())
+        out["lora_tp"]["factors_split"] = sorted(set(ov.split.values()))
+    del base, overlay, ov
+    torch.cuda.empty_cache()
+    return out
+
+
+def no_dropout(conf):
+    """A recipe section with every dropout rate 0: a data-parallel step of a
+    model that draws dropout masks at its rows' shapes equals one process's
+    only without them."""
+    if isinstance(conf, dict):
+        return {k: 0.0 if "dropout" in k else no_dropout(v) for k, v in conf.items()}
+    return conf
+
+
+def mc_k5_local(K5) -> list:
+    """K5 at the TP-local shapes of Qwen2-0.5B's MLP at model 2 (MC_K5_LOCAL,
+    one row, bf16, group 128): the launch plan, the kernel held to its plain
+    version, then timed beside it and torch._weight_int4pack_mm; one
+    kernels-line row each."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(19)
+    rows = []
+    for IN, OUT in MC_K5_LOCAL:
+        x = torch.randn(1, IN, generator=g, device=dev).to(bf)
+        w = K5.pack_int4(torch.randint(-7, 8, (IN, OUT), generator=g, device=dev))
+        sc = torch.rand(IN // 128, OUT, generator=g, device=dev) * 0.02 + 1e-3
+        err = check(f"int4_matmul_tp_1x{IN}x{OUT}", bf, K5.int4_matmul(x, w, sc),
+                    K5.int4_matmul_plain(x, w, sc), phase="multi_card")
+        k5 = lambda: K5.int4_matmul(x, w, sc)  # noqa: E731
+        try:
+            lib = int4pack_call(x, w, sc)
+            lib_t = dict(library_ms=time_ms(lib), **dev_time(lib, "library_dev"),
+                         library_call="torch._weight_int4pack_mm (zero points 0)")
+        except (RuntimeError, AttributeError, NotImplementedError) as e:
+            lib_t = dict(library_ms=None, library_dev_ms=None, library_error=str(e)[:300])
+        rows.append(dict(
+            name="int4_matmul", source="cosyvoice_tpu_torch/csrc/int4_matmul.cu",
+            replaces="cosyvoice_tpu/ops/pallas/int4_matmul.py:84", shape=[1, IN, OUT],
+            local_shard="Qwen2-0.5B MLP at model 2 (int4, group 128)",
+            launches_from="multi_card (full-width int4 TP decode)",
+            plan=K5.plan(1, IN, OUT, 128), ms=time_ms(k5), **dev_time(k5),
+            plain_ms=time_ms(lambda: K5.int4_matmul_plain(x, w, sc)), **lib_t,
+            # packed weights, scales, x and y, each once
+            bytes=IN // 2 * OUT + IN // 128 * OUT * 4 + (IN + OUT) * 2, flops=2 * IN * OUT,
+            max_abs_err=err))
+    return rows
+
+
 def multi_card_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     """One rank of the multi_card phase: joins the group (the backend
     init picks: gloo over CUDA tensors on a shared card), then (b), (a) and
@@ -5057,9 +5498,14 @@ def multi_card_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         t2 = time.perf_counter()
         train = mc_train(rank)
         t3 = time.perf_counter()
+        int4 = mc_int4(rank)
+        t4 = time.perf_counter()
+        pair = mc_train_pair(rank)
+        t5 = time.perf_counter()
         res = {"rank": rank, "backend": backend, "device": str(torch.cuda.current_device()),
-               "small": small, "full": full, "train": train,
-               "seconds": {"small": t1 - t0, "full": t2 - t1, "train": t3 - t2}}
+               "small": small, "full": full, "train": train, "int4": int4, "pair": pair,
+               "seconds": {"small": t1 - t0, "full": t2 - t1, "train": t3 - t2,
+                           "int4": t4 - t3, "train_pair": t5 - t4}}
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
@@ -5266,6 +5712,7 @@ def multi_card_phase(kernels: dict, smi: str) -> dict:
     t_phase = time.perf_counter()
     K1 = kernels["lm_decode_attention"]
     k1_rows = mc_k1_local(K1)
+    k5_rows = mc_k5_local(kernels["int4_matmul"])
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(here, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="multi_card_", dir=os.path.join(here, "build"))
@@ -5314,9 +5761,25 @@ def multi_card_phase(kernels: dict, smi: str) -> dict:
            # (the small stack's TP run has other heads, in fp32)
            "k1_tp_full_launches": sum(r["full"]["tp"]["launches"]["lm_decode_attention"]
                                       for r in ranks),
+           "k5_tp_local": [{k: row[k] for k in ("shape", "plan", "max_abs_err", "ms", "dev_ms",
+                                                "plain_ms", "library_ms", "library_dev_ms")}
+                           for row in k5_rows],
+           "int4": {"one_process": ranks[0]["int4"]["one_process"],
+                    "tp_by_rank": [r["int4"]["tp"] for r in ranks]},
+           "pair": [r["pair"] for r in ranks],
            "not_measured": "NCCL between cards and the flow's overlap on a second card "
                            "(one card on this machine)",
            "phase_s": time.perf_counter() - t_phase}
+    # the int4 TP decode's K5 launches, both ranks: all, and by call shape
+    res["k5_tp_launches"] = sum(r["int4"]["tp"]["k5_launches"] for r in ranks)
+    res["k5_tp_by_shape"] = {k: sum(r["int4"]["tp"]["k5_by_shape"].get(k, 0) for r in ranks)
+                             for k in ranks[0]["int4"]["tp"]["k5_by_shape"]}
+    pair_one = ranks[0]["pair"]
+    pair_rel = {run: max(max(rel_errs([r["pair"][f"{run}_{mode}"][k]],
+                                      [pair_one[f"{run}_one_process"][k]])
+                             for k in ("loss", "grad_norm")) for r in ranks)
+                for run, mode in (("pho", "dp"), ("lora", "tp"))}
+    res["pair_max_rel_err"] = pair_rel
     emit(res)
     full = [r["full"] for r in ranks]
     small = [r["small"] for r in ranks]
@@ -5329,32 +5792,16 @@ def multi_card_phase(kernels: dict, smi: str) -> dict:
              train_rel <= MC_TRAIN_REL_TOL,
              cli["finite"] and cli["steps"] == [1, 2, 3, 4]
              and [r["latest_step"] for r in cli["runs"]] == [2, 4],
-             split["ok"]]
+             split["ok"],
+             all(r["int4"]["tp"]["sharded"] == {"attention": False, "mlp": True}
+                 and r["int4"]["tp"]["k5_launches"] > 0 for r in ranks),
+             ranks[0]["int4"]["tp"]["logits_rel"] <= MC_LOGITS_REL_TOL,
+             max(pair_rel.values()) <= MC_TRAIN_REL_TOL,
+             ranks[0]["pair"]["lora_tp"]["factors_split"] == ["a", "b"]]
     if not all(gates):
         raise AssertionError(f"multi_card phase failed: {gates} {res}")
-    res["k1_rows"] = k1_rows
+    res["k1_rows"], res["k5_rows"] = k1_rows, k5_rows
     return res
-
-
-def profile_request(run) -> None:
-    """One more request under torch.profiler: device kernel time by name and
-    the device's busy share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-
-    # device-side events only: the CPU ops' entries repeat their kernels' time
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    emit({"phase": "profile", "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
-          "device_busy_share": busy_ms / (wall * 1e3),
-          "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:25]]})
 
 
 def kernel_times(fn, n: int = 10) -> dict:
@@ -5786,8 +6233,8 @@ def main() -> int:
     errs["dit_block"] = clocked("block_kernel", block_checks, K4)
     errs["snake_aa"] = clocked("snake_kernel", snake_checks, K7)
     clocked("reference", reference_check)
-    res = clocked("main_path", main_path, K1, K2, K3, smi,
-                  profile="--profile" in sys.argv[1:])
+    res = clocked("main_path", main_path, K1, K2, K3, smi)
+    clocked("trace", trace_phase, res, smi)
     # later slices' paths: K6 from the fused_step phase, K5 from the int4
     # phase, K4 from the batched phase (the engine phase drives K1 per row),
     # K7 from the bigvgan phase (the stream phase drives K1-K3)
@@ -5815,11 +6262,13 @@ def main() -> int:
     deploy = clocked("deploy", deploy_phase, kernels, smi)
     pho_train = clocked("pho_train", pho_train_phase, kernels, smi)
     flow = res["stack"][1]
-    del res["stack"]
+    exported = clocked("export", export_phase, flow, kernels, smi)
+    del res["stack"], res["model"], res["request"]
     multi = clocked("multi_card", multi_card_phase, kernels, smi)
     rows = clocked("timing", timing, K1, K2, K3, K4, K5, K6, K7, res["last_decode"], flow,
                    batched["block_shape"])
-    for row in multi["k1_rows"]:        # K1 at the tensor-parallel local heads
+    # K1 at the tensor-parallel local heads, K5 at the local MLP shards
+    for row in multi["k1_rows"] + multi["k5_rows"]:
         t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = row["flops"] / BF16_FLOPS * 1e3
         rows.append(dict(row, route="cuda", peak_flops=BF16_FLOPS, bound_ms=max(t_bytes, t_ops),
@@ -5834,7 +6283,9 @@ def main() -> int:
             row["launches"] = vocoder["k7_launches_by_stage"].get(
                 "x".join(map(str, row["shape"][1:])), 0)
         elif row.get("launches_from", "").startswith("multi_card"):
-            row["launches"] = multi["k1_tp_full_launches"]
+            # K5: the TP decode's one-row calls at this row's shape
+            row["launches"] = (multi["k1_tp_full_launches"] if row["name"] == "lm_decode_attention"
+                               else multi["k5_tp_by_shape"]["x".join(map(str, row["shape"]))])
         else:
             row["launches"] = k1_engine if "launches_from" in row else launches[row["name"]]
         row["launches_continuous"] = {
@@ -5862,6 +6313,10 @@ def main() -> int:
         # the multi_card phase's ranks (summed) under DP(2) and under TP(2)
         row["launches_multi_card"] = {run: multi["launches"][run].get(row["name"], 0)
                                       for run in ("dp", "tp")}
+        row["launches_multi_card"]["int4_tp"] = (multi["k5_tp_launches"]
+                                                 if row["name"] == "int4_matmul" else 0)
+        # inside the reloaded exported estimators (the export phase)
+        row["launches_export"] = exported["launches"].get(row["name"], 0)
         row.update(edge_max_abs_err=errs[row["name"]],
                    tolerance=tolerance.get(row["name"], CHECK_TOL[torch.bfloat16]),
                    kernel_ms=row["ms"])
@@ -5874,4 +6329,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--flow-stage"]:
+        sys.exit(flow_stage_main(sys.argv[2:]))
     sys.exit(main())

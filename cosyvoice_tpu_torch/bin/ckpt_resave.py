@@ -21,7 +21,13 @@ written: W += (lora_alpha / lora_r) * B @ A on each weight the overlay
 names (train/lora.merge_lora), from a lora.npz of the port's train CLI
 (port names) or of the JAX one (flax paths, mapped by
 convert.lora_overlay_from_jax).  The JAX CLI writes .npz parameter trees
-instead of .pt files; its --out_prefix (bare .npz exports) is not ported.
+into its directory instead of .pt files.
+
+--out_prefix P writes the JAX CLI's bare exports instead: P.llm.npz,
+P.flow.npz and P.hift.npz, each sub-model's JAX parameter tree (the
+state dict, --lora_npz merged into the LLM, through convert.*_state_to_jax)
+flattened by utils/npz_io.flatten_params, the same keys and arrays as the
+JAX CLI writes from the same .pt files.
 """
 from __future__ import annotations
 
@@ -133,6 +139,33 @@ def assemble_dir(out_dir: str, llm_pt=None, flow_pt=None, hift_pt=None, base_llm
     return out_dir
 
 
+def write_prefix_npz(prefix: str, llm_pt=None, flow_pt=None, hift_pt=None, base_llm_pt=None,
+                     base_flow_pt=None, base_hift_pt=None, lora_npz=None, lora_r: int = 8,
+                     lora_alpha: float = 16) -> list:
+    """The JAX CLI's --out_prefix exports: <prefix>.<stem>.npz for each
+    sub-model given -> the paths written."""
+    from cosyvoice_tpu_torch import convert
+    from cosyvoice_tpu_torch.utils.npz_io import flatten_params
+
+    if lora_npz and not llm_pt:
+        raise ValueError("--lora_npz merges into the LLM: give --llm_pt")
+    written = []
+    for stem, pt, base, strip, to_jax in (
+            ("llm", llm_pt, base_llm_pt, "", convert.lm_state_to_jax),
+            ("flow", flow_pt, base_flow_pt, "", convert.flow_state_to_jax),
+            ("hift", hift_pt, base_hift_pt, "generator.", convert.hift_state_to_jax)):
+        if not pt:
+            continue
+        sd = load_sub_model(pt, base, strip_prefix=strip)
+        if stem == "llm" and lora_npz:
+            sd = merge_lora_overlay(sd, lora_npz, lora_r, lora_alpha)
+        path = f"{prefix}.{stem}.npz"
+        np.savez(path, **flatten_params(to_jax(sd, strict=False)))
+        print(f"wrote {path}")
+        written.append(path)
+    return written
+
+
 def main(argv: Optional[list] = None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--llm_pt", default=None)
@@ -152,15 +185,19 @@ def main(argv: Optional[list] = None) -> None:
                    help="register SPK in spk2info.npz with WAV's speaker vector (repeatable)")
     p.add_argument("--out_dir", default=None, help="the deployable model directory")
     p.add_argument("--out_prefix", default=None,
-                   help="the JAX CLI's bare .npz exports; not ported: use --out_dir")
+                   help="write the JAX CLI's bare <prefix>.<model>.npz parameter trees")
     p.add_argument("--device", default=None,
                    help="where CAMPPlus runs for --ref_audio: cuda (the default) or cpu")
     args = p.parse_args(argv)
-    if args.out_prefix:
-        raise NotImplementedError("--out_prefix writes the JAX package's bare .npz parameter "
-                                  "trees; the port writes a .pt model directory: use --out_dir")
+    if not (args.out_dir or args.out_prefix):
+        p.error("need --out_dir or --out_prefix")
     if not args.out_dir:
-        p.error("need --out_dir")
+        write_prefix_npz(args.out_prefix, llm_pt=args.llm_pt, flow_pt=args.flow_pt,
+                         hift_pt=args.hift_pt, base_llm_pt=args.base_llm_pt,
+                         base_flow_pt=args.base_flow_pt, base_hift_pt=args.base_hift_pt,
+                         lora_npz=args.lora_npz, lora_r=args.lora_r,
+                         lora_alpha=args.lora_alpha)
+        return
     assemble_dir(args.out_dir, llm_pt=args.llm_pt, flow_pt=args.flow_pt, hift_pt=args.hift_pt,
                  base_llm_pt=args.base_llm_pt, base_flow_pt=args.base_flow_pt,
                  base_hift_pt=args.base_hift_pt, lora_npz=args.lora_npz, lora_r=args.lora_r,

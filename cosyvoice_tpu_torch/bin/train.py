@@ -48,18 +48,22 @@ phoneme kind (the JAX CLI reads the shards as jsonl).
 More than one process (parallel/): one process a rank, started by torchrun
 or with the --coordinator_address / --num_processes / --process_id triple;
 --mesh_data x --mesh_model lays the ranks out (data -1: world / model).
-The LM kind qwen2lm shards by the tensor-parallel rules (LM_RULES); the
-other kinds replicate.  Each data rank reads its share of the shards
-(static batches drop their last partial batch by default, as the JAX CLI),
-all ranks stop together when one runs out, rank 0 logs and checkpoints, on
-cuda:{LOCAL_RANK % device_count} unless --device cpu:
+The LM kind qwen2lm and the Qwen2 phoneme kinds shard by the
+tensor-parallel rules (LM_RULES), as the JAX CLI's; the other kinds
+replicate.  Each data rank reads its share of the shards (static batches
+drop their last partial batch by default, as the JAX CLI), and a phoneme
+LM's data rank labels its own batches (the ranks of a model group label
+the same ones); all ranks stop together when one runs out, rank 0 logs and
+checkpoints, on cuda:{LOCAL_RANK % device_count} unless --device cpu.
+--lora trains the overlay over the sharded base (train/lora.shard_overlay)
+and writes the whole factors:
 
   python -m torch.distributed.run --nproc_per_node 2 -m cosyvoice_tpu_torch.bin.train \\
       --config conf.yaml --model llm --train_data data/train.list --model_dir exp/llm \\
-      --mesh_model 2
+      --mesh_model 2 [--lora]
 
-GAN training, the phoneme kinds and --lora under a mesh raise (ROADMAP
-Queue 1 item 11b).
+GAN training on more than one process raises: the JAX CLI's GAN branch
+takes no mesh, so each of its processes trains a copy of its own.
 """
 from __future__ import annotations
 
@@ -76,19 +80,19 @@ from cosyvoice_tpu_torch.config import build_model, load_config
 from cosyvoice_tpu_torch.data import pipeline as pp
 from cosyvoice_tpu_torch.device import resolve_device
 from cosyvoice_tpu_torch.parallel import distributed as dist
-from cosyvoice_tpu_torch.parallel.mesh import ITEM_11B, LM_RULES, make_mesh, shard_params
+from cosyvoice_tpu_torch.parallel.mesh import LM_RULES, make_mesh, shard_params
 from cosyvoice_tpu_torch.tokenizer.text import ByteTokenizer, QwenTokenizer
 from cosyvoice_tpu_torch.train.checkpoint import latest_step, restore_checkpoint
-from cosyvoice_tpu_torch.train.executor import Executor, GanExecutor
+from cosyvoice_tpu_torch.train.executor import GAN_ONE_PROCESS, Executor, GanExecutor
 from cosyvoice_tpu_torch.train.optim import make_optimizer
 from cosyvoice_tpu_torch.train.step import (flow_loss_fn, llm_loss_fn, make_train_state,
                                             make_train_step, phoneme_llm_loss_fn, to_device,
                                             transformer_lm_loss_fn)
 
-TP_KINDS = ("qwen2lm",)     # the kinds LM_RULES shard; the others replicate
 LOSSES = {"qwen2lm": llm_loss_fn, "transformer_lm": transformer_lm_loss_fn,
           "flow": flow_loss_fn, "flow_stream": flow_loss_fn, "flow_v1": flow_loss_fn}
 PHONEME_KINDS = ("qwen2lm_phoneme", "qwen2lm_phoneme_src", "qwen2lm_phoneme_src2")
+TP_KINDS = ("qwen2lm",) + PHONEME_KINDS   # the kinds LM_RULES shard; the others replicate
 GAN_MODELS = ("hift", "bigvgan", "vits")
 JAX_PHONEME_BRANCH = ("the JAX CLI sends every --model llm kind with 'phoneme' in its name "
                       "to run_phoneme_llm_training")
@@ -167,11 +171,13 @@ def make_dataset(list_file: str, conf: dict, tokenizer, epoch: int, gan: bool = 
 
 
 def make_phoneme_dataset(list_file: str, conf: dict, tokenizer, pho_tokenizer, epoch: int,
-                         data_format: str = "spk_json") -> pp.Pipeline:
-    """The phoneme LMs' pipeline: the prosody-mark crop and the factored
-    phoneme ids after the jsonl stages, static batches by default, and the
-    padded audio rows (at the mel hop) that the online labelers read."""
-    return pp.Pipeline(_shards(list_file, epoch), _opener(data_format)[0], *[
+                         data_format: str = "spk_json", rank: int = 0,
+                         world_size: int = 1) -> pp.Pipeline:
+    """The phoneme LMs' pipeline over rank `rank` of `world_size`'s shards:
+    the prosody-mark crop and the factored phoneme ids after the jsonl
+    stages, static batches by default, and the padded audio rows (at the
+    mel hop) that the online labelers read."""
+    return pp.Pipeline(_shards(list_file, epoch, rank, world_size), _opener(data_format)[0], *[
         pp.filter_samples(**conf.get("filter", {})),
         pp.truncate_phoneme_sequence(**conf.get("truncate_phoneme", {}), seed=epoch),
         pp.resample(conf.get("sample_rate", 24000)),
@@ -180,7 +186,7 @@ def make_phoneme_dataset(list_file: str, conf: dict, tokenizer, pho_tokenizer, e
         pp.tokenize_phoneme(pho_tokenizer),
         pp.shuffle(conf.get("shuffle_buf", 10000), seed=epoch),
         pp.sort_by_feat_len(conf.get("sort_buf", 500)),
-        _batcher(conf, "static"),
+        _batcher(conf, "static", world_size),
         pp.padding(gan=conf.get("fbank", {}).get("hop", 480),
                    static_lens=conf.get("static_lens")),
     ])
@@ -211,11 +217,9 @@ def _refuse(args, conf: dict, kind: str) -> None:
     if args.data_format == "parquet" and kind in PHONEME_KINDS:
         raise NotImplementedError(f"--data_format parquet with {kind!r}: {JAX_PHONEME_BRANCH}, "
                                   "which reads parquet shards as jsonl")
-    if _multi_process(args) and (args.model in GAN_MODELS or kind in PHONEME_KINDS
-                                 or _use_lora(args, conf)):
-        what = ("GAN training" if args.model in GAN_MODELS else
-                f"the phoneme kind {kind!r}" if kind in PHONEME_KINDS else "--lora")
-        raise NotImplementedError(f"{what} under a mesh or several processes: {ITEM_11B}")
+    if _multi_process(args) and args.model in GAN_MODELS:
+        raise NotImplementedError(f"GAN training under a mesh or several processes: "
+                                  f"{GAN_ONE_PROCESS}")
 
 
 def _multi_process(args) -> bool:
@@ -259,35 +263,41 @@ def main(argv: Optional[list] = None) -> None:
     torch.manual_seed(seed)
     model, _ = build_model(kind, model_conf, device)
     model.to(device)
+    use_lora = _use_lora(args, conf)
+    if use_lora:
+        from cosyvoice_tpu_torch.train.lora import (LoRAConfig, init_lora, lora_loss_fn,
+                                                    shard_overlay, target_pattern)
+
+        lora_conf = conf.get("lora_conf", {})
+        pats = lora_conf.get("patterns", ["q_proj", "k_proj", "v_proj", "o_proj"])
+        lcfg = LoRAConfig(r=int(lora_conf.get("rank", 8)), alpha=int(lora_conf.get("alpha", 16)),
+                          target_patterns=(target_pattern(pats),))
+        # drawn over the whole model, then sliced as the base is
+        overlay = init_lora(model, lcfg, torch.Generator(device=device).manual_seed(seed))
+        if not overlay:
+            raise ValueError(f"lora patterns matched no weights: {pats}")
     specs = shard_params(model, mesh, LM_RULES)[1] if world > 1 and kind in TP_KINDS else None
     tokenizer = QwenTokenizer(args.tokenizer_path) if args.tokenizer_path else ByteTokenizer()
 
     if args.model in GAN_MODELS:
         run_gan_training(args, conf, model, train_conf, tokenizer, device, seed)
         return
+    multi = mesh if world > 1 else None
     if kind in PHONEME_KINDS:
-        run_phoneme_llm_training(args, conf, model, train_conf, tokenizer, device, seed)
+        run_phoneme_llm_training(args, conf, model, train_conf, tokenizer, device, seed,
+                                 multi, specs)
         return
     tx = _optimizer(train_conf)
     loss_fn, train_model = LOSSES[kind], model
-    use_lora = _use_lora(args, conf)
     if use_lora:
-        from cosyvoice_tpu_torch.train.lora import (LoRAConfig, LoRAOverlay, init_lora,
-                                                    lora_loss_fn, target_pattern)
-
-        lora_conf = conf.get("lora_conf", {})
-        pats = lora_conf.get("patterns", ["q_proj", "k_proj", "v_proj", "o_proj"])
-        lcfg = LoRAConfig(r=int(lora_conf.get("rank", 8)), alpha=int(lora_conf.get("alpha", 16)),
-                          target_patterns=(target_pattern(pats),))
-        overlay = init_lora(model, lcfg, torch.Generator(device=device).manual_seed(seed))
-        if not overlay:
-            raise ValueError(f"lora patterns matched no weights: {pats}")
         loss_fn = lora_loss_fn(model, loss_fn, lcfg)
-        train_model = LoRAOverlay(overlay).to(device)
+        train_model = shard_overlay(overlay, specs or {}, mesh.tp if specs else None)
+        train_model.to(device)
+        specs = train_model.specs()
         logging.info("LoRA finetune: %d adapters (r=%d alpha=%s)", len(overlay), lcfg.r,
                      lcfg.alpha)
     state = make_train_state(train_model, tx, mesh, specs)
-    step = make_train_step(loss_fn, tx, mesh if world > 1 else None)
+    step = make_train_step(loss_fn, tx, multi)
     if latest_step(args.model_dir) is not None:
         state, at = restore_checkpoint(args.model_dir, state)
         logging.info("resumed from step %d", at)
@@ -299,7 +309,7 @@ def main(argv: Optional[list] = None) -> None:
     ex = Executor(train_step=step, model_dir=args.model_dir, device=device,
                   save_per_step=train_conf.get("save_per_step", -1),
                   log_interval=train_conf.get("log_interval", 100), rng_seed=seed,
-                  cv_step=cv_step, mesh=mesh if world > 1 else None)
+                  cv_step=cv_step, mesh=multi)
     ex.step = state.step
     move = lambda b: to_device(b, device)  # noqa: E731
     shard = dict(rank=args.rank, world_size=args.world_size)
@@ -313,7 +323,9 @@ def main(argv: Optional[list] = None) -> None:
         if use_lora:
             from cosyvoice_tpu_torch.train.lora import lora_state_dict
 
-            np.savez(os.path.join(args.model_dir, "lora.npz"), **lora_state_dict(state.model))
+            arrays = lora_state_dict(state.model)       # gathered on every rank
+            if dist.rank_and_world()[0] == 0:
+                np.savez(os.path.join(args.model_dir, "lora.npz"), **arrays)
 
 
 def online_labeler(conf: dict, device, s3_ckpt: Optional[str] = None,
@@ -349,9 +361,11 @@ def online_labeler(conf: dict, device, s3_ckpt: Optional[str] = None,
 
 
 def run_phoneme_llm_training(args, conf: dict, model, train_conf: dict, tokenizer, device,
-                             seed: int) -> None:
+                             seed: int, mesh=None, specs: Optional[dict] = None) -> None:
     """A Qwen2 phoneme LM's training over the speaker-JSON (or jsonl) corpus,
-    each batch labelled online (train/online_codec.online_codec_epoch)."""
+    each batch labelled online (train/online_codec.online_codec_epoch); on
+    `mesh` (more than one process) each data rank over its share of the
+    shards, the model sharded by `specs`."""
     from cosyvoice_tpu_torch.tokenizer.phoneme import PhonemeTokenizer
     from cosyvoice_tpu_torch.train.online_codec import online_codec_epoch
 
@@ -359,20 +373,22 @@ def run_phoneme_llm_training(args, conf: dict, model, train_conf: dict, tokenize
     pho_tok = PhonemeTokenizer(dconf["phoneme_dict"])
     labeler = online_labeler(conf, device, args.s3_ckpt, args.spk_ckpt)
     tx = _optimizer(train_conf)
-    state = make_train_state(model, tx)
-    step = make_train_step(phoneme_llm_loss_fn, tx)
+    state = make_train_state(model, tx, mesh, specs)
+    step = make_train_step(phoneme_llm_loss_fn, tx, mesh)
     if latest_step(args.model_dir) is not None:
         state, at = restore_checkpoint(args.model_dir, state)
         logging.info("resumed from step %d", at)
     ex = Executor(train_step=step, model_dir=args.model_dir, device=device,
                   save_per_step=train_conf.get("save_per_step", -1),
-                  log_interval=train_conf.get("log_interval", 100), rng_seed=seed)
+                  log_interval=train_conf.get("log_interval", 100), rng_seed=seed, mesh=mesh)
     ex.step = state.step
+    data_rank = mesh.data_rank if mesh is not None else 0
     for epoch in range(args.epochs):
         ds = make_phoneme_dataset(args.train_data, dconf, tokenizer, pho_tok, epoch,
-                                  args.data_format)
+                                  args.data_format, args.rank, args.world_size)
         state = online_codec_epoch(ex, state, labeler, iter(ds),
-                                   to_device=lambda b: to_device(b, device), seed=epoch)
+                                   to_device=lambda b: to_device(b, device), seed=epoch,
+                                   data_rank=data_rank)
 
 
 def gan_training(name: str, model, conf: dict, device) -> tuple:

@@ -16,7 +16,9 @@ in forward-correlation form) becomes torch's [Cin, Cout, K], as does a
 plain transposed conv's kernel.  `train_state_from_jax` carries a
 training run's trees (params, gradients) by registry kind, a LoRA train
 state's too; `lora_overlay_from_jax` maps a JAX LoRA overlay (or its
-lora.npz) to the port's parameter names.
+lora.npz) to the port's parameter names.  `lm_state_to_jax`,
+`flow_state_to_jax` and `hift_state_to_jax` go the other way (the JAX
+trees that bin/ckpt_resave.py --out_prefix writes).
 """
 from __future__ import annotations
 
@@ -789,3 +791,187 @@ def lora_overlay_from_jax(overlay, port_names) -> dict:
         out[hits[0]] = {k: _t(v) if not isinstance(v, torch.Tensor) else v
                         for k, v in ab.items()}
     return out
+
+
+# ---- the port's state_dicts -> JAX parameter trees --------------------------
+#
+# The inverses of lm_state_from_jax, flow_state_from_jax (the CosyVoice2 flow)
+# and hift_state_from_jax, driven by the state dict's names (the reference
+# checkpoint's): each rule maps a name pattern to a flax path and the layout
+# change that undoes the forward map's.  A name no rule takes raises.
+
+def _np(t) -> np.ndarray:
+    t = t.detach().cpu() if isinstance(t, torch.Tensor) else t
+    if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16:
+        t = t.float()
+    return np.asarray(t)
+
+
+_INV = {
+    "id": lambda a: a,
+    "T": lambda a: a.T,
+    "conv": lambda a: a.transpose(2, 1, 0),               # [Cout, Cin, K] -> [K, Cin, Cout]
+    "convT": lambda a: a.transpose(2, 0, 1)[::-1],        # [Cin, Cout, K] -> k-flipped [K, Cin, Cout]
+    "g": lambda a: a.reshape(1, 1, -1),                   # weight_g [out, 1, 1] -> g [1, 1, out]
+    "gT": lambda a: a.reshape(1, -1, 1),                  # a transposed conv's [in, 1, 1]
+}
+
+
+def _dense_rules(port: str, jax: str) -> list:
+    return [(rf"{port}\.weight", rf"{jax}/kernel", "dense"),
+            (rf"{port}\.bias", rf"{jax}/bias", "id"),
+            (rf"{port}\.scale", rf"{jax}/scale", "id")]
+
+
+def _ln_rules(port: str, jax: str) -> list:
+    return [(rf"{port}\.weight", rf"{jax}/scale", "id"), (rf"{port}\.bias", rf"{jax}/bias", "id")]
+
+
+def _conv_rules(port: str, jax: str, kind: str = "conv") -> list:
+    return [(rf"{port}\.weight", rf"{jax}/kernel", kind), (rf"{port}\.bias", rf"{jax}/bias", "id")]
+
+
+def _wn_rules(port: str, jax: str, kind: str = "conv") -> list:
+    return [(rf"{port}\.weight_g", rf"{jax}/g", "gT" if kind == "convT" else "g"),
+            (rf"{port}\.weight_v", rf"{jax}/v", kind),
+            (rf"{port}\.bias", rf"{jax}/bias", "id")]
+
+
+def _to_jax(sd: dict, rules: list, strict: bool = True) -> dict:
+    """{name: tensor} -> {"params": nested flax dicts of numpy arrays} by
+    `rules` [(name regex, path template or fn(match) -> path, layout)]; a
+    name no rule takes raises, or with strict=False is left out (as the
+    JAX package's importers leave out what they do not read)."""
+    compiled = [(re.compile(p + "$"), path, how) for p, path, how in rules]
+    tree: dict = {}
+    for name, value in sd.items():
+        for pat, path, how in compiled:
+            m = pat.match(name)
+            if m:
+                break
+        else:
+            if strict:
+                raise KeyError(f"no JAX path for {name}")
+            print(f"  [to_jax] not a parameter of the JAX tree, left out: {name}")
+            continue
+        a = _np(value)
+        if how == "dense":      # QDense int4 / int4xla kernels keep the JAX layout
+            scale = sd.get(name[:-len("weight")] + "scale")
+            how = "id" if scale is not None and scale.ndim == 2 else "T"
+        elif how == "wn":       # a weight-normed conv's leaf, by its name
+            how = {"g": "g", "v": "conv"}.get(name.rsplit("_", 1)[-1], "id")
+        node = tree
+        parts = (path(m) if callable(path) else m.expand(path)).split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        try:
+            node[parts[-1]] = np.ascontiguousarray(_INV[how](a))
+        except ValueError as e:
+            raise ValueError(f"{name} {a.shape} by {pat.pattern} ({how}): {e}") from None
+    return {"params": tree}
+
+
+def lm_state_to_jax(sd: dict, strict: bool = True) -> dict:
+    """A Qwen2LM state_dict (the port's, or a reference llm.pt) -> the JAX
+    package's Qwen2LM params (the inverse of lm_state_from_jax)."""
+    body, layer = r"llm\.model\.model\.", r"llm\.model\.model\.layers\.(\d+)\."
+    return _to_jax(sd, [
+        (body + r"embed_tokens\.weight", "llm/embed_tokens/embedding", "id"),
+        (body + r"norm\.weight", "llm/norm", "id"),
+        (layer + r"(input_layernorm|post_attention_layernorm)\.weight", r"llm/layers_\1/\2", "id"),
+        *_dense_rules(layer + r"(?:self_attn|mlp)\.(\w+)", r"llm/layers_\1/\2"),
+        (r"(llm_embedding|speech_embedding)\.weight", r"\1/embedding", "id"),
+        *_dense_rules(r"llm_decoder", "llm_decoder"),
+    ], strict)
+
+
+def _conformer_layer_rules(port: str, jax: str) -> list:
+    """One conformer layer's names (`port` a regex with the layer's groups)."""
+    return [
+        *_ln_rules(port + r"(norm_mha|norm_ff|norm_ff_macaron|norm_conv|norm_final)",
+                   jax + r"/\3"),
+        *_dense_rules(port + r"self_attn\.(linear_\w+)", jax + r"/self_attn/\3"),
+        (port + r"self_attn\.(pos_bias_[uv])", jax + r"/self_attn/\3", "id"),
+        *_dense_rules(port + r"feed_forward\.(w_[12])", jax + r"/ff/\3"),
+        *_dense_rules(port + r"feed_forward_macaron\.(w_[12])", jax + r"/ff_macaron/\3"),
+        *_dense_rules(port + r"spk_linear", jax + "/spk_linear"),
+        *_conv_rules(port + r"conv_module\.(pointwise_conv1|depthwise_conv|pointwise_conv2)",
+                     jax + r"/conv_module/\3"),
+        *_ln_rules(port + r"conv_module\.norm", jax + "/conv_module/norm"),
+    ]
+
+
+def _estimator_rules(port: str, jax: str, causal: bool = True) -> list:
+    level = port + r"(down|mid|up)_blocks\.(\d+)\."
+    lvl = jax + r"/\1_\2"
+    norm = "2" if causal else "1"
+    rules = [*_dense_rules(port + r"time_mlp\.(linear_[12])", jax + r"/time_mlp/\1")]
+    for blk in ("block1", "block2"):
+        rules += _conv_rules(level + rf"0\.{blk}\.block\.0", lvl + f"_resnet/{blk}/conv")
+        rules += _ln_rules(level + rf"0\.{blk}\.block\.{norm}", lvl + f"_resnet/{blk}/norm")
+    rules += [*_dense_rules(level + r"0\.mlp\.1", lvl + "_resnet/mlp"),
+              *_conv_rules(level + r"0\.res_conv", lvl + "_resnet/res_conv"),
+              *_ln_rules(level + r"1\.(\d+)\.(norm[13])", lvl + r"_tb_\3/\4"),
+              (level + r"1\.(\d+)\.attn1\.(to_[qkv])\.weight", lvl + r"_tb_\3/\4", "T"),
+              *_dense_rules(level + r"1\.(\d+)\.attn1\.to_out\.0", lvl + r"_tb_\3/to_out"),
+              *_dense_rules(level + r"1\.(\d+)\.ff\.net\.0\.proj", lvl + r"_tb_\3/ff_in"),
+              *_dense_rules(level + r"1\.(\d+)\.ff\.net\.2", lvl + r"_tb_\3/ff_out")]
+    resample = lambda m: f"{m.group(1)}_{m.group(2)}_" + (  # noqa: E731
+        "downsample" if m.group(1) == "down" else "upsample")
+    for sub, kinds in (("", ("down", "up")), ("conv/", ("down",)), ("conv/", ("up",))):
+        how = "convT" if kinds == ("up",) and sub else "conv"
+        pat = port + rf"({'|'.join(kinds)})_blocks\.(\d+)\.2\.{sub.replace('/', '.')}"
+        rules += [(pat + "weight", lambda m, sub=sub: f"{jax}/{resample(m)}/{sub}kernel", how),
+                  (pat + "bias", lambda m, sub=sub: f"{jax}/{resample(m)}/{sub}bias", "id")]
+    rules += [*_conv_rules(port + r"final_block\.block\.0", jax + "/final_block/conv"),
+              *_ln_rules(port + rf"final_block\.block\.{norm}", jax + "/final_block/norm"),
+              *_conv_rules(port + r"final_proj", jax + "/final_proj")]
+    return rules
+
+
+def flow_state_to_jax(sd: dict, strict: bool = True) -> dict:
+    """A CausalMaskedDiffWithXvec state_dict -> the JAX package's params
+    (the inverse of flow_state_from_jax)."""
+    enc = r"encoder\."
+    return _to_jax(sd, [
+        (r"input_embedding\.weight", "input_embedding/embedding", "id"),
+        *_dense_rules(r"spk_embed_affine_layer", "spk_embed_affine_layer"),
+        *_dense_rules(r"encoder_proj", "encoder_proj"),
+        *_dense_rules(enc + r"(embed|up_embed)\.out\.0", r"encoder/\1/linear"),
+        *_ln_rules(enc + r"(embed|up_embed)\.out\.1", r"encoder/\1/norm"),
+        *_conv_rules(enc + r"pre_lookahead_layer\.(conv[12])", r"encoder/pre_lookahead_layer/\1"),
+        *_conv_rules(enc + r"up_layer\.conv", "encoder/up_layer/conv"),
+        *_ln_rules(enc + r"after_norm", "encoder/after_norm"),
+        *_conformer_layer_rules(enc + r"(encoders|up_encoders)\.(\d+)\.", r"encoder/\1_\2"),
+        *_estimator_rules(r"decoder\.estimator\.", "decoder/estimator"),
+    ], strict)
+
+
+def hift_state_to_jax(sd: dict, strict: bool = True) -> dict:
+    """A HiFTGenerator state_dict (without `generator.`) -> the JAX
+    package's params (the inverse of hift_state_from_jax)."""
+    ups = len({k.split(".")[1] for k in sd if k.startswith("ups.")})
+    nk = len({k.split(".")[1] for k in sd if k.startswith("resblocks.")}) // max(ups, 1)
+    rb = lambda m: f"resblocks_{int(m.group(1)) // nk}_{int(m.group(1)) % nk}"  # noqa: E731
+
+    def resblock(port: str, jax) -> list:
+        """jax: a path prefix, or fn(match) -> one."""
+        pre = jax if callable(jax) else (lambda m: m.expand(jax))
+        return [
+            (port + r"\.(convs[12])\.(\d+)\.(weight_g|weight_v|bias)",
+             lambda m: f"{pre(m)}/{m.group(2)}_{m.group(3)}/"
+             + {"weight_g": "g", "weight_v": "v", "bias": "bias"}[m.group(4)], "wn"),
+            (port + r"\.activations([12])\.(\d+)\.alpha",
+             lambda m: f"{pre(m)}/act{m.group(2)}_{m.group(3)}/alpha", "id")]
+
+    rules = [*_wn_rules(r"(conv_pre|conv_post)", r"\1"),
+             *_dense_rules(r"m_source\.l_linear", "m_source/l_linear"),
+             (r"f0_predictor\.condnet\.(\d+)\.(weight_g|weight_v|bias)",
+              lambda m: f"f0_predictor/conv_{int(m.group(1)) // 2}/"
+              + {"weight_g": "g", "weight_v": "v", "bias": "bias"}[m.group(2)], "wn"),
+             *_dense_rules(r"f0_predictor\.classifier", "f0_predictor/classifier"),
+             *_wn_rules(r"ups\.(\d+)", r"ups_\1", "convT"),
+             *_conv_rules(r"source_downs\.(\d+)", r"source_downs_\1"),
+             *resblock(r"source_resblocks\.(\d+)", r"source_resblocks_\1"),
+             *resblock(r"resblocks\.(\d+)", rb)]
+    return _to_jax(sd, rules, strict)

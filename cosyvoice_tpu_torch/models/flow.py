@@ -159,6 +159,16 @@ class ResnetBlock1D(nn.Module):
         return h + self.res_conv(x * mask[..., None]), x1, x2
 
 
+def _block_layout(params, dtype) -> tuple:
+    """(wq, wk, wv, wo, bo, g1, b1, g3, b3, wi, bi, wo2, bo2) in torch's layout
+    -> dit_block_fused's operands: [in, out] matrices in `dtype`, fp32
+    vectors."""
+    wq, wk, wv, wo, bo, g1, b1, g3, b3, wi, bi, wo2, bo2 = params
+    mat = lambda w: w.t().to(dtype).contiguous()  # noqa: E731
+    return tuple(v.float().contiguous() if v.ndim == 1 else mat(v) for v in
+                 (g1, b1, torch.cat([wq, wk, wv], 0), wo, bo, g3, b3, wi, bi, wo2, bo2))
+
+
 class DiTBlock(nn.Module):
     """diffusers BasicTransformerBlock (self-attention + gelu FF)."""
 
@@ -189,13 +199,13 @@ class DiTBlock(nn.Module):
                   a["to_out"][0].bias, self.norm1.weight, self.norm1.bias, self.norm3.weight,
                   self.norm3.bias, net[0]["proj"].weight, net[0]["proj"].bias, net[2].weight,
                   net[2].bias)
+        if torch.compiler.is_compiling():
+            # traced (torch.export): the layout ops go into the graph; a
+            # traced tensor has no storage to key the cache on
+            return _block_layout(params, dtype)
         key = (dtype,) + tuple((p.data_ptr(), p._version) for p in params)
         if self._block_weights[0] != key:
-            wq, wk, wv, wo, bo, g1, b1, g3, b3, wi, bi, wo2, bo2 = (p.detach() for p in params)
-            mat = lambda w: w.t().to(dtype).contiguous()
-            self._block_weights = (key, tuple(
-                v.float().contiguous() if v.ndim == 1 else mat(v) for v in
-                (g1, b1, torch.cat([wq, wk, wv], 0), wo, bo, g3, b3, wi, bi, wo2, bo2)))
+            self._block_weights = (key, _block_layout([p.detach() for p in params], dtype))
         return self._block_weights[1]
 
     def forward(self, x, attn_bias: Optional[torch.Tensor],

@@ -45,7 +45,6 @@ from cosyvoice_tpu_torch.ops.kernels.lm_step import (StepWeights, cache_to_step_
 from cosyvoice_tpu_torch.ops.masks import NEG_INF, make_non_pad_mask
 from cosyvoice_tpu_torch.parallel.collectives import (ModelGroup, ParallelDense,
                                                       ParallelEmbedding)
-from cosyvoice_tpu_torch.parallel.mesh import ITEM_11B
 
 IGNORE_ID = -1
 
@@ -542,8 +541,11 @@ def lm_generate_fused_step(model: Qwen2LM, step_w: StepWeights, text, text_len,
     if text.shape[0] != 1:
         raise ValueError("lm_generate_fused_step decodes one row (B=1)")
     if model.tp is not None:
-        raise NotImplementedError("the whole-step decode kernel (lm_step) under tensor "
-                                  f"parallelism: {ITEM_11B}")
+        raise NotImplementedError(
+            "the whole-step decode kernel (lm_step) under tensor parallelism: the JAX "
+            "package has no such route (no code of it calls lm_generate_fused_step, "
+            "cosyvoice_tpu/models/llm.py:411, and its mesh tests have no such case); "
+            "decode a sharded LM with lm_generate")
     embeds, seq_len = model.prefill_embeds(text, text_len, prompt_speech,
                                            prompt_speech_len)
     Tp, D = embeds.shape[1:]

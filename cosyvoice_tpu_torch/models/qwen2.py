@@ -37,7 +37,6 @@ from cosyvoice_tpu_torch.ops.kernels.lm_decode_attention import lm_decode_attent
 from cosyvoice_tpu_torch.ops.masks import NEG_INF
 from cosyvoice_tpu_torch.parallel.collectives import (ModelGroup, ParallelEmbedding,
                                                       copy_to_model, reduce_from_model)
-from cosyvoice_tpu_torch.parallel.mesh import ITEM_11B
 
 
 @dataclass(frozen=True)
@@ -134,6 +133,22 @@ class QDense(nn.Module):
             self.weight = nn.Parameter(torch.randn(out_features, in_features)
                                        * in_features ** -0.5)
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def tp_spec(self, attr: str, weight_spec: tuple) -> Optional[tuple]:
+        """The tensor-parallel spec of this module's `attr`, given the rules'
+        spec of a torch [out, in] weight; None where the rules hold as they
+        are (the float and int8 layouts).  int4 and int4xla keep flax's
+        [in(/2), out] weight and [in/g, out] scale, so a column-parallel
+        projection (out sharded) shards dim 1 of both and a row-parallel
+        one (in sharded) dim 0 of both."""
+        if self.quant not in ("int4", "int4xla"):
+            return None
+        if not weight_spec:
+            return ()
+        column = weight_spec[0] == "model"
+        if attr == "bias":
+            return ("model",) if column else ()
+        return (None, "model") if column else ("model", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quant == "int4":
@@ -306,11 +321,26 @@ class Qwen2Model(nn.Module):
     def _tp_split(self, size: int) -> tuple[bool, bool, bool]:
         """(embedding, attention, mlp): which blocks shard over `size` ranks.
         A rank holds whole heads, so attention shards only when both head
-        counts divide; the embedding and the MLP when their widths do."""
+        counts divide; the embedding and the MLP when their widths do.  Under
+        int4 / int4xla a row-parallel projection (o_proj, down_proj) takes
+        whole scale groups a rank (and so, packed int4, whole bytes): its
+        block stays whole where its input width over `size` is not a
+        multiple of the group (int4_matmul has no group offset).  Qwen2-0.5B
+        at 2 ranks: the MLP shards (4864 / 2 = 19 x 128), attention not
+        (896 / 2 = 3.5 x 128)."""
         c = self.cfg
+
+        def rows_split(width: int) -> bool:
+            if width % size:
+                return False
+            if c.quant not in ("int4", "int4xla"):
+                return True
+            return (width // size) % min(c.quant_group, width) == 0
+
         return (c.vocab_size % size == 0,
-                c.num_heads % size == 0 and c.num_kv_heads % size == 0,
-                c.intermediate_size % size == 0)
+                c.num_heads % size == 0 and c.num_kv_heads % size == 0
+                and rows_split(c.num_heads * c.head_dim),
+                rows_split(c.intermediate_size))
 
     def tp_blocks(self, size: int) -> list[str]:
         """The submodules (names relative to the body) that run sharded over
@@ -324,11 +354,8 @@ class Qwen2Model(nn.Module):
     def shard_(self, tp: ModelGroup) -> None:
         """Run as this rank's part of the model group `tp`: the blocks of
         tp_blocks(tp.size) take the group, and the config (the body's and
-        each layer's) the local head and intermediate counts.  int4 weights
-        do not shard (K5 under tensor parallelism waits)."""
-        if self.cfg.quant in ("int4", "int4xla"):
-            raise NotImplementedError(f"tensor parallelism over {self.cfg.quant} weights: "
-                                      f"{ITEM_11B}")
+        each layer's) the local head and intermediate counts; int4 and
+        int4xla shards run K5 / the int4xla einsums on the local blocks."""
         embed, attn, mlp = self._tp_split(tp.size)
         c, n = self.cfg, tp.size
         local = dataclasses.replace(

@@ -153,6 +153,20 @@ def check_launch(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
 
+def needs_autograd(name: str, *tensors: torch.Tensor) -> bool:
+    """True where a call must keep a graph for a backward (grad on and a
+    tensor wanting a gradient): the caller then runs its plain PyTorch
+    version, which is differentiable, on the CPU.  On a CUDA tensor it
+    raises instead, as require_cuda does: the kernels have no backward.
+    A registered operator cannot tell, since PyTorch runs its kernel with
+    grad off, so its wrapper asks first."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
+        return False
+    if tensors[0].device.type != "cpu":
+        require_cuda(name, *tensors)
+    return True
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """The launch's tensors on one CUDA device, contiguous, and none of
     them wanting a gradient: the kernels have no backward, so a launch

@@ -1,9 +1,11 @@
 """Non-causal multi-head self-attention with per-row prefix key lengths (the
 DiT blocks of the flow estimator).
 
-`dit_attention_packed` / `dit_attention` launch the CUDA kernel in
-`csrc/dit_attention.cu` for CUDA tensors (bf16 on the tensor cores, fp32 on
-the SIMT units) and run `dit_attention_plain` for CPU tensors.  Port of
+`dit_attention_packed` / `dit_attention` call the PyTorch operators
+`torch.ops.cosyvoice.dit_attention_packed` / `dit_attention` (registered
+here, ops/kernels/operators.py): on CUDA tensors they launch the kernel in
+`csrc/dit_attention.cu` (bf16 on the tensor cores, fp32 on the SIMT units),
+on CPU tensors they run `dit_attention_plain`.  Port of
 cosyvoice_tpu/ops/pallas/dit_attention.py; unlike the TPU kernel, any T
 works (no 128-row alignment).
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from cosyvoice_tpu_torch.ops.kernels import build
+from cosyvoice_tpu_torch.ops.kernels.operators import define
 
 # kernel launches so far (plain integer; callers may reset it to 0)
 launches = 0
@@ -57,19 +60,18 @@ def _launch(q, k, v, out, lengths, B, T, H, D, in_strides, out_strides, sm_scale
     launches += 1
 
 
-def dit_attention_packed(qkv: torch.Tensor, lengths: torch.Tensor, sm_scale: float,
-                         head_dim: int = 64) -> torch.Tensor:
-    """Attention read straight out of the packed [B, T, 3*H*D] projection
-    (lane order q | k | v, heads minor).  Returns o [B, T, H*D]."""
+def _packed_plain(qkv, lengths, sm_scale: float, head_dim: int) -> torch.Tensor:
     B, T, HD3 = qkv.shape
-    if HD3 % (3 * head_dim):
-        raise ValueError(f"dit_attention_packed: last dim {HD3} is not 3*H*{head_dim}")
+    HD = HD3 // 3
+    q, k, v = (qkv[..., i * HD:(i + 1) * HD].reshape(B, T, HD // head_dim, head_dim)
+               for i in range(3))
+    return dit_attention_plain(q, k, v, lengths, sm_scale).reshape(B, T, HD)
+
+
+def _packed_kernel(qkv, lengths, sm_scale: float, head_dim: int) -> torch.Tensor:
+    B, T, HD3 = qkv.shape
     HD = HD3 // 3
     H = HD // head_dim
-    if qkv.device.type == "cpu":
-        q, k, v = (qkv[..., i * HD:(i + 1) * HD].reshape(B, T, H, head_dim)
-                   for i in range(3))
-        return dit_attention_plain(q, k, v, lengths, sm_scale).reshape(B, T, HD)
     build.require_cuda("dit_attention_packed", qkv)
     out = torch.empty((B, T, HD), dtype=qkv.dtype, device=qkv.device)
     base, isz = qkv.data_ptr(), qkv.element_size()
@@ -78,14 +80,17 @@ def dit_attention_packed(qkv: torch.Tensor, lengths: torch.Tensor, sm_scale: flo
     return out
 
 
-def dit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  lengths: torch.Tensor, sm_scale: float) -> torch.Tensor:
-    """q/k/v [B, T, H, D] -> o [B, T, H, D]; keys j >= lengths[b] excluded."""
+def _packed_fake(qkv, lengths, sm_scale, head_dim):
+    B, T, HD3 = qkv.shape
+    return qkv.new_empty((B, T, HD3 // 3))
+
+
+_PACKED = define("dit_attention_packed(Tensor qkv, Tensor lengths, float sm_scale, "
+                 "int head_dim) -> Tensor", _packed_plain, _packed_kernel, _packed_fake)
+
+
+def _unpacked_kernel(q, k, v, lengths, sm_scale: float) -> torch.Tensor:
     B, T, H, D = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("dit_attention: q, k and v must share one shape")
-    if q.device.type == "cpu":
-        return dit_attention_plain(q, k, v, lengths, sm_scale)
     build.require_cuda("dit_attention", q, k, v)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("dit_attention: q, k and v must share one dtype")
@@ -94,3 +99,31 @@ def dit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, lengths, B, T, H, D,
             strides, strides, sm_scale, "dit_attention")
     return out
+
+
+_UNPACKED = define("dit_attention(Tensor q, Tensor k, Tensor v, Tensor lengths, "
+                   "float sm_scale) -> Tensor", dit_attention_plain, _unpacked_kernel,
+                   lambda q, k, v, lengths, sm_scale: torch.empty_like(
+                       q, memory_format=torch.contiguous_format))
+
+
+def dit_attention_packed(qkv: torch.Tensor, lengths: torch.Tensor, sm_scale: float,
+                         head_dim: int = 64) -> torch.Tensor:
+    """Attention read straight out of the packed [B, T, 3*H*D] projection
+    (lane order q | k | v, heads minor).  Returns o [B, T, H*D]."""
+    HD3 = qkv.shape[-1]
+    if HD3 % (3 * head_dim):
+        raise ValueError(f"dit_attention_packed: last dim {HD3} is not 3*H*{head_dim}")
+    if build.needs_autograd("dit_attention_packed", qkv):
+        return _packed_plain(qkv, lengths, sm_scale, head_dim)
+    return _PACKED(qkv, lengths, float(sm_scale), int(head_dim))
+
+
+def dit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  lengths: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    """q/k/v [B, T, H, D] -> o [B, T, H, D]; keys j >= lengths[b] excluded."""
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("dit_attention: q, k and v must share one shape")
+    if build.needs_autograd("dit_attention", q, k, v):
+        return dit_attention_plain(q, k, v, lengths, sm_scale)
+    return _UNPACKED(q, k, v, lengths, float(sm_scale))

@@ -2,10 +2,11 @@
 projection, H-head self-attention over per-row prefix key lengths, out
 projection + bias + residual, LayerNorm, tanh-GELU FFN + residual.
 
-`dit_block_fused` launches the CUDA kernels in `csrc/dit_block.cu` for CUDA
-tensors (three launches on one stream, counted as one; in bf16 the attention
-launch is K2's kernel, `csrc/dit_attention.cu`) and runs
-`dit_block_plain`, the same function in plain PyTorch, for CPU tensors.  Port
+`dit_block_fused` calls the PyTorch operator `torch.ops.cosyvoice.dit_block`
+(registered here, ops/kernels/operators.py): on CUDA tensors it launches the kernels in `csrc/dit_block.cu` (three
+launches on one stream, counted as one; in bf16 the attention launch is K2's
+kernel, `csrc/dit_attention.cu`), on CPU tensors it runs `dit_block_plain`,
+the same function in plain PyTorch.  Port
 of cosyvoice_tpu/ops/pallas/dit_block.py: the weights keep its layout (wqkv
 [dim, 3*inner] with lanes q | k | v and heads minor, wo [inner, dim], wi
 [dim, ff], wo2 [ff, dim]) and its rounding points; the softmax is exact and
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from cosyvoice_tpu_torch.ops.kernels import build
+from cosyvoice_tpu_torch.ops.kernels.operators import define
 from cosyvoice_tpu_torch.ops.kernels.fused_norm import layer_norm_plain
 
 # kernel launches so far (plain integer; callers may reset it to 0)
@@ -114,38 +116,14 @@ def dit_block_plain(x, lengths, g1, b1, wqkv, wo, bo, g3, b3, wi, bi, wo2, bo2,
     return (y, o) if return_attention else y
 
 
-def dit_block_fused(x: torch.Tensor, lengths: torch.Tensor, g1, b1, wqkv, wo, bo, g3, b3,
-                    wi, bi, wo2, bo2, sm_scale: float, heads: int, head_dim: int,
-                    return_attention: bool = False):
-    """x [B, T, dim] (fp32 or bf16), lengths [B] int32 -> y [B, T, dim].
-
-    Keys j >= lengths[b] are masked for every query of row b (the pad mask
-    must be prefix-contiguous); rows i >= lengths[b] are computed over the
-    same keys and left for the caller to mask.  g1/b1/g3/b3/bo/bo2 [dim],
-    bi [ff]; wqkv [dim, 3*inner], wo [inner, dim], wi [dim, ff], wo2 [ff, dim]
-    in x.dtype.  With `return_attention`, returns (y, o): o [B, T, inner] is
-    the attention output before the out projection, heads minor, so the
-    attention branch can be held on its own."""
+def _kernel(x, lengths, g1, b1, wqkv, wo, bo, g3, b3, wi, bi, wo2, bo2, sm_scale: float,
+            heads: int, head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, o): the block's output and its attention output."""
     global launches
+    args = (g1, b1, wqkv, wo, bo, g3, b3, wi, bi, wo2, bo2)
     B, T, dim = x.shape
     inner, ff = heads * head_dim, wi.shape[-1]
-    shapes = {"wqkv": (wqkv, (dim, 3 * inner)), "wo": (wo, (inner, dim)),
-              "wi": (wi, (dim, ff)), "wo2": (wo2, (ff, dim)), "bi": (bi, (ff,)),
-              "lengths": (lengths, (B,)),
-              **{n: (v, (dim,)) for n, v in (("g1", g1), ("b1", b1), ("bo", bo),
-                                               ("g3", g3), ("b3", b3), ("bo2", bo2))}}
-    bad = {n: tuple(t.shape) for n, (t, want) in shapes.items() if tuple(t.shape) != want}
-    if bad:
-        raise ValueError(f"dit_block_fused: x{tuple(x.shape)} with {heads}x{head_dim} "
-                         f"heads and ff {ff} does not take {bad}")
-    args = (g1, b1, wqkv, wo, bo, g3, b3, wi, bi, wo2, bo2)
-    if x.device.type == "cpu":
-        return dit_block_plain(x, lengths, *args, sm_scale, heads, head_dim, return_attention)
-    g1, b1, bo, g3, b3, bi, bo2 = (v.float().contiguous() for v in (g1, b1, bo, g3, b3,
-                                                                     bi, bo2))
-    lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
-    build.require_cuda("dit_block_fused", x, lengths, wqkv, wo, wi, wo2, g1, b1, bo, g3,
-                       b3, bi, bo2)
+    build.require_cuda("dit_block_fused", x, lengths, *args)
     if not all(w.dtype == x.dtype for w in (wqkv, wo, wi, wo2)):
         raise TypeError("dit_block_fused: the weights must be in x.dtype, got "
                         f"{[str(w.dtype) for w in (wqkv, wo, wi, wo2)]} for {x.dtype}")
@@ -166,4 +144,57 @@ def dit_block_fused(x: torch.Tensor, lengths: torch.Tensor, g1, b1, wqkv, wo, bo
         build.dtype_code(x), build.stream_of(x))
     build.check_launch(rc, "dit_block_fused")
     launches += 1
+    return y, o
+
+
+def _plain(x, lengths, g1, b1, wqkv, wo, bo, g3, b3, wi, bi, wo2, bo2, sm_scale: float,
+           heads: int, head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return dit_block_plain(x, lengths, g1, b1, wqkv, wo, bo, g3, b3, wi, bi, wo2, bo2,
+                           sm_scale, heads, head_dim, return_attention=True)
+
+
+def _fake(x, lengths, g1, b1, wqkv, wo, bo, g3, b3, wi, bi, wo2, bo2, sm_scale, heads,
+          head_dim):
+    B, T, _ = x.shape
+    return x.new_empty(x.shape), x.new_empty((B, T, heads * head_dim))
+
+
+_OP = define("dit_block(Tensor x, Tensor lengths, Tensor g1, Tensor b1, Tensor wqkv, "
+             "Tensor wo, Tensor bo, Tensor g3, Tensor b3, Tensor wi, Tensor bi, Tensor wo2, "
+             "Tensor bo2, float sm_scale, int heads, int head_dim) -> (Tensor, Tensor)",
+             _plain, _kernel, _fake)
+
+
+def dit_block_fused(x: torch.Tensor, lengths: torch.Tensor, g1, b1, wqkv, wo, bo, g3, b3,
+                    wi, bi, wo2, bo2, sm_scale: float, heads: int, head_dim: int,
+                    return_attention: bool = False):
+    """x [B, T, dim] (fp32 or bf16), lengths [B] int32 -> y [B, T, dim].
+
+    Keys j >= lengths[b] are masked for every query of row b (the pad mask
+    must be prefix-contiguous); rows i >= lengths[b] are computed over the
+    same keys and left for the caller to mask.  g1/b1/g3/b3/bo/bo2 [dim],
+    bi [ff]; wqkv [dim, 3*inner], wo [inner, dim], wi [dim, ff], wo2 [ff, dim]
+    in x.dtype.  With `return_attention`, returns (y, o): o [B, T, inner] is
+    the attention output before the out projection, heads minor, so the
+    attention branch can be held on its own."""
+    B, T, dim = x.shape
+    inner, ff = heads * head_dim, wi.shape[-1]
+    shapes = {"wqkv": (wqkv, (dim, 3 * inner)), "wo": (wo, (inner, dim)),
+              "wi": (wi, (dim, ff)), "wo2": (wo2, (ff, dim)), "bi": (bi, (ff,)),
+              "lengths": (lengths, (B,)),
+              **{n: (v, (dim,)) for n, v in (("g1", g1), ("b1", b1), ("bo", bo),
+                                               ("g3", g3), ("b3", b3), ("bo2", bo2))}}
+    bad = {n: tuple(t.shape) for n, (t, want) in shapes.items() if tuple(t.shape) != want}
+    if bad:
+        raise ValueError(f"dit_block_fused: x{tuple(x.shape)} with {heads}x{head_dim} "
+                         f"heads and ff {ff} does not take {bad}")
+    args = (g1, b1, wqkv, wo, bo, g3, b3, wi, bi, wo2, bo2)
+    if build.needs_autograd("dit_block_fused", x, *args):
+        return dit_block_plain(x, lengths, *args, sm_scale, heads, head_dim, return_attention)
+    # the kernel's operand types: fp32 vectors, int32 lengths on x's device
+    g1, b1, bo, g3, b3, bi, bo2 = (v.float().contiguous() for v in (g1, b1, bo, g3, b3,
+                                                                     bi, bo2))
+    lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
+    y, o = _OP(x, lengths, g1, b1, wqkv, wo, bo, g3, b3, wi, bi, wo2, bo2, float(sm_scale),
+               int(heads), int(head_dim))
     return (y, o) if return_attention else y

@@ -28,8 +28,13 @@ A torch Linear weight is [out, in], so the JAX rule P(None, "model") on a
 kernel [in, out] is a shard of dim 0 here and P("model", None) one of dim 1;
 an embedding [V, D] keeps dim 0.  QDense's int8 weight is [out, in] with a
 per-output `scale` [out], which shards with a column-parallel weight and is
-replicated beside a row-parallel one.  int4 and int4xla weights are not
-sharded (ROADMAP item 11b).
+replicated beside a row-parallel one.  A module whose tensors keep another
+layout says how the rules' spec reads there (`tp_spec`): QDense's int4 and
+int4xla buffers keep flax's [in(/2), out] weight and [in/g, out] scale, so
+a column-parallel projection shards dim 1 of both and a row-parallel one
+dim 0 of both (packed rows and scale groups); the Qwen2 body keeps a
+row-parallel block whole where its rank's input rows are not whole scale
+groups (models/qwen2.Qwen2Model._tp_split).
 """
 from __future__ import annotations
 
@@ -42,8 +47,6 @@ import torch.distributed as dist
 
 from cosyvoice_tpu_torch.parallel.collectives import ModelGroup
 from cosyvoice_tpu_torch.parallel.distributed import rank_and_world
-
-ITEM_11B = "ROADMAP Queue 1 item 11b"
 
 
 @dataclass(eq=False)
@@ -157,9 +160,17 @@ def param_shardings(model: torch.nn.Module, mesh: Mesh, rules: list) -> dict:
     axis divides the dim; every other tensor is replicated."""
     blocks = tuple(f"{head}{b}." for head, mod in _hooked(model)
                    for b in mod.tp_blocks(mesh.model))
+    modules = dict(model.named_modules())
     specs = {}
     for name, t in _tensors(model).items():
         spec = spec_for(name, rules) if name.startswith(blocks) else ()
+        owner, _, attr = name.rpartition(".")
+        layout = getattr(modules.get(owner), "tp_spec", None)
+        if layout is not None and name.startswith(blocks):
+            # the spec of the module's weight in torch's layout says which
+            # kind of projection it is; the module maps it onto its tensor
+            own = layout(attr, spec_for(f"{owner}.weight", rules))
+            spec = spec if own is None else own
         specs[name] = spec if _fits(spec, t.shape, mesh) else ()
     return specs
 

@@ -28,9 +28,15 @@ import torch.distributed as dist
 from cosyvoice_tpu_torch.nn.dropout import dropout_generator
 from cosyvoice_tpu_torch.parallel.collectives import all_reduce_
 from cosyvoice_tpu_torch.parallel.distributed import rank_and_world
-from cosyvoice_tpu_torch.parallel.mesh import ITEM_11B
 from cosyvoice_tpu_torch.train.checkpoint import save_checkpoint
 from cosyvoice_tpu_torch.train.step import TrainState, step_generator
+
+# why GAN training stays on one process
+GAN_ONE_PROCESS = ("the JAX CLI's GAN branch takes no mesh: it builds unsharded parameters "
+                   "and moves each process's batch with jnp.asarray "
+                   "(cosyvoice_tpu/bin/train.py:365-486), so each of its processes trains "
+                   "its own copy and no gradient is exchanged; the port refuses rather than "
+                   "copy that silent divergence")
 
 logger = logging.getLogger(__name__)
 
@@ -161,7 +167,7 @@ class GanExecutor(Executor):
     def train_one_epoch_gan(self, g_state: TrainState, d_state: TrainState,
                             train_data: Iterable, to_device: Callable = lambda b: b):
         if rank_and_world()[1] > 1:
-            raise NotImplementedError(f"GAN training on more than one process: {ITEM_11B}")
+            raise NotImplementedError(f"GAN training on more than one process: {GAN_ONE_PROCESS}")
         logger.info("Epoch %d begin (GAN)", self.epoch)
         t0, n_since = time.time(), 0
         it = iter(train_data)

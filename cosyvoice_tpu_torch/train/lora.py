@@ -30,6 +30,16 @@ parameters are detached, and follow the overlay's train() / eval()).
 --lora_npz merges (`<name>.lora_A` / `<name>.lora_B`, the JAX package's
 key form; a JAX-written file carries flax paths, which
 convert.lora_overlay_from_jax maps to the port's names).
+
+On a mesh (parallel/mesh.py) the base is sharded by the tensor-parallel
+rules and `shard_overlay` gives each rank the slice of each pair whose
+delta is its local weight's block: a column-parallel weight (output rows
+sharded) takes its rows of b and the whole a, a row-parallel one (input
+columns sharded) its columns of a and the whole b.  Each model rank then
+holds a partial gradient of a whole factor, so the loss passes whole
+factors through copy_to_model (identity forward, a sum over the model
+group backward) and the step sees whole gradients.  Checkpoints and
+`lora_state_dict` hold the whole factors, in the one-card format.
 """
 from __future__ import annotations
 
@@ -43,6 +53,8 @@ import torch.nn as nn
 
 from cosyvoice_tpu_torch.models.qwen2 import QDense
 from cosyvoice_tpu_torch.nn.conv import Conv1d
+from cosyvoice_tpu_torch.parallel.collectives import copy_to_model, gather_dim
+from cosyvoice_tpu_torch.parallel.mesh import sharded_dim
 
 
 @dataclass(frozen=True)
@@ -123,17 +135,58 @@ def _key(name: str) -> str:
 
 class LoRAOverlay(nn.Module):
     """The trainable pairs, as parameters (`a.<name with / for .>`,
-    `b.<...>`)."""
+    `b.<...>`).  A rank's overlay on a mesh (shard_overlay) also has its
+    model group `tp` and `split`, {name: the factor held as a block}."""
 
-    def __init__(self, overlay: dict):
+    def __init__(self, overlay: dict, tp=None, split: Optional[dict] = None):
         super().__init__()
         self.a = nn.ParameterDict({_key(n): nn.Parameter(ab["a"].float())
                                    for n, ab in overlay.items()})
         self.b = nn.ParameterDict({_key(n): nn.Parameter(ab["b"].float())
                                    for n, ab in overlay.items()})
+        self.tp, self.split = tp, dict(split or {})
 
     def pairs(self) -> dict:
         return {k.replace("/", "."): {"a": self.a[k], "b": self.b[k]} for k in self.a}
+
+    def specs(self) -> dict:
+        """The specs (parallel/mesh.py's form) of the factors held as blocks,
+        b's rows or a's columns, for train/step.make_train_state."""
+        return {f"{f}.{_key(n)}": ("model", None) if f == "b" else (None, "model")
+                for n, f in self.split.items()}
+
+    def whole_pairs(self) -> dict:
+        """pairs() with the blocks gathered over the model group: the
+        one-card overlay on every rank (a collective: every rank calls it)."""
+        out = {}
+        for name, ab in self.pairs().items():
+            f = self.split.get(name)
+            ab = {k: v.detach() for k, v in ab.items()}
+            if f is not None:
+                d = 0 if f == "b" else 1
+                ab[f] = gather_dim(ab[f], d, self.tp.rank, self.tp.size, self.tp.group)
+            out[name] = ab
+        return out
+
+
+def shard_overlay(overlay: dict, specs: dict, tp) -> LoRAOverlay:
+    """A whole overlay over a base that shard_params sliced by `specs` ->
+    this rank's LoRAOverlay: for a weight sharded on dim 0 (column-parallel)
+    b's block of rows, on dim 1 (row-parallel) a's block of columns; the
+    other factor whole.  Without a model group, the overlay as it is."""
+    if tp is None:
+        return LoRAOverlay(overlay)
+    local, split = {}, {}
+    for name, ab in overlay.items():
+        d = sharded_dim(specs.get(name, ()))
+        ab = dict(ab)
+        if d is not None:
+            f = "b" if d == 0 else "a"
+            n = ab[f].shape[d] // tp.size
+            ab[f] = ab[f].narrow(d, tp.rank * n, n).clone()
+            split[name] = f
+        local[name] = ab
+    return LoRAOverlay(local, tp, split)
 
 
 def lora_loss_fn(base: nn.Module, loss_fn: Callable, cfg: LoRAConfig) -> Callable:
@@ -145,6 +198,10 @@ def lora_loss_fn(base: nn.Module, loss_fn: Callable, cfg: LoRAConfig) -> Callabl
     def fn(overlay: LoRAOverlay, batch: dict, gen: Optional[torch.Generator] = None):
         base.train(overlay.training)
         pairs = overlay.pairs()
+        for name, f in overlay.split.items():
+            # the whole factor: each model rank's gradient is a partial sum
+            whole = "a" if f == "b" else "b"
+            pairs[name][whole] = copy_to_model(pairs[name][whole], overlay.tp)
         plain = {n: p.detach() for n, p in base.named_parameters() if n in pairs}
         merged = merge_lora(plain, pairs, cfg)
         model = lambda *a, **k: torch.func.functional_call(base, merged, a, k)  # noqa: E731
@@ -154,9 +211,10 @@ def lora_loss_fn(base: nn.Module, loss_fn: Callable, cfg: LoRAConfig) -> Callabl
 
 
 def lora_state_dict(overlay) -> dict:
-    """An overlay (dict or LoRAOverlay) -> {"<name>.lora_A": a, "<name>.lora_B":
-    b} as float32 numpy arrays (np.savez writes lora.npz from it)."""
-    pairs = overlay.pairs() if isinstance(overlay, LoRAOverlay) else overlay
+    """An overlay (dict or LoRAOverlay, whose blocks are gathered: every rank
+    calls it) -> {"<name>.lora_A": a, "<name>.lora_B": b} as float32 numpy
+    arrays (np.savez writes lora.npz from it)."""
+    pairs = overlay.whole_pairs() if isinstance(overlay, LoRAOverlay) else overlay
     out = {}
     for name, ab in pairs.items():
         out[f"{name}.lora_A"] = ab["a"].detach().float().cpu().numpy()

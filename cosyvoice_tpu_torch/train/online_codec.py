@@ -12,7 +12,11 @@ ahead of the train step on the same stream; the labels stay there.  A
 row's mel length is max(n16 // 160 - 1, 4) for its n16 samples at 16 kHz.
 
 Where the JAX package takes PRNGKey(seed + i) for batch i, the port takes
-a torch.Generator seeded seed + i, on the labeler's device.
+a torch.Generator seeded seed + i, on the labeler's device.  On a mesh each
+data rank labels its own batches: data rank r > 0 draws its posterior
+samples through parallel/mesh.rank_generator(gen, r), as the train step
+draws, and its crops from a numpy generator of (seed, r); the ranks of a
+model group label alike.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 
 from cosyvoice_tpu_torch.models.s3tokenizer import whisper_log_mel
 from cosyvoice_tpu_torch.models.speaker import speaker_features
+from cosyvoice_tpu_torch.parallel.mesh import rank_generator
 from cosyvoice_tpu_torch.runtime.frontend import resample_poly
 
 
@@ -86,16 +91,18 @@ class OnlineCodecLabeler:
 
 
 def online_codec_epoch(executor, state, labeler: OnlineCodecLabeler, audio_batches,
-                       cv_batches=None, to_device=lambda b: b, seed: int = 0):
+                       cv_batches=None, to_device=lambda b: b, seed: int = 0,
+                       data_rank: int = 0):
     """One epoch of `executor` over audio_batches, each labelled first: its
     crops from np.random.default_rng(seed), its posterior samples from a
-    generator seeded seed + i for batch i."""
-    rng = np.random.default_rng(seed)
+    generator seeded seed + i for batch i (data rank `data_rank`'s draws of
+    them on a mesh)."""
+    rng = np.random.default_rng(seed if data_rank == 0 else (seed, data_rank))
 
     def labeled(it):
         for i, b in enumerate(it):
             gen = torch.Generator(device=labeler.device).manual_seed(seed + i)
-            yield labeler.label_batch(b, rng, gen)
+            yield labeler.label_batch(b, rng, rank_generator(gen, data_rank))
 
     cv = list(labeled(cv_batches)) if cv_batches is not None else None
     return executor.train_one_epoch(state, labeled(audio_batches), cv_data=cv,

@@ -28,7 +28,7 @@ import torch
 
 from cosyvoice_tpu_torch.nn.dropout import dropout_generator
 from cosyvoice_tpu_torch.parallel.collectives import ModelGroup, all_reduce_
-from cosyvoice_tpu_torch.parallel.mesh import (ITEM_11B, batch_sharding, rank_generator,
+from cosyvoice_tpu_torch.parallel.mesh import (batch_sharding, rank_generator,
                                                shard_dims)
 from cosyvoice_tpu_torch.train.optim import ShardedTree, Transform, global_norm
 
@@ -110,9 +110,11 @@ def make_train_step(loss_fn: Callable, tx: Transform, mesh=None):
         denom = metrics.pop("denom", None)
         if data > 1:
             if denom is None:
-                raise NotImplementedError("a data-parallel step needs the loss's denominator "
-                                          "(metric 'denom'); a loss that is a batch "
-                                          f"statistic is {ITEM_11B}")
+                raise NotImplementedError(
+                    "a data-parallel step needs the loss's denominator (metric 'denom'): "
+                    "a loss that is a batch statistic (vicreg, the GAN losses) has no "
+                    "rank's share of the global loss, and the JAX package trains none "
+                    "on a mesh")
             denom = denom.detach().float().reshape(())
             share = denom / all_reduce_(denom.clone(), mesh.data_group).clamp_min(1)
             loss = loss * share
@@ -194,7 +196,7 @@ def phoneme_llm_loss_fn(model, batch: dict, gen: Optional[torch.Generator] = Non
     out = model(batch["text_token"], batch["text_token_len"], batch["pho_token"],
                 batch["pho_token_len"], batch["speech_token"], batch["speech_token_len"],
                 batch["embedding"], gen=gen)
-    return out["loss"], {"acc": out["acc"]}
+    return out["loss"], {"acc": out["acc"], "denom": out["denom"]}
 
 
 def flow_loss_fn(model, batch: dict, gen: Optional[torch.Generator] = None):

@@ -9,7 +9,10 @@ CPU against the JAX package:
   and a --ref_audio speaker) -> a directory that the port's
   from_pretrained and the JAX package's both load: zero-shot and sft
   (the registered speaker) give equal greedy tokens and wavs within 1e-2
-  (deterministic HiFT on both sides); --out_prefix, and --lora_npz without --llm_pt, raise;
+  (deterministic HiFT on both sides); --lora_npz without --llm_pt raises;
+- ckpt_resave --out_prefix's bare <prefix>.{llm,flow,hift}.npz equal the
+  JAX CLI's from the same reference-format .pt files, key for key (a
+  JAX-written lora.npz merged into the LLM too);
 - bin/export_serving_lm.py's model.safetensors (read by the port's own
   reader) and config.json equal the JAX export's (which builds the HF
   model with `transformers`; skipped where that is absent), from a .pt
@@ -196,15 +199,62 @@ def test_resaved_directory_serves_as_in_jax(served, mode, monkeypatch):
                                   jcv.frontend.spk2info["spk1"]["embedding"])
 
 
-@pytest.mark.parametrize("flag", ["--lora_npz", "--out_prefix"])
+@pytest.mark.parametrize("flag", ["--lora_npz"])
 def test_ckpt_resave_refuses_what_is_not_ported(flag, tmp_path):
-    """--out_prefix (the JAX CLI's bare .npz exports) raises; --lora_npz
-    without the --llm_pt it merges into raises (tests/test_torch_lora.py
-    covers the merge itself)."""
-    err, match = ((ValueError, "--llm_pt") if flag == "--lora_npz"
-                  else (NotImplementedError, "out_dir"))
-    with pytest.raises(err, match=match):
-        ckpt_resave.main(["--out_dir", str(tmp_path / "d"), flag, str(tmp_path / "x")])
+    """--lora_npz without the --llm_pt it merges into raises, into a
+    directory or a prefix (tests/test_torch_lora.py covers the merge
+    itself)."""
+    for out in ("--out_dir", "--out_prefix"):
+        with pytest.raises(ValueError, match="--llm_pt"):
+            ckpt_resave.main([out, str(tmp_path / "d"), flag, str(tmp_path / "x")])
+
+
+@pytest.mark.parametrize("lora", [False, True], ids=["plain", "lora_npz"])
+def test_ckpt_resave_out_prefix_matches_jax(tmp_path, monkeypatch, lora):
+    """--out_prefix from the same reference-format llm.pt, flow.pt and
+    hift.pt (`generator.` names) in both packages' CLIs (the JAX one's
+    default configs swapped for the files' widths): the same npz keys, and
+    each array equal (the LLM with a JAX-written lora.npz merged: within
+    1e-6, the products' order of sums)."""
+    import sys
+
+    import test_torch_lora as L
+    from cosyvoice_tpu.bin import ckpt_resave as jresave
+    from cosyvoice_tpu.models import flow as jflow
+    from cosyvoice_tpu.models.qwen2 import Qwen2Config as JQwen2Config
+
+    _, params, tm = U.build_lm()
+    flow = tflow.CausalMaskedDiffWithXvec(C.TCFG["flow_cfg"])
+    flow.load_state_dict(U.seeded_state(flow, 3))
+    hift = thift.HiFTGenerator(C.TCFG["hift_cfg"])
+    hift.load_state_dict(U.seeded_state(hift, 4))
+    paths = {stem: str(tmp_path / f"{stem}.pt") for stem in ("llm", "flow", "hift")}
+    torch.save(tm.state_dict(), paths["llm"])
+    torch.save(flow.state_dict(), paths["flow"])
+    torch.save({f"generator.{k}": v for k, v in hift.state_dict().items()}, paths["hift"])
+    args = [a for stem, p in paths.items() for a in (f"--{stem}_pt", p)]
+    if lora:
+        _, jov = L._jax_overlay(params, (r".*/(q_proj|o_proj)/kernel$",), seed=21)
+        np.savez(tmp_path / "lora.npz", **L.jlora.lora_state_dict(jov))
+        args += ["--lora_npz", str(tmp_path / "lora.npz"), "--lora_r", "4", "--lora_alpha", "8"]
+    lm_cfg = jllm.LMConfig(**U.LM, qwen=JQwen2Config(**U.QWEN))
+    monkeypatch.setattr(jllm, "LMConfig", lambda: lm_cfg)
+    monkeypatch.setattr(jflow, "FlowConfig", lambda: C.JCFG["flow_cfg"])
+    monkeypatch.setattr(jhift, "HiFTConfig", lambda: C.JCFG["hift_cfg"])
+    monkeypatch.setattr(sys, "argv", ["ckpt_resave", *args, "--out_prefix",
+                                      str(tmp_path / "jax")])
+    jresave.main()
+    ckpt_resave.main([*args, "--out_prefix", str(tmp_path / "port")])
+    for stem in ("llm", "flow", "hift"):
+        want = np.load(tmp_path / f"jax.{stem}.npz")
+        got = np.load(tmp_path / f"port.{stem}.npz")
+        assert sorted(got.files) == sorted(want.files), stem
+        for k in want.files:
+            assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype, k
+            if lora and stem == "llm":
+                np.testing.assert_allclose(got[k], want[k], atol=1e-6, rtol=0, err_msg=k)
+            else:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_merge_state_dicts_is_strict_false():

@@ -8,7 +8,10 @@ modules and numpy arrays.  The counterparts of tests/test_parallel.py
 (mesh shapes and rules, greedy DP x TP decode, BatchedSynthesizer on a
 mesh, the sharded train step, the full-size shard fraction),
 tests/test_multihost.py (the executor on two ranks, uneven shards) and
-tests/test_engine.py's flow_device case.  Each test states its bar.
+tests/test_engine.py's flow_device case; then what the JAX package runs on a
+mesh beyond those: int4 / int4xla weights under TP, a phoneme LM's and a
+LoRA overlay's DP x TP steps, the train CLI with --lora and a phoneme kind
+on two ranks.  Each test states its bar.
 """
 import copy
 import time
@@ -22,6 +25,7 @@ import torch
 import torch.multiprocessing as mp
 import yaml
 
+import test_torch_pho_train as P
 import torch_parallel_worker as W
 import torch_port_util as U
 from torch_port_util import (one_torch_thread, quick_jit,  # noqa: F401 (autouse)
@@ -31,10 +35,13 @@ from cosyvoice_tpu.models import flow as jflow
 from cosyvoice_tpu.models import hift as jhift
 from cosyvoice_tpu.models import llm as jllm
 from cosyvoice_tpu.models.qwen2 import Qwen2Config as JQwen2Config
+from cosyvoice_tpu.models.qwen2 import causal_prefill_bias
 from cosyvoice_tpu.runtime import serving as JS
 from cosyvoice_tpu.runtime.model import CosyVoice2Model as JModel
+from cosyvoice_tpu.train import lora as jlora
 from cosyvoice_tpu.train import optim as joptim
 from cosyvoice_tpu.train import step as jstep
+from cosyvoice_tpu.utils import quant as jquant
 from cosyvoice_tpu.utils.quant import quantize_qwen_int8
 from cosyvoice_tpu_torch import config as tconfig
 from cosyvoice_tpu_torch import convert
@@ -51,6 +58,8 @@ from cosyvoice_tpu_torch.runtime.model import CosyVoice2Model as TModel
 from cosyvoice_tpu_torch.train import checkpoint as tckpt
 from cosyvoice_tpu_torch.train import optim as toptim
 from cosyvoice_tpu_torch.train import step as tstep
+from cosyvoice_tpu_torch.train.lora import (LoRAConfig, LoRAOverlay, lora_loss_fn,
+                                            read_lora_npz)
 
 KEY = jax.random.PRNGKey(0)
 CLUSTER_SECONDS = 120
@@ -121,9 +130,10 @@ def _jax_flow_draws(rng, B: int, T: int, C: int, cfg_rate: float) -> dict:
                 keep=np.asarray(jax.random.uniform(k_cfg, (B,)) > cfg_rate))
 
 
-def _jax_steps(kind: str, sec: dict, params, batches: list, loss_fn) -> tuple:
+def _jax_steps(kind: str, sec: dict, params, batches: list, loss_fn, lora_names=None) -> tuple:
     """The JAX package's make_train_step over the global batches, step i on
-    PRNGKey(i) -> (metrics, final params)."""
+    PRNGKey(i) -> (metrics, final params; a LoRA overlay's, under the port's
+    names, with `lora_names`)."""
     jtx, _ = joptim.make_optimizer(OPT["optim"], OPT["lr"], OPT["scheduler"],
                                    OPT["scheduler_kwargs"], grad_clip=OPT["grad_clip"])
     st = jstep.make_train_state(params, jtx)
@@ -134,7 +144,7 @@ def _jax_steps(kind: str, sec: dict, params, batches: list, loss_fn) -> tuple:
     for i, b in enumerate(jb):
         st, m = fn(st, b, jax.random.PRNGKey(i))
         metrics.append({k: float(v) for k, v in m.items()})
-    return metrics, convert.train_state_from_jax(kind, st.params)
+    return metrics, convert.train_state_from_jax(kind, st.params, lora_names=lora_names)
 
 
 def _port(kind: str, sec: dict, params):
@@ -257,6 +267,91 @@ def _cli_argv(tmp) -> list:
 
 
 EXEC_BATCHES = (7, 8, 9)
+# int4 / int4xla LMs of the greedy decode's widths under TP(2): at group 16
+# every block shards (local attention and MLP inputs 16 and 32 rows); at
+# group 32 attention's 16 local rows are half a group, so it stays whole
+QUANT_LMS = [("int4", 16), ("int4", 32), ("int4xla", 16), ("int4xla", 32)]
+# LoRA on both kinds of projection: q / gate column-parallel, o / down row-parallel
+LORA_CFG = dict(r=4, alpha=8, target_patterns=(
+    r".*/(q_proj|o_proj|gate_proj|down_proj)/kernel$",))
+LORA_SEED = 3
+# sharded_bytes_fraction of the full-size int4 / int4xla LM at model 2 and 4:
+# the fp32 vocabularies carry most of the bytes at model 4
+FULL_INT4_FRACTIONS = {"int4": (0.96971, 0.75654), "int4xla": (0.95243, 0.61568)}
+
+
+@lru_cache(maxsize=None)
+def _quant_params(quant: str, group: int):
+    """The greedy decode's JAX weights quantized by the JAX package."""
+    _, gparams, _ = _gen_setup()
+    fn = jquant.quantize_qwen_int4 if quant == "int4" else jquant.quantize_qwen_int4xla
+    return fn(gparams, group_size=group)
+
+
+def _quant_lm(quant: str, group: int):
+    """The greedy decode's LM over _quant_params (the same quantized weights
+    as the JAX reference), in the port."""
+    lm = tllm.Qwen2LM(tllm.LMConfig(**GEN_LM, qwen=TQwen2Config(
+        **GEN_QWEN, quant=quant, quant_group=group, fused_cache_update=True),
+        sampling=tllm.SamplingConfig(method="greedy")))
+    lm.load_state_dict(convert.lm_state_from_jax(_quant_params(quant, group)), strict=True)
+    return lm.eval()
+
+
+@lru_cache(maxsize=None)
+def _pho_setup():
+    """qwen2lm_phoneme_src2 at tests/test_torch_pho_train.py's widths (dropout
+    0, so a step is a function of the batch): the JAX module and its seeded
+    params."""
+    jm, params, _ = P._models("qwen2lm_phoneme_src2", P.pho_section(), seed=21)
+    return jm, params
+
+
+def _pho_lm():
+    """The port's qwen2lm_phoneme_src2 over _pho_setup's params."""
+    return _port("qwen2lm_phoneme_src2", P.pho_section(), _pho_setup()[1])
+
+
+@lru_cache(maxsize=None)
+def _lora_setup():
+    """A JAX overlay (init_lora: a drawn, b = 0) over the train recipe's LM
+    and the port's copy of it ({name: {"a", "b"}})."""
+    sec, _, params, _ = _lm_setup()
+    jcfg = jlora.LoRAConfig(**LORA_CFG)
+    jov = jlora.init_lora(params, jcfg, jax.random.PRNGKey(LORA_SEED))
+    jov = {p: {k: np.asarray(v) for k, v in ab.items()} for p, ab in jov.items()}
+    names = [n for n, _ in _port("qwen2lm", sec, params).named_parameters()]
+    return jcfg, jov, convert.lora_overlay_from_jax(jov, names), names
+
+
+def _pho_batch(seed: int) -> dict:
+    """Four ragged phoneme-LM rows; data rank 0's hold more targets."""
+    rng = np.random.default_rng(seed)
+    sl = np.array([8, 7, 3, 2], np.int32)
+    return {"text_token": rng.integers(0, 300, (4, 6)).astype(np.int32),
+            "text_token_len": np.array([5, 3, 6, 2], np.int32),
+            "pho_token": P._pho_tokens(rng, 4, 9),
+            "pho_token_len": np.array([7, 4, 9, 3], np.int32),
+            "speech_token": rng.integers(0, 24, (4, 8)).astype(np.int32),
+            "speech_token_len": sl,
+            "embedding": rng.standard_normal((4, 16)).astype(np.float32)}
+
+
+PHO_BATCHES = (31, 32)
+
+
+def _cli_extra_argv(tmp, argv: list) -> tuple:
+    """The train CLI's LoRA run (argv's corpus, --lora) and a phoneme LM's
+    run over tests/test_torch_pho_train.py's speaker-JSON corpus."""
+    lora = list(argv)
+    lora[lora.index("--model_dir") + 1] = str(tmp / "cli_lora")
+    pho_dir = tmp / "pho"
+    pho_dir.mkdir()
+    lst, dict_path = P.write_spk_json_corpus(pho_dir)
+    pho = ["--config", P._pho_conf(pho_dir, dict_path), "--model", "llm", "--train_data", lst,
+           "--model_dir", str(tmp / "cli_pho"), "--data_format", "spk_json", "--epochs", "1",
+           "--device", "cpu"]
+    return lora + ["--lora"], pho
 
 
 @pytest.fixture(scope="module")
@@ -275,16 +370,22 @@ def clusters(tmp_path_factory):
         "gen_lm": gen_lm.eval(), "gen_args": {"arrays": arrays, "max_steps": 24,
                                               "cache_len": 64},
         "stack": _stack()[1], "requests": _requests(TS.TTSRequest, np.random.default_rng(4)),
-        "train_lm": port_lm(), "train_batches": batches, "fresh_lm": port_lm(), "opt": OPT})
+        "train_lm": port_lm(), "train_batches": batches, "fresh_lm": port_lm(), "opt": OPT,
+        "quant_lms": {f"{q}_g{g}": _quant_lm(q, g) for q, g in QUANT_LMS},
+        "pho_lm": _pho_lm(), "pho_batches": [_pho_batch(s) for s in PHO_BATCHES],
+        "lora_lm": port_lm(), "lora_scale": (LORA_CFG["r"], LORA_CFG["alpha"]),
+        "lora_pairs": _lora_setup()[2]})
     fsec, _, fparams, fbatches, draws = _flow_setup()
     tmp2 = tmp_path_factory.mktemp("dp")
     argv = _cli_argv(tmp2)
+    lora_argv, pho_argv = _cli_extra_argv(tmp2, argv)
     two = Cluster("dp", 2, tmp2, {
         "train_lm": port_lm(), "train_batches": batches, "opt": OPT,
         "flow": _port("flow", fsec, fparams), "flow2": _port("flow", fsec, fparams),
         "flow_batches": fbatches, "flow_draws": draws,
         "exec_batches": [_lm_batch(s) for s in EXEC_BATCHES], "exec_lm_0": port_lm(),
-        "exec_lm_1": port_lm(), "cli_argv": argv})
+        "exec_lm_1": port_lm(), "cli_argv": argv, "cli_lora_argv": lora_argv,
+        "cli_pho_argv": pho_argv})
     return {"dp_tp": four, "dp": two, "argv": argv, "tmp4": tmp4, "tmp2": tmp2}
 
 
@@ -329,6 +430,61 @@ def dp(clusters):
             dict(fsec=fsec, fparams=fparams, jax_first=(float(loss), gnorm), draws=draws,
                  fbatches=fbatches, exec_batches=[_lm_batch(s) for s in EXEC_BATCHES],
                  argv=clusters["argv"], tmp=clusters["tmp2"]))
+
+
+@pytest.fixture(scope="module")
+def quant_ref(clusters):
+    """Single-device JAX greedy lm_generate of the 4-row batch over each of
+    QUANT_LMS's quantized weights, and its prefix logits (fp32)."""
+    _, _, arrays = _gen_setup()
+    a = [jnp.asarray(x) for x in arrays]
+    out = {}
+    for quant, group in QUANT_LMS:
+        jm = jllm.Qwen2LM(jllm.LMConfig(**GEN_LM, qwen=JQwen2Config(
+            **GEN_QWEN, quant=quant, quant_group=group),
+            sampling=jllm.SamplingConfig(method="greedy")))
+        params = _quant_params(quant, group)
+        tokens, count = jllm.lm_generate(jm, params, *a, KEY, max_steps=24, cache_len=64)
+
+        def logits(p, text, tl, psp, pl, jm=jm):
+            emb, seq_len = jm.apply(p, text, tl, psp, pl, method=jllm.Qwen2LM.prefill_embeds)
+            B, T = emb.shape[:2]
+            pos = jnp.broadcast_to(jnp.arange(T)[None], (B, T))
+            h, _ = jm.apply(p, emb, pos, causal_prefill_bias(T, T, seq_len, B),
+                            method=jllm.Qwen2LM.forward_hidden)
+            return jm.apply(p, h, method=jllm.Qwen2LM.decode_logits)
+
+        out[(quant, group)] = (np.asarray(tokens), np.asarray(count),
+                               np.asarray(jax.jit(logits)(params, *a[:4])))
+    return out
+
+
+def _jax_pho_loss(jm):
+    def loss_fn(p, batch, rng):
+        out = jm.apply(p, *(batch[k] for k in P.ARGS), rng, deterministic=False,
+                       rngs={"dropout": rng})
+        return out["loss"], {"acc": out["acc"]}
+    return loss_fn
+
+
+@pytest.fixture(scope="module")
+def pho_train(clusters):
+    """The JAX package's phoneme-LM steps over the global batches ->
+    (metrics, params)."""
+    jm, params = _pho_setup()
+    return _jax_steps("qwen2lm_phoneme_src2", P.pho_section(), params,
+                      [_pho_batch(s) for s in PHO_BATCHES], _jax_pho_loss(jm))
+
+
+@pytest.fixture(scope="module")
+def lora_train(clusters):
+    """The JAX package's LoRA steps (its lora_loss_fn over the train
+    recipe's LM) over the global batches -> (metrics, the overlay under the
+    port's names)."""
+    sec, jm, params, batches = _lm_setup()
+    jcfg, jov, _, names = _lora_setup()
+    return _jax_steps("qwen2lm", sec, jov, batches,
+                      jlora.lora_loss_fn(params, jstep.llm_loss_fn(jm), jcfg), lora_names=names)
 
 
 def _rel(got: float, want: float) -> float:
@@ -599,19 +755,197 @@ def test_continuous_flow_device_matches_one_device():
 
 
 def test_tensor_parallel_refuses_int4_and_the_fused_step():
-    """Tensor parallelism over int4 / int4xla weights (K5) and the
-    whole-step decode kernel (K6) on a sharded LM raise naming ROADMAP item
-    11b (a model = 2 layout: the refusals come before any collective)."""
+    """Tensor parallelism over int4 / int4xla weights shards them (a model =
+    2 layout: q_proj's packed [in/2, out] weight and [in/g, out] scale on
+    dim 1, o_proj's on dim 0); the whole-step decode kernel (K6) on a
+    sharded LM raises, saying that the JAX package has no such route (the
+    refusal comes before any collective)."""
     for quant in ("int4", "int4xla"):
         lm = tllm.Qwen2LM(tllm.LMConfig(**U.LM, qwen=TQwen2Config(**U.QWEN, quant=quant,
                                                                   quant_group=16)))
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            shard_params(lm, Mesh(data=1, model=2), LM_RULES)
+        _, specs = shard_params(lm, Mesh(data=1, model=2), LM_RULES)
+        layer = "llm.model.model.layers.0."
+        for name, spec in (("q_proj.weight", (None, "model")), ("q_proj.scale", (None, "model")),
+                           ("q_proj.bias", ("model",)), ("o_proj.weight", ("model", None)),
+                           ("o_proj.scale", ("model", None))):
+            assert specs[layer + "self_attn." + name] == spec, name
+        assert (lm.cfg.qwen.num_heads, lm.cfg.qwen.intermediate_size) == (2, 32)
+        o = lm.body.layers[0].self_attn["o_proj"]
+        assert o.weight.shape == ((8 if quant == "int4" else 16), 32) and o.scale.shape == (1, 32)
     lm = tllm.Qwen2LM(tllm.LMConfig(**U.LM, qwen=TQwen2Config(**U.QWEN, quant="int8")))
     shard_params(lm, Mesh(data=1, model=2), LM_RULES)
     assert (lm.cfg.qwen.num_heads, lm.cfg.qwen.intermediate_size) == (2, 32)
     z = torch.zeros((1, 4), dtype=torch.long)
     n = torch.tensor([4])
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    with pytest.raises(NotImplementedError, match="JAX package has no such route"):
         tllm.lm_generate_fused_step(lm, None, z, n, z, n, n, n, None, max_steps=4,
                                     cache_len=16)
+
+
+@pytest.mark.parametrize("quant", ["int4", "int4xla"])
+def test_full_size_int4_sharded_bytes_fraction(quant):
+    """The full-size Qwen2LM in int4 / int4xla (group 128, meta device): at
+    model 2 the MLP shards (2432 local rows, 19 groups) and attention stays
+    whole (448 local rows, 3.5 groups); at model 4 neither (1216 rows, 9.5
+    groups): only the vocabularies shard."""
+    fracs = {}
+    for model in (2, 4):
+        with torch.device("meta"):
+            lm = tllm.Qwen2LM(tllm.LMConfig(qwen=TQwen2Config(quant=quant)))
+        fracs[model] = sharded_bytes_fraction(lm, Mesh(data=1, model=model), LM_RULES)
+        specs = param_shardings(lm, Mesh(data=1, model=model), LM_RULES)
+        layer = "llm.model.model.layers.0."
+        assert specs[layer + "self_attn.q_proj.weight"] == ()
+        assert specs[layer + "mlp.down_proj.weight"] == (("model", None) if model == 2 else ())
+    assert fracs[2] > fracs[4] > 0
+    assert FULL_INT4_FRACTIONS[quant] == pytest.approx((fracs[2], fracs[4]), abs=5e-5)
+
+
+@pytest.mark.parametrize("quant,group", QUANT_LMS, ids=[f"{q}_g{g}" for q, g in QUANT_LMS])
+def test_tensor_parallel_int4_matches_one_process(dp_tp, quant, group):
+    """DP(2) x TP(2) greedy lm_generate over int4 / int4xla weights (fp32,
+    K5's plain version on the CPU): every rank's tokens and counts equal one
+    process's rows exactly, and the prefix logits within fp32 rounding
+    (1e-5); attention shards at group 16 and stays whole at group 32."""
+    lm = _quant_lm(quant, group)
+    _, _, arrays = _gen_setup()
+    a = [torch.from_numpy(np.asarray(x).astype(np.int64)) for x in arrays]
+    out, count = tllm.lm_generate(lm, *a, torch.Generator().manual_seed(0), max_steps=24,
+                                  cache_len=64)
+    logits = W.prefix_logits(lm, a)
+    assert count.min() > 0
+    for res in dp_tp[0]:
+        got = res[f"quant_{quant}_g{group}"]
+        rows = slice(2 * res["data_rank"], 2 * res["data_rank"] + 2)
+        assert got["sharded"] == (group == 16, True)
+        np.testing.assert_array_equal(got["gen"][1], count[rows].numpy())
+        np.testing.assert_array_equal(got["gen"][0], out[rows].numpy())
+        np.testing.assert_allclose(got["logits"], logits[rows].numpy(), atol=1e-5, rtol=1e-5)
+
+
+def _one_process_steps(model, loss_fn, batches: list) -> tuple:
+    tx, _ = toptim.make_optimizer(**OPT)
+    state, step = tstep.make_train_state(model, tx), tstep.make_train_step(loss_fn, tx)
+    metrics = []
+    for i, b in enumerate(batches):
+        state, m = step(state, tstep.to_device(b, "cpu"), torch.Generator().manual_seed(i))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, state
+
+
+def test_phoneme_lm_dp_tp_steps_match_one_process(dp_tp):
+    """Two DP(2) x TP(2) steps of qwen2lm_phoneme_src2 (its Qwen2 body and
+    speech head sharded by the LM rules; each data rank its rows, which
+    hold 15 and 5 targets): loss and grad_norm within 1e-5 relative of one
+    process on the global batches, the parameters within atol 1e-5."""
+    tm = _pho_lm()
+    metrics, _ = _one_process_steps(tm, tstep.phoneme_llm_loss_fn,
+                                    [_pho_batch(s) for s in PHO_BATCHES])
+    ranks = dp_tp[0]
+    for res in ranks:
+        for i, (m, j) in enumerate(zip(res["pho_train"], metrics)):
+            for key in ("loss", "grad_norm", "acc"):
+                assert _rel(m[key], j[key]) < 1e-5, (i, key, m[key], j[key])
+    assert any(sharded_dim(s) is not None for s in ranks[0]["pho_specs"].values())
+    full = W.unshard([ranks[0]["pho_state"], ranks[1]["pho_state"]], ranks[0]["pho_specs"])
+    _close_params(full, tm.state_dict())
+
+
+def test_lora_dp_tp_steps_match_one_process(dp_tp):
+    """Three DP(2) x TP(2) LoRA steps over the sharded train recipe's LM
+    (adapters on q / gate, column-parallel: b's rows a rank; on o / down,
+    row-parallel: a's columns a rank): loss and grad_norm within 1e-5
+    relative of one process, and the gathered overlay within atol 1e-5 of
+    one process's on every rank."""
+    sec, _, params, batches = _lm_setup()
+    base, cfg = _port("qwen2lm", sec, params), LoRAConfig(r=LORA_CFG["r"], alpha=LORA_CFG["alpha"])
+    overlay = LoRAOverlay(_lora_setup()[2])
+    metrics, _ = _one_process_steps(overlay, lora_loss_fn(base, tstep.llm_loss_fn, cfg),
+                                    batches)
+    want = overlay.pairs()
+    ranks = dp_tp[0]
+    assert set(ranks[0]["lora_split"].values()) == {"a", "b"}
+    for res in ranks:
+        for i, (m, j) in enumerate(zip(res["lora_train"], metrics)):
+            for key in ("loss", "grad_norm"):
+                assert _rel(m[key], j[key]) < 1e-5, (i, key, m[key], j[key])
+        assert set(res["lora_whole"]) == set(want)
+        for name, ab in want.items():
+            for f in ("a", "b"):
+                np.testing.assert_allclose(res["lora_whole"][name][f].numpy(),
+                                           ab[f].detach().numpy(), atol=1e-5, rtol=0,
+                                           err_msg=f"{name}.{f}")
+
+
+@pytest.mark.parametrize("quant,group", QUANT_LMS, ids=[f"{q}_g{g}" for q, g in QUANT_LMS])
+def test_tensor_parallel_int4_matches_jax(quant_ref, dp_tp, quant, group):
+    """DP(2) x TP(2) greedy lm_generate over the JAX package's int4 / int4xla
+    weights (fp32): every rank's tokens and counts equal, exactly, the JAX
+    package's single-device lm_generate on the same weights (its rows of
+    the data rank), and the prefix logits within 2e-5 (the fp32 Qwen2
+    body's bar against JAX, tests/test_torch_quant_decode.py)."""
+    tokens, count, logits = quant_ref[(quant, group)]
+    assert count.min() > 0
+    for res in dp_tp[0]:
+        got = res[f"quant_{quant}_g{group}"]
+        rows = slice(2 * res["data_rank"], 2 * res["data_rank"] + 2)
+        np.testing.assert_array_equal(got["gen"][1], count[rows])
+        np.testing.assert_array_equal(got["gen"][0], tokens[rows])
+        np.testing.assert_allclose(got["logits"], logits[rows], atol=2e-5, rtol=2e-5)
+
+
+def test_phoneme_lm_dp_tp_steps_match_jax(pho_train, dp_tp):
+    """Two DP(2) x TP(2) steps of qwen2lm_phoneme_src2 against the JAX
+    package's step over the global batches from the same params: loss,
+    grad_norm and acc within 1e-5 relative on every rank; the parameters,
+    the model group's shards put together, within atol 1e-5."""
+    metrics, final = pho_train
+    ranks = dp_tp[0]
+    for res in ranks:
+        for i, (m, j) in enumerate(zip(res["pho_train"], metrics)):
+            for key in ("loss", "grad_norm", "acc"):
+                assert _rel(m[key], j[key]) < 1e-5, (i, key, m[key], j[key])
+    full = W.unshard([ranks[0]["pho_state"], ranks[1]["pho_state"]], ranks[0]["pho_specs"])
+    _close_params(full, final)
+
+
+def test_lora_dp_tp_steps_match_jax(lora_train, dp_tp):
+    """Three DP(2) x TP(2) LoRA steps over the sharded LM against the JAX
+    package's LoRA step (its lora_loss_fn, the same overlay) over the global
+    batches: loss and grad_norm within 1e-5 relative on every rank, and the
+    gathered overlay within atol 1e-5 of the JAX package's on every rank."""
+    metrics, final = lora_train
+    for res in dp_tp[0]:
+        for i, (m, j) in enumerate(zip(res["lora_train"], metrics)):
+            for key in ("loss", "grad_norm"):
+                assert _rel(m[key], j[key]) < 1e-5, (i, key, m[key], j[key])
+        got = {f"{f}.{name.replace('.', '/')}": ab[f]
+               for name, ab in res["lora_whole"].items() for f in ("a", "b")}
+        _close_params(got, final)
+
+
+@pytest.mark.parametrize("run", ["lora", "phoneme"])
+def test_train_cli_lora_and_phoneme_on_mesh(dp, run):
+    """The train CLI with --mesh_model 2 on two ranks: --lora over the
+    sharded LM (lora.npz holds the whole factors, in the one-card shapes)
+    and qwen2lm_phoneme_src2 over a speaker-JSON corpus labelled online:
+    rank 0 writes two steps of finite metrics and the checkpoint."""
+    import json
+
+    _, ref = dp
+    model_dir = ref["tmp"] / ("cli_lora" if run == "lora" else "cli_pho")
+    recs = [json.loads(line) for line in open(model_dir / "metrics.jsonl")]
+    assert [r["step"] for r in recs] == [1, 2]
+    assert all(np.isfinite(v) for r in recs for k, v in r.items() if k != "tag")
+    assert tckpt.latest_step(str(model_dir)) == 2
+    if run == "lora":
+        sec = yaml.safe_load(open(ref["argv"][1]))["llm"]
+        base = tconfig.build_model("qwen2lm", {k: v for k, v in sec.items() if k != "kind"})[0]
+        saved = read_lora_npz(str(model_dir / "lora.npz"))
+        names = [n for n, _ in base.named_parameters()
+                 if any(p in n for p in ("q_proj.", "k_proj.", "v_proj.", "o_proj."))
+                 and n.endswith(".weight")]
+        assert sorted(saved) == sorted(names)
+        for n in names:
+            w = base.get_parameter(n)
+            assert saved[n]["b"].shape[0] == w.shape[0] and saved[n]["a"].shape[1] == w.shape[1]

@@ -66,18 +66,15 @@ def test_train_cli_trains_and_resumes(tmp_path, model, kind):
 
 
 @pytest.mark.parametrize("args,conf,item", [
-    (["--model", "hift", "--mesh_data", "2"], {}, "item 11b"),
+    (["--model", "hift", "--mesh_data", "2"], {}, "takes no mesh"),
     (["--model", "llm"], {"llm": {"kind": "qwen2lm_phoneme_multicode"}}, "JAX CLI fails"),
     (["--model", "hift", "--lora"], {}, "trains every parameter"),
     (["--model", "llm", "--data_format", "parquet"], {"llm": {"kind": "qwen2lm_phoneme"}},
      "as jsonl"),
-    (["--model", "llm", "--mesh_model", "2", "--lora"], {}, "item 11b"),
-    (["--model", "llm", "--mesh_data", "2"], {"llm": {"kind": "qwen2lm_phoneme"}},
-     "item 11b"),
-], ids=["gan", "phoneme_lm", "lora", "parquet", "mesh", "phoneme_mesh"])
+], ids=["gan", "phoneme_lm", "lora", "parquet"])
 def test_train_cli_refuses_waiting_branches(tmp_path, args, conf, item):
-    """GAN training, --lora and the phoneme kinds under a mesh raise naming
-    ROADMAP item 11b (a mesh of the other kinds trains:
+    """GAN training under a mesh raises saying that the JAX CLI's GAN branch
+    takes no mesh (--lora and the phoneme kinds train on one:
     tests/test_torch_parallel.py); what the JAX CLI does not train (the
     multi-code kind, --lora on a vocoder, parquet shards for a phoneme LM)
     raises naming what the JAX CLI does there."""

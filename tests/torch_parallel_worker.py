@@ -62,7 +62,8 @@ def _train(model, batches: list, mesh, opt: dict, loss_fn=tstep.llm_loss_fn, spe
 
 def run_dp_tp(rank: int, world: int, inputs: dict, dirpath: str) -> dict:
     """DP(2) x TP(2): the mesh, greedy lm_generate, BatchedSynthesizer, three
-    LM train steps and a tensor-parallel checkpoint."""
+    LM train steps and a tensor-parallel checkpoint; greedy lm_generate over
+    int4 / int4xla weights, a phoneme LM's steps and LoRA steps."""
     mesh = make_mesh(2, 2)
     res = {"shape": mesh.shape, "data_rank": mesh.data_rank, "model_rank": mesh.model_rank}
 
@@ -101,7 +102,47 @@ def run_dp_tp(rank: int, world: int, inputs: dict, dirpath: str) -> dict:
     res["restored_equal"] = (all(torch.equal(v, fresh.state_dict()[k])
                                  for k, v in res["train_state"].items())
                              and all(torch.equal(mu[k], mu_back[k]) for k in mu))
+
+    # int4 / int4xla weights sharded: greedy decode and prefix logits of the
+    # data rank's rows
+    for key, qlm in inputs["quant_lms"].items():
+        shard_params(qlm, mesh, LM_RULES)
+        arrays = [_t(x)[rows] for x in a["arrays"]]
+        out, count = lm_generate(qlm, *arrays, torch.Generator().manual_seed(0),
+                                 max_steps=a["max_steps"], cache_len=a["cache_len"])
+        layer = qlm.body.layers[0]
+        res[f"quant_{key}"] = {"gen": (out.numpy(), count.numpy()),
+                               "logits": prefix_logits(qlm, arrays).numpy(),
+                               "sharded": (layer.tp_attn is not None,
+                                           layer.tp_mlp is not None)}
+
+    # a phoneme LM's steps, sharded by the same rules
+    pho = inputs["pho_lm"]
+    _, specs = shard_params(pho, mesh, LM_RULES)
+    res["pho_train"] = _train(pho, inputs["pho_batches"], mesh, inputs["opt"],
+                              tstep.phoneme_llm_loss_fn, specs)[0]
+    res["pho_state"], res["pho_specs"] = _local_state(pho), specs
+
+    # LoRA over the sharded base: the whole overlay (the test's), sliced
+    from cosyvoice_tpu_torch.train.lora import LoRAConfig, lora_loss_fn, shard_overlay
+
+    r, alpha = inputs["lora_scale"]
+    base, cfg = inputs["lora_lm"], LoRAConfig(r=r, alpha=alpha)
+    _, specs = shard_params(base, mesh, LM_RULES)
+    ov = shard_overlay(inputs["lora_pairs"], specs, mesh.tp)
+    res["lora_split"] = dict(ov.split)
+    res["lora_train"] = _train(ov, inputs["train_batches"], mesh, inputs["opt"],
+                               lora_loss_fn(base, tstep.llm_loss_fn, cfg), ov.specs())[0]
+    res["lora_whole"] = ov.whole_pairs()
     return res
+
+
+def prefix_logits(lm, arrays: list) -> torch.Tensor:
+    """The speech head's logits over each row's [sos, text, task, prompt
+    speech] (text, text_len, prompt speech, its length: arrays[:4])."""
+    with torch.no_grad():
+        emb, seq_len = lm.prefill_embeds(*arrays[:4])
+        return lm.decode_logits(lm._causal_hidden(emb, seq_len))
 
 
 def _flow_pinned_loss(draws: list):
@@ -163,10 +204,13 @@ def run_dp(rank: int, world: int, inputs: dict, dirpath: str) -> dict:
         res[f"exec_{int(uneven)}"] = losses
     res["vote"] = [all_hosts_have_data(rank == 0), all_hosts_have_data(True)]
 
-    # the CLI, tensor-parallel over the two ranks
+    # the CLI, tensor-parallel over the two ranks: the LM, LoRA over it and
+    # a phoneme LM labelled online
     from cosyvoice_tpu_torch.bin import train as train_cli
 
     train_cli.main(inputs["cli_argv"] + ["--mesh_model", "2"])
+    train_cli.main(inputs["cli_lora_argv"] + ["--mesh_model", "2"])
+    train_cli.main(inputs["cli_pho_argv"] + ["--mesh_model", "2"])
     return res
 
 
